@@ -22,6 +22,12 @@ def make_batch(cfg, rng, B=2, S=16, with_labels=True):
     return batch
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips at run time where torch sees none"
+    )
+
+
 @pytest.fixture
 def rng():
     return jax.random.PRNGKey(0)
