@@ -10,17 +10,23 @@ Statistics (Eq. 5/6):
     b = Σ_k Σ_{(x,y)∈D_k} φ(x) e_yᵀ           (d×C, fp32)
 Solve (Eq. 4):  W* = (A + λI)⁻¹ b, then per-class column normalization.
 
-The streaming (factored), personalized and deprecated Woodbury forms of the
-reference module are later slices of the port.
+Recursive form (Eq. 3): the factored state L Lᵀ = A + λI that the streaming
+engine carries (:class:`Fed3RFactored`), and the deprecated subtractive
+Woodbury state (:class:`Fed3ROnline`), kept only as the numerical foil of
+:class:`repro_torch.federated.streaming_engine.ReferenceArrivalLoop`.  The
+personalized forms are a later slice of the port.
 """
 from __future__ import annotations
 
+import math
+import warnings
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.federated.dist import resolve_device
+from repro_torch.kernels.ops import chol_gram
 
 
 class Fed3RStats(NamedTuple):
@@ -130,3 +136,182 @@ def predict(W: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
 def accuracy(W: torch.Tensor, features: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     hits = torch.argmax(predict(W, features), dim=-1) == labels.to(W.device).long()
     return hits.to(torch.float32).mean()
+
+
+# ---------------------------------------------------------------------------
+# Recursive (online) formulation — factored rank-n updates
+# ---------------------------------------------------------------------------
+
+
+class Fed3RFactored(NamedTuple):
+    """Online RR state in Cholesky-factored form: L Lᵀ = A + λI.
+
+    Every arrival performs the ADDITIVE rank-n update L ← chol(L Lᵀ + ZᵀZ)
+    (no subtraction, hence no fp32 cancellation — contrast
+    :class:`Fed3ROnline`), and W = (A + λI)⁻¹ b is two triangular solves
+    against L.  ``L`` is lower-triangular (its upper triangle is zero);
+    ``b`` is a plain running sum, like :class:`Fed3RStats`.
+    """
+
+    L: torch.Tensor  # (d, d) fp32 lower Cholesky factor of A + λI
+    b: torch.Tensor  # (d, C) fp32
+
+
+def init_factored(
+    d: int, n_classes: int, ridge_lambda: float, device: Union[str, torch.device] = "cuda"
+) -> Fed3RFactored:
+    dev = resolve_device(device)
+    sqrt_lam = float(torch.tensor(ridge_lambda, dtype=torch.float32).sqrt())  # in fp32, as the reference
+    return Fed3RFactored(
+        L=sqrt_lam * torch.eye(d, dtype=torch.float32, device=dev),
+        b=torch.zeros((d, n_classes), dtype=torch.float32, device=dev),
+    )
+
+
+def psd_cholesky(G: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a nominally positive definite fp32 Gram G.
+
+    The fp32 Gram L Lᵀ + ZᵀZ is itself rounded: each entry is off by about
+    eps·max diag(G), and a d×d perturbation of that size has a spectral norm
+    near √d·eps·max diag(G).  While the absorbed samples are fewer than d,
+    G's smallest eigenvalues are the ridge λ, and that rounding can push
+    them below zero: at d = 1280, λ = 1e-2 and the streaming driver's data
+    the reference's ``jnp.linalg.cholesky`` fails on the first wave and the
+    stream stays NaN.  So, as the reference's ``compress.psd_cholesky`` does
+    for quantization noise: the plain factorization first (bit-identical
+    where it succeeds), and only where it fails, retries with a diagonal
+    jitter τ ∈ {1, 4, 16}·√d·eps·max diag(G).  Where every retry fails, the
+    factor is NaN on and below the diagonal (zero above), the reference's
+    failure pattern.
+
+    Branch-free: ``cholesky_ex`` without its host-side check and ``where``
+    chains, so a wave makes no host sync (``torch.linalg.cholesky`` would
+    sync to raise).  The factor comes back row-major (``cholesky_ex`` writes
+    it column-major), as the ``chol_gram`` kernel reads it.
+    """
+    d = G.shape[0]
+    L, info = torch.linalg.cholesky_ex(G, check_errors=False)
+    bound = math.sqrt(d) * torch.finfo(torch.float32).eps * G.diagonal().amax()
+    eye = torch.eye(d, dtype=G.dtype, device=G.device)
+    for mult in (1.0, 4.0, 16.0):
+        retry, retry_info = torch.linalg.cholesky_ex(G + (mult * bound) * eye, check_errors=False)
+        take = (info != 0) & (retry_info == 0)
+        L = torch.where(take, retry, L)
+        info = torch.where(take, retry_info, info)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")).tril()).contiguous()
+
+
+def factored_update(
+    state: Fed3RFactored,
+    features: torch.Tensor,  # (n, d)
+    labels: torch.Tensor,  # (n,) int
+    mask: Optional[torch.Tensor] = None,  # (n,) 1.0 real / 0.0 padding
+) -> Fed3RFactored:
+    """Stable rank-n update with a new arrival batch Z (n, d):
+
+    L ← chol(L Lᵀ + ZᵀZ),  b ← b + ZᵀY.
+
+    The two GEMMs are one launch of the fused ``chol_gram`` kernel on the
+    card (its plain version on the CPU); the factorization is
+    :func:`psd_cholesky`.
+    """
+    z, y, _ = masked_design(features, labels, state.b.shape[1], mask)
+    G, dB = chol_gram(state.L, z, y)
+    return Fed3RFactored(L=psd_cholesky(G), b=state.b + dB)
+
+
+def factored_solution(state: Fed3RFactored, normalize: bool = True) -> torch.Tensor:
+    """W = (A + λI)⁻¹ b by two triangular solves against the carried factor."""
+    W = torch.cholesky_solve(state.b, state.L, upper=False)
+    if normalize:
+        W = normalize_columns(W)
+    return W
+
+
+# ---------------------------------------------------------------------------
+# Deprecated: subtractive Sherman–Morrison–Woodbury compat path
+# ---------------------------------------------------------------------------
+
+
+class Fed3ROnline(NamedTuple):
+    """DEPRECATED online RR state carrying A⁻¹ directly.
+
+    With λ ≪ tr(A)/d the initial A⁻¹ = I/λ is orders of magnitude larger
+    than the converged inverse, so the subtractive Woodbury update suffers
+    catastrophic cancellation in fp32.  Kept only as the numerical foil of
+    the streaming engine; use ``init_factored``/``factored_update``.
+    """
+
+    Ainv: torch.Tensor  # (d, d) fp32 — (A + λI)⁻¹
+    b: torch.Tensor  # (d, C)
+
+
+# fp32 cancellation becomes visible once 1/λ dwarfs the converged inverse;
+# below this λ the legacy path is known-bad even at modest sample counts
+_SMALL_LAMBDA = 0.1
+
+
+def _warn_legacy_woodbury(ridge_lambda: Optional[float] = None) -> None:
+    hazard = (
+        " At small ridge_lambda the subtractive update CANCELS"
+        " catastrophically in fp32 — expect a visibly wrong W."
+        if ridge_lambda is not None and ridge_lambda < _SMALL_LAMBDA
+        else ""
+    )
+    warnings.warn(
+        "Fed3ROnline/woodbury_update is deprecated: the subtractive Woodbury"
+        " update is numerically unstable in fp32. Use the factored state"
+        " (init_factored/factored_update/factored_solution) or the streaming"
+        " engine (repro_torch.federated.streaming_engine)." + hazard,
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def init_online(
+    d: int, n_classes: int, ridge_lambda: float, device: Union[str, torch.device] = "cuda"
+) -> Fed3ROnline:
+    _warn_legacy_woodbury(ridge_lambda)
+    dev = resolve_device(device)
+    return Fed3ROnline(
+        Ainv=torch.eye(d, dtype=torch.float32, device=dev) / ridge_lambda,
+        b=torch.zeros((d, n_classes), dtype=torch.float32, device=dev),
+    )
+
+
+def woodbury_update(
+    state: Fed3ROnline, features: torch.Tensor, labels: torch.Tensor
+) -> Fed3ROnline:
+    """DEPRECATED rank-n update with a new client's batch Z (n, d):
+
+    (A + ZᵀZ)⁻¹ = A⁻¹ − A⁻¹Zᵀ (I + Z A⁻¹ Zᵀ)⁻¹ Z A⁻¹
+
+    The subtraction is the fp32 hazard; prefer :func:`factored_update`.
+    """
+    Z = features.to(torch.float32)
+    n = Z.shape[0]
+    C = state.b.shape[1]
+    AiZt = state.Ainv @ Z.T  # (d, n)
+    K = torch.eye(n, dtype=torch.float32, device=Z.device) + Z @ AiZt  # (n, n)
+    Lk = torch.linalg.cholesky(K)
+    Ainv = state.Ainv - AiZt @ torch.cholesky_solve(AiZt.T, Lk, upper=False)
+    b = state.b + Z.T @ F.one_hot(labels.long(), C).to(torch.float32)
+    return Fed3ROnline(Ainv=Ainv, b=b)
+
+
+def online_solution(
+    state: Union[Fed3RFactored, Fed3ROnline], normalize: bool = True
+) -> torch.Tensor:
+    """Solution of either online state; routes through the factored path.
+
+    Given a :class:`Fed3RFactored` this IS :func:`factored_solution`.  The
+    legacy :class:`Fed3ROnline` branch warns: its W inherits the
+    accumulated cancellation error of the carried A⁻¹.
+    """
+    if isinstance(state, Fed3RFactored):
+        return factored_solution(state, normalize)
+    _warn_legacy_woodbury()
+    W = state.Ainv @ state.b
+    if normalize:
+        W = normalize_columns(W)
+    return W

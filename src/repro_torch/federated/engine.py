@@ -9,7 +9,10 @@ and the datacenter path (:mod:`repro_torch.launch.train`) — funnels through
   PackedClients`) moves to the engine's device once per call;
 * per shard, ``feature_fn`` maps the flattened raw inputs (tokens, or
   precomputed features) to φ features in one batch, so backbone extraction
-  batches over whole shards;
+  batches over whole shards; with ``rff_params`` (FED3R-RF) the shard's
+  features then go through ONE launch of the fused random-features kernel
+  (:func:`repro_torch.kernels.ops.rff_transform`).  ψ(0) ≠ 0, so padding
+  rows are masked after the map, in the masked design, as in the reference;
 * per client block, the masked design goes through ONE launch of the
   ``fed3r_stats`` kernel (:func:`repro_torch.kernels.ops.fed3r_stats`; its
   plain version on the CPU), and the block folds into the accumulator.
@@ -21,8 +24,8 @@ shards — so A and b are bit-identical under client reordering AND
 re-sharding (different ``clients_per_shard``), the paper's §4.3 invariance
 made exact rather than approximate.
 
-Not ported yet: compressed wire formats (ROADMAP Queue 1 item 6), the fused
-FED3R-RF map (item 3), the psum/mesh/tree backends (item 8).
+Not ported yet: compressed wire formats (ROADMAP Queue 1 item 6), the
+psum/mesh/tree backends (item 8).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.core import fed3r, ncm
 from repro_torch.core.fed3r import Fed3RStats
+from repro_torch.core.random_features import RFFParams, rff_map
 from repro_torch.data.pipeline import PackedClients
 from repro_torch.federated.dist import (
     DistConfig,
@@ -91,8 +95,9 @@ class AccumulationEngine(DistDispatchMixin):
 
     ``feature_fn(params, flat_inputs) -> (n, d)`` maps the packed raw inputs
     of one shard (flattened to ``(clients_per_shard·max_n, ...)``) to φ
-    features; ``None`` means the inputs already are features.  Everything
-    runs on ``device`` (the card by default).
+    features; ``None`` means the inputs already are features.
+    ``rff_params`` maps each shard's φ through the FED3R-RF random features.
+    Everything runs on ``device`` (the card by default).
     """
 
     def __init__(
@@ -100,16 +105,15 @@ class AccumulationEngine(DistDispatchMixin):
         cfg: EngineConfig,
         *,
         feature_fn: Optional[Callable[[Any, torch.Tensor], torch.Tensor]] = None,
-        rff_params: Optional[Any] = None,
+        rff_params: Optional[RFFParams] = None,
         device: Union[str, torch.device] = "cuda",
         telemetry: Optional[Telemetry] = None,
     ):
-        if rff_params is not None:
-            raise NotImplementedError(
-                "rff_params: the fused FED3R-RF map is ROADMAP Queue 1 item 3"
-            )
+        if rff_params is not None and not isinstance(rff_params, RFFParams):
+            raise TypeError(f"rff_params must be RFFParams, got {type(rff_params).__name__}")
         self.cfg = cfg
         self.feature_fn = feature_fn
+        self.rff_params = rff_params
         self.device = resolve_device(device)
         self.dist = DistContext(cfg.dist, engine="accumulation", telemetry=telemetry)
 
@@ -144,6 +148,8 @@ class AccumulationEngine(DistDispatchMixin):
             for x, y, m in zip(inputs, labels, mask):  # (P, N, ...), (P, N), (P, N)
                 flat = x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
                 feats = flat if self.feature_fn is None else self.feature_fn(params, flat)
+                if self.rff_params is not None:  # one kernel launch per shard
+                    feats = rff_map(self.rff_params, feats)
                 feats = feats.reshape(tuple(x.shape[:2]) + tuple(feats.shape[1:]))
                 for c in range(x.shape[0]):
                     acc = self._client_fold(acc, feats[c], y[c], m[c])

@@ -6,8 +6,10 @@ level, over a :class:`FederatedDataset` of precomputed features (or an
 statistics pass is :mod:`repro_torch.launch.train`; both fold clients
 through the same accumulation engine.
 
-Not ported yet: FED3R-RF (``n_random_features > 0``, ROADMAP Queue 1 item
-3) and FED3R+FT (``run_fed3r_ft``, item 7).
+With ``n_random_features > 0`` :func:`run_fed3r` is FED3R-RF (paper §4.2):
+every client's features go through one shared random-features map before
+the statistics pass.  Not ported yet: FED3R+FT (``run_fed3r_ft``, ROADMAP
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import Fed3RConfig, FederatedConfig
 from repro_torch.core import fed3r, ncm
+from repro_torch.core.random_features import RFFParams, rff_init, rff_map
 from repro_torch.data.pipeline import FederatedDataset, pack_client_shards
 from repro_torch.federated.dist import resolve_device
 from repro_torch.federated.engine import (
@@ -104,25 +107,40 @@ def run_fed3r(
     *,
     extractor: Optional[Extractor] = None,
     eval_every: int = 10,
+    rff_params: Optional[RFFParams] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> Tuple[torch.Tensor, fed3r.Fed3RStats, Fed3RHistory]:
-    """FED3R (Algorithm 1).  Returns (W*, final stats, accuracy history)."""
-    if f3_cfg.n_random_features > 0:
-        raise NotImplementedError(
-            "FED3R-RF (n_random_features > 0) is ROADMAP Queue 1 item 3"
-        )
+    """FED3R (Algorithm 1).  Returns (W*, final stats, accuracy history).
+
+    With ``f3_cfg.n_random_features > 0`` this is FED3R-RF: the server draws
+    one shared (Ω, β) (from a ``torch.Generator`` seeded ``fed_cfg.seed +
+    101``, unless ``rff_params`` is given) and every client maps its
+    features before computing statistics; the test set goes through the
+    same map.
+    """
     dev = resolve_device(device)
     extractor = extractor or _default_extractor(dev)
     C = dataset.n_classes
-    d = int(extractor(dataset.features[:1]).shape[-1])
+    d_raw = int(extractor(dataset.features[:1]).shape[-1])
+
+    use_rf = f3_cfg.n_random_features > 0
+    if use_rf and rff_params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(fed_cfg.seed + 101)
+        rff_params = rff_init(gen, d_raw, f3_cfg.n_random_features, f3_cfg.rff_sigma)
+    d = f3_cfg.n_random_features if use_rf else d_raw
     test_phi = extractor(_host(test_features))
+    if use_rf:
+        test_phi = rff_map(rff_params, test_phi)
     test_y = _on(test_labels, dev)
 
     sampler = ClientSampler(
         dataset.n_clients, fed_cfg.clients_per_round,
         replacement=fed_cfg.sample_with_replacement, seed=fed_cfg.seed,
     )
-    engine = AccumulationEngine(EngineConfig(n_classes=C), device=dev)
+    engine = AccumulationEngine(
+        EngineConfig(n_classes=C), rff_params=rff_params if use_rf else None, device=dev,
+    )
     acc = engine.init(d)
     clients_per_shard = min(fed_cfg.clients_per_round, dataset.n_clients)
 

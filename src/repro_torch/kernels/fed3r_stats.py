@@ -4,10 +4,9 @@ The port of the TPU kernel ``fed3r_stats_pallas`` (``_stats_kernel``) of the
 reference package.  Three pieces:
 
 * the CUDA C++ kernel, ``csrc/fed3r_stats.cu`` (design notes there), built
-  for ``sm_90a`` with ``nvcc`` into a shared library with a plain C
-  interface and loaded with ``ctypes``.  The build runs at the first launch
-  (or :func:`build`), never at import, into ``build/`` at the checkout root,
-  keyed by a hash of the source;
+  for ``sm_90a`` by the port's one builder (:mod:`repro_torch.kernels.build`)
+  at the first launch, never at import, into ``build/``
+  at the checkout root, keyed by a hash of the source;
 * its plain version, :func:`repro_torch.kernels.ref.fed3r_stats_ref`;
 * the wrapper :func:`fed3r_stats`: a CPU tensor goes to the plain version, a
   CUDA tensor to the kernel.  There is no fallback: a CUDA tensor launches
@@ -20,96 +19,29 @@ bf16 inputs are later work.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import fed3r_stats_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fed3r_stats.cu"
-# src/repro_torch/kernels/ → the checkout root, whose build/ git ignores
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's output of the build this process ran ("" if cached)
+LIBRARY = _build.CudaLibrary("fed3r_stats", {
+    "fed3r_stats_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                           ctypes.c_int),
+})
+SOURCE = LIBRARY.source
+library_path = LIBRARY.path
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (neither on PATH nor under $CUDA_HOME/bin): the "
-        "fed3r_stats CUDA kernel cannot be built"
-    )
-
-
-def library_path() -> Path:
-    """Where the shared library of the current source lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fed3r_stats-{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernel if this source has no library yet; return its path.
-
-    Compiles to a private temporary name and renames it into place, so
-    concurrent builds never load a half-written library.
-    """
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.fed3r_stats_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.fed3r_stats_launch.restype = ctypes.c_int
-            lib.fed3r_stats_error_string.argtypes = [ctypes.c_int]
-            lib.fed3r_stats_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
-
-
-def load() -> float:
-    """Build (if needed) and load the library; return the seconds it took."""
-    t0 = time.perf_counter()
-    _library()
-    return time.perf_counter() - t0
+def __getattr__(name: str):
+    # the library handle and nvcc's log live on LIBRARY; these module names
+    # read them (``_lib`` is None until the first launch)
+    if name == "_lib":
+        return LIBRARY.lib
+    if name == "build_log":
+        return LIBRARY.build_log
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _check(Z: torch.Tensor, Y: torch.Tensor) -> None:
@@ -126,21 +58,18 @@ def _check(Z: torch.Tensor, Y: torch.Tensor) -> None:
         )
     if Z.device != Y.device:
         raise ValueError(f"fed3r_stats: Z on {Z.device} but Y on {Y.device}")
+    # the same contract on both devices, so the CPU tests check what the card needs
+    if not (Z.is_contiguous() and Y.is_contiguous()):
+        raise ValueError("fed3r_stats: Z and Y must be contiguous (row-major)")
 
 
 def _launch(Z: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    if not (Z.is_contiguous() and Y.is_contiguous()):
-        raise ValueError("fed3r_stats: Z and Y must be contiguous (row-major)")
     n, d = Z.shape
     C = Y.shape[1]
     if max(n, d, C) >= 2**31 or d == 0 or C == 0:
         raise ValueError(f"fed3r_stats: unsupported shape n={n}, d={d}, C={C}")
-    if torch.cuda.get_device_capability(Z.device) != (9, 0):
-        raise RuntimeError(
-            f"fed3r_stats is built for sm_90a (Hopper); {torch.cuda.get_device_name(Z.device)} "
-            f"has compute capability {torch.cuda.get_device_capability(Z.device)}"
-        )
-    lib = _library()
+    _build.require_hopper(Z.device, "fed3r_stats")
+    lib = LIBRARY.load()
     A = torch.empty((d, d), dtype=torch.float32, device=Z.device)
     b = torch.empty((d, C), dtype=torch.float32, device=Z.device)
     with torch.cuda.device(Z.device):
@@ -148,9 +77,7 @@ def _launch(Z: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
         err = lib.fed3r_stats_launch(
             Z.data_ptr(), Y.data_ptr(), A.data_ptr(), b.data_ptr(), n, d, C, stream
         )
-    if err != 0:
-        msg = lib.fed3r_stats_error_string(err).decode()
-        raise RuntimeError(f"fed3r_stats kernel launch failed: cudaError {err} ({msg})")
+    LIBRARY.check(err, "fed3r_stats")
     fed3r_stats.launches += 1
     return A, b
 

@@ -160,5 +160,5 @@ def test_engine_rejects_unported_options():
         EngineConfig(n_classes=C, dist=DistConfig(aggregation="psum"))
     with pytest.raises(ValueError):
         DistConfig(aggregation="allgather")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # FED3R-RF is ported: rff_params must be RFFParams
         _engine(rff_params=object())

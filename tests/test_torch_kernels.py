@@ -1,10 +1,17 @@
-"""The port's fed3r_stats against the reference kernel, and on the card.
+"""The port's kernels against the reference kernel, and on the card.
+
+``fed3r_stats`` is held against the reference here; ``rff`` and
+``chol_gram`` in ``test_torch_rff.py`` and ``test_torch_streaming.py``.  The
+tests marked ``gpu`` (all three kernels, and the streaming engine's
+sync-free absorb) run on the card; this file imports JAX only inside the
+reference comparisons, so they run where JAX is not installed.
 
 On the CPU the port's wrapper runs its plain version; the reference's Pallas
 kernel runs in interpret mode.  Tolerances are scaled to the largest entry
 of each statistic: both sides sum fp32 products in different orders, so the
 gap grows with the magnitude of the sums, not with the entry compared.
 """
+import math
 import subprocess
 import sys
 
@@ -14,8 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fed3r_stats as fed3r_stats_mod  # noqa: E402
-from repro_torch.kernels.ops import fed3r_stats  # noqa: E402
-from repro_torch.kernels.ref import fed3r_stats_ref  # noqa: E402
+from repro_torch.kernels.ops import chol_gram, fed3r_stats, rff_transform  # noqa: E402
+from repro_torch.kernels.ref import chol_gram_ref, fed3r_stats_ref, rff_ref  # noqa: E402
 
 # fp32 sums of n ≤ 1024 products in two different orders: ≤ ~n·eps relative
 # to the largest entry; 1e-5 leaves an order of magnitude of headroom
@@ -109,3 +116,66 @@ def test_fed3r_stats_kernel_on_card(cuda_device, n, d, C):
     assert torch.equal(A, A.T)  # per-element sample-order sums: exactly symmetric
     A2, b2 = fed3r_stats(Zc, Yc)
     assert torch.equal(A, A2) and torch.equal(b, b2)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,D", [(37, 100, 130), (5120, 1280, 5000)])
+def test_rff_kernel_on_card(cuda_device, n, d, D):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.default_rng(3)
+    Z = torch.from_numpy((7.0 * r.normal(size=(n, d))).astype(np.float32)).to(cuda_device)
+    omega = torch.from_numpy((r.normal(size=(d, D)) / 1000.0).astype(np.float32)).to(cuda_device)
+    beta = torch.from_numpy(r.uniform(0, 2 * np.pi, size=D).astype(np.float32)).to(cuda_device)
+    before = rff_transform.launches
+    out = rff_transform(Z, omega, beta)
+    torch.cuda.synchronize()
+    assert rff_transform.launches == before + 1
+    err = float((out - rff_ref(Z, omega, beta)).abs().max())
+    assert err <= 1e-5 * math.sqrt(2.0 / D)  # ψ is bounded by √(2/D)
+    assert torch.equal(out, rff_transform(Z, omega, beta))  # no atomics: repeatable
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n,C", [(1280, 3000, 100), (130, 77, 7), (64, 0, 5)])
+def test_chol_gram_kernel_on_card(cuda_device, d, n, C):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.default_rng(4)
+    A = r.normal(size=(d, d))
+    L = torch.from_numpy(np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32))
+    Z, Y = _inputs(n, d, C, seed=5)
+    L, Zc, Yc = L.to(cuda_device), torch.from_numpy(Z).to(cuda_device), torch.from_numpy(Y).to(cuda_device)
+    before = chol_gram.launches
+    G, B = chol_gram(L, Zc, Yc)
+    torch.cuda.synchronize()
+    assert chol_gram.launches == before + 1
+    Gr, Br = chol_gram_ref(L, Zc, Yc)
+    _assert_scaled_close(G.cpu().numpy(), Gr.cpu().numpy())
+    if n:
+        _assert_scaled_close(B.cpu().numpy(), Br.cpu().numpy())
+    else:
+        assert not B.any()  # an empty wave: B exactly 0
+    assert torch.equal(G, G.T)  # mirrored tiles: exactly symmetric
+    G2, B2 = chol_gram(L, Zc, Yc)
+    assert torch.equal(G, G2) and torch.equal(B, B2)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.gpu
+def test_streaming_absorb_makes_no_host_sync_on_card(cuda_device):
+    from repro_torch.data.pipeline import pack_arrival_waves
+    from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
+
+    r = np.random.default_rng(6)
+    waves = [[(r.normal(size=(int(n), 24)).astype(np.float32),
+               r.integers(0, 6, size=int(n)).astype(np.int32)) for n in r.integers(8, 40, size=k)]
+             for k in (2, 0, 3, 1)]
+    packed = pack_arrival_waves(waves).to(cuda_device)
+    eng = StreamingEngine(StreamConfig(n_classes=6, ridge_lambda=1e-2, refresh_every=2),
+                          device=cuda_device)
+    state, _ = eng.absorb(eng.init(24), packed)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = eng.absorb(state, packed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.wave == 8 and bool(torch.isfinite(state.W).all())

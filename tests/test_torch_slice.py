@@ -155,11 +155,13 @@ def test_client_sampler_draws_the_reference_clients(replacement, n_clients, per_
 
 
 def test_fed3r_rf_and_finetuning_are_not_ported_yet(fed_data):
+    # FED3R-RF is ported now (tests/test_torch_rff.py holds it against the
+    # reference); fine-tuning is not
     _, test, pfed = fed_data
-    with pytest.raises(NotImplementedError):
-        fed3r_driver.run_fed3r(pfed, np.asarray(test.features), np.asarray(test.labels),
-                               Fed3RConfig(n_classes=6, n_random_features=64),
-                               _fc(FederatedConfig), device="cpu")
+    W, stats, _ = fed3r_driver.run_fed3r(pfed, np.asarray(test.features), np.asarray(test.labels),
+                                         Fed3RConfig(n_classes=6, n_random_features=64),
+                                         _fc(FederatedConfig), device="cpu")
+    assert W.shape == (64, 6) and stats.A.shape == (64, 64)
     with pytest.raises(NotImplementedError):
         train.run(ARCH, rounds=1, device="cpu")
 
