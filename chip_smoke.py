@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero.  Each
 path resets every kernel's launch count just before it runs and reads the
 counts just after.
 
-1. build     -- compile the three CUDA kernels (``fed3r_stats``, ``rff``,
-                ``chol_gram``) from ``src/repro_torch/kernels/csrc/`` with
-                nvcc for sm_90a, one nvcc per source, all started together.
+1. build     -- compile the four CUDA kernels (``fed3r_stats``, ``rff``,
+                ``chol_gram``, ``batched_chol_gram``) from
+                ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a, one
+                nvcc per source, all started together.
 2. slice     -- ``launch/train.py`` phase 1 on ``fed3r-mnv2-proxy`` at full
                 width (d_model 1280, 6 layers), 8192 samples x 128 tokens,
                 100 one-class clients, 10 per shard: fed3r_stats launches
@@ -30,7 +31,18 @@ counts just after.
                 ``torch.cuda.set_sync_debug_mode("error")``.
 6. stream-rf -- the same arrivals through ``StreamingEngine(rff_params=...)``
                 at D = 5000.
-7. kernel    -- each kernel against its plain PyTorch version at the shapes
+7. stream-slots -- ``serve_stream(engine="slots")`` at the stream's shape:
+                the slot engine's absorb and serve stages, its served W
+                bitwise the arrival policy's.
+8. heads     -- ``launch/serve_heads.py`` at d = 1280, 100 classes, 100
+                tenants, 24 waves, Zipf query bursts: ``engine="lru"`` under
+                both invalidation policies and ``engine="slots"``;
+                batched_chol_gram launches equal the solves with misses, the
+                two engines serve the same answers under "strict"; then, on
+                the widest cohort of the run, alpha = 0 and padded rows
+                bitwise the global head, every head against a float64 closed
+                form, permutation-bitwise heads, and the solve's steps timed.
+9. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones, and at each path's
                 shape the times of kernel, plain version and library call.
 
@@ -79,10 +91,21 @@ RF_D = 5000
 RFF_REL = 1e-5
 RFF_SHAPES_RAGGED = [(37, 100, 130)]
 CHOL_SHAPES_RAGGED = [(130, 77, 7)]
+BATCHED_SHAPES_RAGGED = [(3, 130, 77, 7)]  # (K, d, n, C)
 # the streaming path: the reference driver's own dataset at full width
 STREAM = dict(n_waves=24, rate=4.0, segment=6, n_clients=100, d=1280, n_classes=100,
               ridge_lambda=0.01, seed=0)
 STREAM_K = 4  # the every-k policy's cadence
+# the head-serving path: the stream's arrivals and data, Zipf(1.1) query
+# bursts from the tenants' own data, the reference driver's alpha grid
+HEADS = dict(n_waves=24, segment=6, rate=4.0, queries_per_burst=48, bursts_per_segment=2,
+             cache_capacity=32, n_clients=100, d=1280, n_classes=100, ridge_lambda=0.01,
+             alpha_grid=(0.0, 0.5, 1.0, 2.0, 4.0), seed=0)
+HEADS_RUNS = (("lru strict", "lru", "strict"), ("lru segmented", "lru", "segmented"),
+              ("slots", "slots", "strict"))
+# the two engines' served scores under "strict": the same cohorts and solves,
+# contracted by batched GEMMs of different widths
+SCORE_REL = 1e-5
 # the main path: launch/train.py phase 1 at full width
 SLICE_ARCH = "fed3r-mnv2-proxy"
 SLICE = dict(n_samples=8192, seq_len=128, n_classes=100, n_clients=100, clients_per_round=10)
@@ -125,13 +148,14 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20, budget_ms: float = 400.0) ->
 
 
 def reset_counts(ops) -> None:
-    for fn in (ops.fed3r_stats, ops.rff_transform, ops.chol_gram):
+    for fn in (ops.fed3r_stats, ops.rff_transform, ops.chol_gram, ops.batched_chol_gram):
         fn.launches = 0
 
 
 def read_counts(ops) -> dict:
     return {"fed3r_stats": ops.fed3r_stats.launches, "rff": ops.rff_transform.launches,
-            "chol_gram": ops.chol_gram.launches}
+            "chol_gram": ops.chol_gram.launches,
+            "batched_chol_gram": ops.batched_chol_gram.launches}
 
 
 def phase_build(build, ops) -> dict:
@@ -583,7 +607,7 @@ def phase_stream(torch, ops) -> dict:
             wave_breakdown(torch, ops, "stream", state.L, *wave_inputs(torch, packed, widest_wave(
                 packed)), cfg.n_classes)
         out[policy] = {"launches": counts["chol_gram"], "wall_s": wall, "peak_bytes": peak,
-                       "packed": packed, "L": state.L}
+                       "packed": packed, "L": state.L, "W": W}
     return out
 
 
@@ -682,6 +706,313 @@ def wave_design(torch, packed, t, n_classes, psi=None):
     return z.contiguous(), yh.contiguous()
 
 
+def phase_stream_slots(torch, ops, W_arrival) -> dict:
+    """serve_stream(engine="slots") at the stream's shape."""
+    from repro_torch.launch.serve_stream import serve_stream
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    res = serve_stream(engine="slots", verbose=False, device="cuda", **STREAM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    T = res["packed"].n_waves
+    same = bool(torch.equal(res["W"], W_arrival))
+    log(f"[stream-slots] serve_stream engine=slots: {T} waves, acc per segment "
+        f"{[round(a, 4) for a in res['acc_served']]}, final {res['acc_final']:.4f}; "
+        f"{res['dispatches']} dispatches ({res['serve_dispatches']} serve); stage seconds "
+        + " ".join(f"{k} {v:.4f}" for k, v in res["stage_s"].items())
+        + f"; wall {wall:.3f}s, peak memory {peak / 2**30:.3f} GiB; launches {counts}; served W "
+        f"bitwise the arrival policy's: {same}")
+    if counts["chol_gram"] != T or counts["batched_chol_gram"] or counts["rff"] or counts[
+            "fed3r_stats"]:
+        raise AssertionError(f"serve_stream(engine='slots') launched {counts} for {T} waves")
+    if not same or res["acc_final"] <= 2.0 / STREAM["n_classes"]:
+        raise AssertionError("the slot engine's served head is not the stream's")
+    return {"wall_s": wall, "peak_bytes": peak}
+
+
+def burst_tenants(log_, k: int) -> list:
+    """The distinct tenants of burst k of a serve_heads run (its Zipf trace)."""
+    from repro_torch.launch.serve_heads import _make_traffic
+
+    q = HEADS["queries_per_burst"]
+    n_bursts = len(log_["solved_now"])
+    trace = _make_traffic("zipf", HEADS["n_clients"], n_bursts * q, 1.1, HEADS["seed"] + 17)
+    return sorted({int(t) for t in trace[k * q:(k + 1) * q]})
+
+
+def phase_heads(torch, ops) -> dict:
+    """serve_heads at full width: lru strict, lru segmented and slots."""
+    from repro_torch.launch.serve_heads import serve_heads
+
+    runs = {}
+    C = HEADS["n_classes"]
+    for label, engine, invalidation in HEADS_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = serve_heads(engine=engine, invalidation=invalidation, verbose=False,
+                          device="cuda", **HEADS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        peak = torch.cuda.max_memory_allocated()
+        solves = sum(1 for n in res["solved_now"] if n > 0)
+        c = res["cache"]
+        line = (f"[heads] serve_heads {label}: {len(res['solved_now'])} bursts of "
+                f"{HEADS['queries_per_burst']}, heads solved per burst {res['solved_now']}; hit "
+                f"rate {res['hit_rate'][-1]:.3f} ({c['hits']} hits / {c['misses']} misses, "
+                f"{c['stale_evictions']} stale, {c['lru_evictions']} evictions); acc on "
+                f"tenant-local queries {np.mean(res['acc_personal']):.4f} (per burst "
+                f"{[round(a, 4) for a in res['acc_personal']]}), global head test acc "
+                f"{res['acc_global_test']:.4f}; wall {wall:.3f}s, peak memory "
+                f"{peak / 2**30:.3f} GiB; launches {counts}")
+        if engine == "slots":
+            line += ("; stage seconds " + " ".join(f"{k} {v:.4f}" for k, v in
+                                                   res["stage_s"].items())
+                     + f"; latency p50 {1e3 * res['latency_p50_s']:.3f} ms p99 "
+                     f"{1e3 * res['latency_p99_s']:.3f} ms")
+        log(line)
+        if counts["batched_chol_gram"] != solves or counts["chol_gram"] != HEADS["n_waves"] or \
+                counts["rff"] or counts["fed3r_stats"]:
+            raise AssertionError(f"serve_heads {label} launched {counts} for {solves} solves "
+                                 f"and {HEADS['n_waves']} waves")
+        if engine == "lru" and res["personalize_dispatches"] != solves:
+            raise AssertionError(f"{res['personalize_dispatches']} head solves for {solves}")
+        if not all(bool(torch.isfinite(sc).all()) for sc in res["scores"]):
+            raise AssertionError(f"serve_heads {label} served a non-finite score")
+        if np.mean(res["acc_personal"]) <= 2.0 / C or res["acc_global_test"] <= 2.0 / C:
+            raise AssertionError(f"serve_heads {label}: accuracy at chance")
+        runs[label] = {**res, "wall_s": wall, "peak_bytes": peak,
+                       "launches": counts["batched_chol_gram"]}
+
+    lru, slots = runs["lru strict"], runs["slots"]
+    err = max(float((a - b).abs().max()) / float(a.abs().max())
+              for a, b in zip(lru["scores"], slots["scores"]))
+    same_modes = lru["modes"] == slots["modes"]
+    log(f"[heads] strict: lru and slots serve the same modes: {same_modes}; max|score_lru - "
+        f"score_slots| / max|score| {err:.3e} (limit {SCORE_REL:g})")
+    if not same_modes or err > SCORE_REL:
+        raise AssertionError("the lru and slots engines serve different answers under strict")
+    return runs
+
+
+def widest_cohort(run) -> tuple:
+    """The run's widest solve: its burst's distinct tenants, packed as the
+    server packs a miss list (cohort rounded up to 8, the dataset's max_n)."""
+    from repro_torch.data.pipeline import pack_personal_cohort
+
+    k = int(np.argmax(run["solved_now"]))
+    tenants = burst_tenants(run, k)
+    fed = run["server"].dataset
+    max_n = int(fed.client_sizes().max())
+
+    def pack(ids):
+        return pack_personal_cohort(
+            [(fed.client(t).features, fed.client(t).labels) for t in ids], client_ids=ids,
+            cohort_size=-(-len(ids) // 8) * 8, max_n=max_n)
+
+    return tenants, pack
+
+
+def phase_heads_gates(torch, run) -> dict:
+    """The heads' numerics on the run's final global state and widest cohort."""
+    from repro_torch.core import fed3r
+    from repro_torch.federated.personalization import PersonalizationEngine, PersonalizeConfig
+
+    C = HEADS["n_classes"]
+    state = run["server"].state.factored
+    tenants, pack = widest_cohort(run)
+    packed = pack(tenants)
+    eng = PersonalizationEngine(PersonalizeConfig(n_classes=C, alpha_grid=HEADS["alpha_grid"]),
+                                device="cuda")
+    heads = eng.solve_heads(state, packed)
+    Wg = fed3r.factored_solution(state)
+    ids = heads.client_ids.tolist()
+    alphas = heads.alpha.tolist()
+    alpha0 = [k for k in range(len(ids)) if ids[k] < 0 or alphas[k] == 0.0]
+    # solve_at with every other real row pinned to 0
+    pinned = [0.0 if k % 2 == 0 else float(HEADS["alpha_grid"][1 + k % 4])
+              for k in range(packed.cohort)]
+    at = eng.solve_at(state, packed, pinned)
+    bitwise = all(torch.equal(heads.W[k], Wg) for k in alpha0) and all(
+        torch.equal(at.W[k], Wg) for k in range(packed.cohort) if pinned[k] == 0.0)
+    log(f"[heads] widest cohort: {len(tenants)} tenants in a cohort of {packed.cohort} "
+        f"(max_n {packed.inputs.shape[1]}), selected alpha {alphas}; alpha = 0 and padded rows "
+        f"({len(alpha0)} of solve_heads, {pinned.count(0.0)} of solve_at) bitwise "
+        f"factored_solution: {bitwise}")
+    if not bitwise:
+        raise AssertionError("an alpha = 0 or padded head is not the global head, bitwise")
+
+    # every real head against a float64 closed form at its alpha, beside the
+    # fp32 unbatched personalized_solution: the swept heads at their selected
+    # alpha, and the solve_at heads at the pinned ones (alpha > 0 on odd rows)
+    L64, b64 = state.L.double(), state.b.double()
+    G0 = L64 @ L64.T
+    errs, worst_ratio = [], 0.0
+    for k in range(packed.cohort):
+        if ids[k] < 0:
+            continue
+        x = torch.as_tensor(packed.inputs[k], device="cuda")
+        y = torch.as_tensor(packed.labels[k], device="cuda")
+        m = torch.as_tensor(packed.mask[k], device="cuda")
+        st = fed3r.client_stats(x, y, C, m)
+        z = x.double() * m.double()[:, None]
+        yh = torch.nn.functional.one_hot(y.long(), C).double() * m.double()[:, None]
+        for W, a in ((heads.W[k], alphas[k]), (at.W[k], pinned[k])):
+            W64 = torch.linalg.solve(G0 + a * (z.T @ z), b64 + a * (z.T @ yh))
+            W64 = W64 / W64.norm(dim=0, keepdim=True).clamp_min(1e-12)
+            e_eng = float((W.double() - W64).abs().max())
+            e_one = float((fed3r.personalized_solution(state, st, a).double() - W64).abs().max())
+            errs.append((a, e_eng, e_one))
+            worst_ratio = max(worst_ratio, e_eng / (2 * e_one + 1e-5))
+    pos = [e for e in errs if e[0] > 0.0]
+    log(f"[heads] float64 closed form, {len(errs)} heads ({len(pos)} at alpha > 0): max|W_engine "
+        f"- W_f64| {max(e[1] for e in errs):.3e} (alpha > 0: "
+        f"{max((e[1] for e in pos), default=0.0):.3e}), max|W_unbatched32 - W_f64| "
+        f"{max(e[2] for e in errs):.3e} (alpha > 0: {max((e[2] for e in pos), default=0.0):.3e}); "
+        f"worst head at {worst_ratio:.3f} of its limit (2 x unbatched + 1e-5)")
+    if worst_ratio > 1.0 or not pos:
+        raise AssertionError("a solved head is further from float64 than 2x the unbatched solve")
+
+    rng = np.random.default_rng(11)
+    perm = [tenants[i] for i in rng.permutation(len(tenants))]
+    again = eng.solve_heads(state, pack(perm))
+    same = bool(torch.equal(again.W, heads.W) and torch.equal(again.alpha, heads.alpha)
+                and torch.equal(again.client_ids, heads.client_ids))
+    log(f"[heads] heads bitwise equal under a permutation of the miss list: {same}")
+    if not same:
+        raise AssertionError("the heads changed under a permutation of the miss list")
+    steps = solve_breakdown(torch, eng, state, packed, heads.alpha)
+    return {"packed": packed, "state": state, "alphas": heads.alpha, "steps": steps}
+
+
+def solve_breakdown(torch, eng, state, packed, alphas) -> dict:
+    """Device time of each step of one solve_heads on the widest cohort, each
+    step timed alone on that cohort's inputs, and the solve's peak memory."""
+    from repro_torch.core import fed3r
+    from repro_torch.core.fed3r import Fed3RFactored
+    from repro_torch.kernels.ops import batched_chol_gram
+
+    L, b = state.L, state.b
+    x, y, m, ho = eng._cohort(packed, "inputs", "labels", "mask", "holdout")
+    grid = torch.tensor(HEADS["alpha_grid"], dtype=torch.float32, device="cuda")
+    g = grid[:, None, None, None]
+    z, yh = eng._design(x, y, m)
+    tr = (1.0 - ho)[..., None]
+    z_tr, yh_tr, z_ho = z * tr, yh * tr, z * ho[..., None]
+
+    def grams():
+        S = z_tr.transpose(-1, -2) @ z_tr
+        Bt = z_tr.transpose(-1, -2) @ yh_tr
+        return L @ L.T + g * S[None], b + g * Bt[None]
+
+    Gs, rhs = grams()
+    Lg = fed3r.psd_cholesky(Gs)
+
+    def sweep_solve():
+        W = fed3r.normalize_columns(torch.cholesky_solve(rhs, Lg), axis=2)
+        score = torch.sum(ho[None] * (torch.argmax(z_ho @ W, -1) != y[None].long()), dim=2)
+        return torch.argmin(score, dim=0)
+
+    s = torch.sqrt(alphas)[:, None, None]
+    zs, ys = (z * s).contiguous(), (yh * s).contiguous()
+    G, B = batched_chol_gram(L, zs, ys)
+    Lk = fed3r.psd_cholesky(G)
+    Wp = eng._batched_solve(Lk, b[None] + B)
+    steps = {
+        "design": cuda_ms(lambda: eng._design(x, y, m)),
+        "sweep grams": cuda_ms(grams),
+        "sweep psd_cholesky": cuda_ms(lambda: fed3r.psd_cholesky(Gs)),
+        "sweep solves+score": cuda_ms(sweep_solve),
+        "refit batched_chol_gram": cuda_ms(lambda: batched_chol_gram(L, zs, ys)),
+        "refit psd_cholesky": cuda_ms(lambda: fed3r.psd_cholesky(G)),
+        "refit solves": cuda_ms(lambda: eng._batched_solve(Lk, b[None] + B)),
+        "global solve+select": cuda_ms(lambda: torch.where(
+            alphas[:, None, None] == 0.0, fed3r.factored_solution(Fed3RFactored(L=L, b=b))[None],
+            Wp)),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    total = cuda_ms(lambda: eng.solve_heads(state, packed))
+    peak = torch.cuda.max_memory_allocated() - base
+    K, d = packed.cohort, L.shape[0]
+    log(f"[heads] one solve_heads of the widest cohort (K={K}, grid {len(grid)}, d={d}): "
+        f"{total:.4f} ms, peak memory above its inputs {peak / 2**30:.3f} GiB; each step timed "
+        "alone: " + "  ".join(f"{k} {v:.4f} ms" for k, v in steps.items())
+        + f"  (sum {sum(steps.values()):.4f} ms)")
+    return {"total_ms": total, "peak_bytes": peak, **steps}
+
+
+def phase_kernel_batched(torch, ops, ref, L, packed) -> dict:
+    """batched_chol_gram at the heads path's shape (the widest cohort and its
+    first 8 heads: d = 1280, n = max_n, C = 100), at a ragged shape and at
+    n = 0; times at the widest cohort.  Each head is also held bitwise
+    against chol_gram(L, Z_k, Y_k): the two kernels share their tile loop."""
+    from repro_torch.core import fed3r
+
+    C = HEADS["n_classes"]
+    x = torch.as_tensor(packed.inputs, device="cuda")
+    y = torch.as_tensor(packed.labels, device="cuda")
+    m = torch.as_tensor(packed.mask, device="cuda")
+    K, n = m.shape
+    z, yh, _ = fed3r.masked_design(x.reshape(K * n, -1), y.reshape(-1), C, m.reshape(-1))
+    Z, Y = z.reshape(K, n, -1).contiguous(), yh.reshape(K, n, C).contiguous()
+
+    def check(L, Z, Y, label) -> float:
+        G, B = ops.batched_chol_gram(L, Z, Y)
+        torch.cuda.synchronize()
+        Gr, Br = ref.batched_chol_gram_ref(L, Z, Y)
+        eG = max_rel_err(G, Gr)
+        empty = Z.shape[1] == 0
+        eB = float(B.abs().max()) if empty else max_rel_err(B, Br)
+        sym = bool(torch.equal(G, G.transpose(1, 2)))
+        heads_bitwise = all(
+            torch.equal(G[k], Gk) and torch.equal(B[k], Bk)
+            for k in range(Z.shape[0]) for Gk, Bk in [ops.chol_gram(L, Z[k], Y[k])])
+        log(f"[kernel] batched_chol_gram {label} K={Z.shape[0]} d={L.shape[0]} n={Z.shape[1]} "
+            f"C={Y.shape[2]}: max|dG|/max|G| {eG:.3e}  "
+            f"{'max|B|' if empty else 'max|dB|/max|B|'} {eB:.3e} (limit {STATS_REL:g}"
+            f"{', B exactly 0' if empty else ''})  symmetric {sym}  every head bitwise "
+            f"chol_gram(L, Z_k, Y_k) {heads_bitwise}")
+        if not (eG <= STATS_REL and (eB == 0.0 if empty else eB <= STATS_REL) and sym
+                and heads_bitwise):
+            raise AssertionError(f"batched_chol_gram disagrees at {label}")
+        return max(float((G - Gr).abs().max()), float((B - Br).abs().max()))
+
+    abs_err = max(check(L, Z, Y, "widest cohort"), check(L, Z[:8], Y[:8], "8 heads"),
+                  check(L, Z[:8, :0], Y[:8, :0], "no sample rows"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(50)
+    for Kr, d, nr, Cr in BATCHED_SHAPES_RAGGED:
+        A = torch.randn((d, d), generator=gen, device="cuda")
+        Lr = torch.linalg.cholesky(A @ A.T / d + torch.eye(d, device="cuda")).contiguous()
+        Zr = torch.randn((Kr, nr, d), generator=gen, device="cuda")
+        Yr = torch.nn.functional.one_hot(
+            torch.randint(0, Cr, (Kr, nr), generator=gen, device="cuda"), Cr).to(torch.float32)
+        abs_err = max(abs_err, check(Lr, Zr, Yr, "ragged"))
+
+    d = L.shape[0]
+    LT = L.T.expand(K, d, d)
+    left = torch.cat([LT.transpose(1, 2), Z.transpose(1, 2)], dim=2).contiguous()  # (K, d, d+n)
+    right = torch.cat([torch.cat([LT, torch.zeros((K, d, C), device="cuda")], dim=2),
+                       torch.cat([Z, Y], dim=2)], dim=1).contiguous()  # (K, d+n, d+C)
+    flops = float(d * (d + 1) * (d + 2) / 3) + sum(stats_flops(Z[k], Y[k]) for k in range(K))
+    t = timed("batched_chol_gram", f"widest cohort K={K} d={d} n={n} C={C}",
+              lambda: ops.batched_chol_gram(L, Z, Y), lambda: ref.batched_chol_gram_ref(L, Z, Y),
+              lambda: torch.matmul(left, right),
+              "library_ms (one torch.matmul [L^T; Z_k]^T [[L^T|0]; [Z_k|Y_k]] over K, fp32, "
+              "no TF32)",
+              bound(flops, 4.0 * (d * d + K * n * d + K * n * C + K * (d * d + d * C))))
+    return {"max_abs_err": abs_err, **t}
+
+
 def main() -> int:
     import torch
 
@@ -705,7 +1036,10 @@ def main() -> int:
     stream = phase_stream(torch, ops)
     packed = stream["arrival"]["packed"]
     srf = phase_stream_rf(torch, ops, ref, packed, rf["params"])
+    phase_stream_slots(torch, ops, stream["arrival"]["W"])
+    heads = phase_heads(torch, ops)
     t_phases = time.perf_counter() - t_all
+    gates = phase_heads_gates(torch, heads["lru strict"])
 
     kern = phase_kernel(torch, ops, ref, (sl["max_n"], sl["d"], sl["C"]),
                         (sim["max_n"], sim["d"], sim["C"]), (sim["max_n"], RF_D, sim["C"]))
@@ -713,6 +1047,7 @@ def main() -> int:
     kern_rff = phase_kernel_rff(torch, ops, ref, rf["shard"], z, rf["params"].omega,
                                 rf["params"].beta)
     kern_chol = phase_kernel_chol(torch, ops, ref, (stream["arrival"]["L"], z, y), srf["case"])
+    kern_batched = phase_kernel_batched(torch, ops, ref, gates["state"].L, gates["packed"])
     log(f"[done] paths in {t_phases:.1f}s, all phases in {time.perf_counter() - t_all:.1f}s")
 
     entries = [
@@ -726,6 +1061,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/chol_gram.cu",
          "replaces": "src/repro/kernels/chol_update.py:86",
          "launches": stream["arrival"]["launches"], **kern_chol},
+        {"name": "batched_chol_gram", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/batched_chol_gram.cu",
+         "replaces": "src/repro/kernels/chol_update.py:189",
+         "launches": heads["lru strict"]["launches"], **kern_batched},
     ]
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

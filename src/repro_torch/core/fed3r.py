@@ -13,8 +13,11 @@ Solve (Eq. 4):  W* = (A + λI)⁻¹ b, then per-class column normalization.
 Recursive form (Eq. 3): the factored state L Lᵀ = A + λI that the streaming
 engine carries (:class:`Fed3RFactored`), and the deprecated subtractive
 Woodbury state (:class:`Fed3ROnline`), kept only as the numerical foil of
-:class:`repro_torch.federated.streaming_engine.ReferenceArrivalLoop`.  The
-personalized forms are a later slice of the port.
+:class:`repro_torch.federated.streaming_engine.ReferenceArrivalLoop`.
+
+Personalized heads: :func:`personalized_solution` and
+:func:`batched_personalized_solution`, W_k = (A + α_k·A_k + λI)⁻¹(b + α_k·b_k)
+over the shared factored state.
 """
 from __future__ import annotations
 
@@ -171,6 +174,7 @@ def init_factored(
 def psd_cholesky(G: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of a nominally positive definite fp32 Gram G.
 
+    G is (d, d) or a batch (..., d, d), each matrix factored on its own.
     The fp32 Gram L Lᵀ + ZᵀZ is itself rounded: each entry is off by about
     eps·max diag(G), and a d×d perturbation of that size has a spectral norm
     near √d·eps·max diag(G).  While the absorbed samples are fewer than d,
@@ -180,25 +184,28 @@ def psd_cholesky(G: torch.Tensor) -> torch.Tensor:
     stream stays NaN.  So, as the reference's ``compress.psd_cholesky`` does
     for quantization noise: the plain factorization first (bit-identical
     where it succeeds), and only where it fails, retries with a diagonal
-    jitter τ ∈ {1, 4, 16}·√d·eps·max diag(G).  Where every retry fails, the
-    factor is NaN on and below the diagonal (zero above), the reference's
-    failure pattern.
+    jitter τ ∈ {1, 4, 16}·√d·eps·max diag(G), the bound taken per matrix.
+    Where every retry fails, the factor is NaN on and below the diagonal
+    (zero above), the reference's failure pattern.
 
     Branch-free: ``cholesky_ex`` without its host-side check and ``where``
     chains, so a wave makes no host sync (``torch.linalg.cholesky`` would
     sync to raise).  The factor comes back row-major (``cholesky_ex`` writes
-    it column-major), as the ``chol_gram`` kernel reads it.
+    it column-major), as the ``chol_gram`` kernels read it.
     """
-    d = G.shape[0]
+    d = G.shape[-1]
     L, info = torch.linalg.cholesky_ex(G, check_errors=False)
-    bound = math.sqrt(d) * torch.finfo(torch.float32).eps * G.diagonal().amax()
+    bound = math.sqrt(d) * torch.finfo(torch.float32).eps * G.diagonal(dim1=-2, dim2=-1).amax(-1)
     eye = torch.eye(d, dtype=G.dtype, device=G.device)
     for mult in (1.0, 4.0, 16.0):
-        retry, retry_info = torch.linalg.cholesky_ex(G + (mult * bound) * eye, check_errors=False)
+        retry, retry_info = torch.linalg.cholesky_ex(
+            G + (mult * bound)[..., None, None] * eye, check_errors=False
+        )
         take = (info != 0) & (retry_info == 0)
-        L = torch.where(take, retry, L)
+        L = torch.where(take[..., None, None], retry, L)
         info = torch.where(take, retry_info, info)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")).tril()).contiguous()
+    failed = torch.full_like(L, float("nan")).tril()
+    return torch.where((info == 0)[..., None, None], L, failed).contiguous()
 
 
 def factored_update(
@@ -225,6 +232,69 @@ def factored_solution(state: Fed3RFactored, normalize: bool = True) -> torch.Ten
     W = torch.cholesky_solve(state.b, state.L, upper=False)
     if normalize:
         W = normalize_columns(W)
+    return W
+
+
+# ---------------------------------------------------------------------------
+# Personalized heads — per-client closed forms over the shared factored state
+# ---------------------------------------------------------------------------
+
+
+def personalized_solution(
+    state: Fed3RFactored,
+    client: Fed3RStats,
+    alpha: Union[float, torch.Tensor],
+    normalize: bool = True,
+) -> torch.Tensor:
+    """Per-client closed-form head W_k = (A + α·A_k + λI)⁻¹ (b + α·b_k).
+
+    Client k's own statistics (A_k, b_k) are re-weighted by α ≥ 0 on top of
+    the global sums, so the head interpolates from the global classifier
+    (α = 0) toward a local-emphasis one: one d×d refactorization
+    G = L Lᵀ + α·A_k (through :func:`psd_cholesky`) and two triangular
+    solves.
+
+    α = 0 reproduces :func:`factored_solution` BITWISE: the carried factor L
+    and right-hand side b are selected unchanged, never refactored through
+    chol(L Lᵀ) (whose rounding differs, and at d = 1280 can fail).  α is
+    read on the host.  The batched form over a packed cohort is
+    :class:`repro_torch.federated.personalization.PersonalizationEngine`.
+    """
+    a = float(alpha)
+    if a == 0.0:
+        return factored_solution(state, normalize)
+    L_pers = psd_cholesky(state.L @ state.L.T + a * client.A)
+    W = torch.cholesky_solve(state.b + a * client.b, L_pers, upper=False)
+    if normalize:
+        W = normalize_columns(W)
+    return W
+
+
+def batched_personalized_solution(
+    state: Fed3RFactored,
+    A_k: torch.Tensor,  # (K, d, d) per-client second moments
+    b_k: torch.Tensor,  # (K, d, C) per-client class-conditional sums
+    alphas: torch.Tensor,  # (K,) per-client interpolation weights
+    normalize: bool = True,
+) -> torch.Tensor:
+    """K personalized heads (K, d, C) in one batch of factorizations and solves.
+
+    Semantics per head follow :func:`personalized_solution`: α = 0 rows
+    select the global (L, b) operands unchanged, but the solve itself is
+    BATCHED, and a batched triangular solve may round differently from the
+    unbatched one — so α = 0 here agrees with ``factored_solution`` to the
+    last ulp of the solver, NOT bitwise.  Where the exact-bitwise α = 0
+    fallback matters (serving), use the engine
+    (:class:`repro_torch.federated.personalization.PersonalizationEngine`),
+    which substitutes an unbatched global solve for those rows.
+    """
+    a = torch.as_tensor(alphas, dtype=torch.float32, device=state.L.device)[:, None, None]
+    L_pers = psd_cholesky(state.L @ state.L.T + a * A_k)
+    L_use = torch.where(a == 0.0, state.L, L_pers)
+    rhs = torch.where(a == 0.0, state.b, state.b + a * b_k)
+    W = torch.cholesky_solve(rhs, L_use, upper=False)
+    if normalize:
+        W = normalize_columns(W, axis=1)
     return W
 
 

@@ -19,8 +19,13 @@ same arrays from the same clients bit for bit.
   across waves is the semantics of the stream), so the packed arrays are
   bitwise invariant to the order a wave's concurrent arrivals came in.
 
-The reference's other packers (personal cohorts, FL cohort batches) arrive
-with the engines that consume them.
+* :func:`pack_personal_cohort` — one tenant COHORT padded into
+  ``(cohort, max_n, ...)`` with masks and a per-client holdout split; the
+  shape the personalization engine
+  (:mod:`repro_torch.federated.personalization`) solves its heads over.
+
+The reference's FL cohort-batch packer arrives with the engine that consumes
+it.
 """
 from __future__ import annotations
 
@@ -300,6 +305,114 @@ def pack_arrival_waves(
             slot_ids[t, slot] = ids[i]
     return PackedArrivals(
         inputs=inputs, labels=labels, mask=mask, client_ids=slot_ids
+    )
+
+
+class PackedPersonalCohort(NamedTuple):
+    """A tenant cohort packed for one batched personalized-head solve.
+
+    ``inputs``/``labels``/``mask``/``holdout`` share the leading
+    ``(cohort, max_n)`` layout; ``mask`` is 1.0 on real samples, 0.0 on
+    padding, and ``holdout`` ⊆ ``mask`` marks the per-client validation
+    samples the α sweep scores on (never the client's full data: index 0 of
+    every client is always train).  Empty cohort slots (width padding) have
+    ``client_ids == -1`` and all-zero masks, so their statistics vanish and
+    their head degenerates to the global solution at any α.
+    """
+
+    inputs: np.ndarray  # (K, N, ...) features or tokens
+    labels: np.ndarray  # (K, N) int32
+    mask: np.ndarray  # (K, N) float32
+    holdout: np.ndarray  # (K, N) float32, subset of mask (α-selection split)
+    client_ids: np.ndarray  # (K,) int32, -1 = empty slot
+
+    @property
+    def cohort(self) -> int:
+        return self.inputs.shape[0]
+
+    @property
+    def n_clients(self) -> int:
+        return int((self.client_ids >= 0).sum())
+
+    @property
+    def n_samples(self) -> int:
+        return int(self.mask.sum())
+
+    @property
+    def n_holdout(self) -> int:
+        return int(self.holdout.sum())
+
+
+def pack_personal_cohort(
+    clients: Sequence[Tuple[np.ndarray, np.ndarray]],
+    *,
+    client_ids: Optional[Sequence[int]] = None,
+    cohort_size: Optional[int] = None,
+    max_n: Optional[int] = None,
+    round_to: int = 8,
+    holdout_frac: float = 0.25,
+    canonical_order: bool = True,
+    mesh: Optional[object] = None,
+    num_shards: Optional[int] = None,
+) -> PackedPersonalCohort:
+    """Pack ``[(x_k, y_k), ...]`` into a :class:`PackedPersonalCohort`.
+
+    Reuses :func:`pack_client_shards`'s padding conventions by construction
+    (one shard of width ``cohort_size``): canonical id sort, ``round_to``
+    sample-capacity rounding, ``-1``/zero-mask empty slots.  On top, every
+    client with ≥ 2 samples gets a deterministic non-empty HOLDOUT split —
+    every ``round(1/frac)``-th of its samples (its last sample if it has
+    fewer than that), never index 0, so at least one sample remains on
+    each side — which the personalization engine's α sweep scores against.
+    Single-sample clients get no holdout (their sweep degenerates to
+    ``alpha_grid[0]``).  The split is a pure function of the client's own
+    sample order, never of cohort position, preserving bit-invariance to
+    request order.
+
+    ``num_shards`` pads the cohort axis to a multiple of that way count with
+    empty slots whose heads degenerate to the global solution, for a later
+    distributed layer to split evenly.  ``mesh`` waits for the distributed
+    layer and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "pack_personal_cohort(mesh=...): device meshes are the distributed "
+            "layer, ROADMAP Queue 1 item 8; pass num_shards= for the padding"
+        )
+    if num_shards is not None and num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if not 0.0 <= holdout_frac < 1.0:
+        raise ValueError(f"holdout_frac must be in [0, 1), got {holdout_frac}")
+    K = len(clients) if cohort_size is None else cohort_size
+    if K < len(clients):
+        raise ValueError(f"cohort_size={K} < {len(clients)} clients")
+    dp = 1 if num_shards is None else int(num_shards)
+    K = -(-K // dp) * dp  # pad the sharded cohort axis
+    shards = pack_client_shards(
+        clients,
+        clients_per_shard=K,
+        client_ids=client_ids,
+        max_n=max_n,
+        round_to=round_to,
+        canonical_order=canonical_order,
+    )
+    inputs = shards.inputs[0]
+    labels = shards.labels[0]
+    mask = shards.mask[0]
+    ids = shards.client_ids[0]
+
+    holdout = np.zeros_like(mask)
+    if holdout_frac > 0.0:
+        stride = max(int(round(1.0 / holdout_frac)), 2)
+        for k in range(K):
+            n_k = int(mask[k].sum())
+            if n_k >= 2:
+                idx = np.arange(stride - 1, n_k, stride)
+                if len(idx) == 0:  # n_k < stride: still hold out ONE sample
+                    idx = np.array([n_k - 1])
+                holdout[k, idx] = 1.0
+    return PackedPersonalCohort(
+        inputs=inputs, labels=labels, mask=mask, holdout=holdout, client_ids=ids
     )
 
 

@@ -134,6 +134,17 @@ def stream_state_from_jax(state: Any, device: Union[str, torch.device] = "cuda")
     )
 
 
+def factored_from_jax(L: Any, b: Any, device: Union[str, torch.device] = "cuda") -> Fed3RFactored:
+    """A factored state from elsewhere (the reference's ``Fed3RFactored``
+    arrays, or any (L, b) arrays) as the port's, on ``device``, so both
+    packages can serve heads from the same global state."""
+    dev = resolve_device(device)
+    return Fed3RFactored(
+        L=torch.tensor(np.array(L, dtype=np.float32), device=dev),
+        b=torch.tensor(np.array(b, dtype=np.float32), device=dev),
+    )
+
+
 class StreamingEngine(DistDispatchMixin):
     """Streaming FED3R over packed arrival timelines, on ``device``.
 

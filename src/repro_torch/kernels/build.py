@@ -6,8 +6,8 @@ minutes for a PyTorch extension), then loaded with ``ctypes``.  A
 :class:`CudaLibrary` owns one source:
 
 * the library lives in ``build/`` at the checkout root (git-ignored), named
-  by a hash of the source and the flags, so an edit rebuilds and an
-  unchanged source is reused;
+  by a hash of the source, the shared ``csrc/*.cuh`` headers and the flags,
+  so an edit rebuilds and an unchanged source is reused;
 * the build runs at the first launch (or :meth:`CudaLibrary.load`), never at
   import, and writes to a private temporary name that is renamed into
   place, so concurrent builds never load a half-written library;
@@ -72,8 +72,11 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        """Where the shared library of the current source lives."""
+        """Where the shared library of the current source (and of the
+        ``csrc/*.cuh`` headers it may include) lives."""
         digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
         return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
 
     def _start(self) -> Optional[Tuple[subprocess.Popen, Path, list]]:

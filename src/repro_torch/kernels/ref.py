@@ -27,6 +27,19 @@ def chol_gram_ref(
     return Lf @ Lf.T + Zf.T @ Zf, Zf.T @ Y.to(torch.float32)
 
 
+def batched_chol_gram_ref(
+    L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G_k = L Lᵀ + Z_kᵀZ_k, B_k = Z_kᵀY_k in fp32 over K heads sharing one L.
+
+    L: (d, d); Z: (K, n, d); Y: (K, n, C).  Returns ((K, d, d), (K, d, C)).
+    """
+    Lf = L.to(torch.float32)
+    Zf = Z.to(torch.float32)
+    Zt = Zf.transpose(-1, -2)
+    return Lf @ Lf.T + Zt @ Zf, Zt @ Y.to(torch.float32)
+
+
 def rff_ref(Z: torch.Tensor, omega: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """√(2/D)·cos(ZΩ + β) in fp32. Z: (n, d); Ω: (d, D); β: (D,)."""
     D = omega.shape[1]

@@ -1,7 +1,8 @@
 """Live-refresh classifier serving over a streaming FED3R arrival process.
 
 The port of the reference's ``launch/serve_stream.py`` for its synchronous
-driver (``engine="lru"``).  Clients arrive over time (Poisson or
+driver (``engine="lru"``) and its slot-engine driver (``engine="slots"``).
+Clients arrive over time (Poisson or
 label-skewed schedule), the server folds each arrival SEGMENT through the
 streaming engine (:mod:`repro_torch.federated.streaming_engine`), and
 between segments it answers a query burst with the currently served
@@ -14,13 +15,19 @@ classifier — which is as fresh as the refresh policy paid for:
   refresh cadence, and the reported STALENESS (waves / samples absorbed
   since the last re-solve) says what queries see.
 
-The slot-serving (``--engine slots``, ROADMAP Queue 1 item 9) and the
-asynchronous chaos rounds (``--engine async``, item 8) are not ported yet.
+``--engine slots`` routes the same loop through the continuous-batching
+slot engine (:mod:`repro_torch.launch.serving_engine`): absorbs go through
+its absorb stage, query bursts are admitted to its queue and answered by
+the one-dispatch serve stage against the pinned global slot (refreshed at
+tick time whenever the stream advanced — the slot engine's solve stage owns
+the refresh, so the ``--policy`` staleness knobs report the stream state's
+lag while queries see a tick-fresh head).  The asynchronous chaos rounds
+(``--engine async``, ROADMAP Queue 1 item 8) are not ported yet.
 Everything runs on ``--device`` (the card by default).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cuda \\
-      --waves 24 --rate 4 --policy every-k --k 4 --segment 6
+      --waves 24 --rate 4 --policy every-k --k 4 --segment 6 --engine slots
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import argparse
 import time
 from typing import Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import fed3r
@@ -85,19 +93,17 @@ def serve_stream(
 ) -> dict:
     """Run the arrival → absorb → query loop; returns the serving log.
 
-    The log has the reference's keys, plus ``W`` (the final served
-    classifier), ``trace`` (the :class:`WaveTrace` of the whole stream) and
-    ``packed`` (the host timeline that was absorbed).
+    ``engine="lru"`` is the synchronous driver; ``engine="slots"`` rides the
+    continuous-batching slot engine (absorb/serve stages, one dispatch each)
+    behind the same log shape.  The log has the reference's keys, plus ``W``
+    (the final served classifier), ``trace`` (the :class:`WaveTrace` of the
+    whole stream) and ``packed`` (the host timeline that was absorbed).
     """
-    if engine == "slots":
-        raise NotImplementedError(
-            "engine='slots': the slot-serving engine is ROADMAP Queue 1 item 9"
-        )
     if engine == "async":
         raise NotImplementedError(
             "engine='async': asynchronous merge-on-arrival rounds are ROADMAP Queue 1 item 8"
         )
-    if engine != "lru":
+    if engine not in ("lru", "slots"):
         raise ValueError(f"unknown serving engine: {engine!r}")
     if policy not in ("arrival", "every-k"):
         raise ValueError(f"unknown refresh policy: {policy!r}")
@@ -107,10 +113,29 @@ def serve_stream(
     timeline = packed.to(dev)  # one copy to the device; segments are views
 
     refresh_every = 1 if policy == "arrival" else k
-    stream_engine = StreamingEngine(StreamConfig(
-        n_classes=n_classes, ridge_lambda=ridge_lambda, refresh_every=refresh_every,
-    ), device=dev)
-    state = stream_engine.init(d)
+    slot_server = None
+    if engine == "slots":
+        from repro_torch.launch.serving_engine import ServingConfig, ServingEngine
+
+        # global-only traffic: a tiny table (slot 0 + one spare) suffices,
+        # and every query carries tenant -1 (no server-side data)
+        test_np = test.features.cpu().numpy()
+        slot_server = ServingEngine(
+            ServingConfig(
+                n_classes=n_classes, ridge_lambda=ridge_lambda, n_slots=2,
+                queue_depth=max(4096, len(test_np)),
+            ),
+            fed,
+            device=dev,
+        )
+        slot_server.init(d)
+        stream_engine = slot_server.stream
+        state = slot_server.state
+    else:
+        stream_engine = StreamingEngine(StreamConfig(
+            n_classes=n_classes, ridge_lambda=ridge_lambda, refresh_every=refresh_every,
+        ), device=dev)
+        state = stream_engine.init(d)
 
     log: dict = {
         "wave": [], "clients_seen": [], "samples_seen": [],
@@ -130,10 +155,19 @@ def serve_stream(
         print("wave | arrived | samples seen | stale (waves/samples) | acc(served W)")
     for lo in range(0, packed.n_waves, segment):
         hi = min(lo + segment, packed.n_waves)
-        state, trace = stream_engine.absorb(state, timeline.slice_waves(lo, hi))
-        traces.append(trace)
-        # a query burst against the served (possibly stale) classifier
-        acc = float(fed3r.accuracy(stream_engine.classifier(state), test.features, test.labels))
+        if engine == "slots":
+            traces.append(slot_server.absorb(packed.slice_waves(lo, hi)))  # ONE dispatch
+            state = slot_server.state
+            # the query burst: every test row admitted with tenant -1 →
+            # served by the pinned global slot in ONE serve dispatch
+            scores, _ = slot_server.query(np.full((len(test_np),), -1, np.int64), test_np)
+            acc = float((torch.argmax(scores, dim=-1) == test.labels).to(torch.float32).mean())
+        else:
+            state, trace = stream_engine.absorb(state, timeline.slice_waves(lo, hi))
+            traces.append(trace)
+            # a query burst against the served (possibly stale) classifier
+            acc = float(fed3r.accuracy(stream_engine.classifier(state), test.features,
+                                       test.labels))
         arrived = packed.slice_waves(lo, hi).n_clients
         seen += arrived
         log["wave"].append(int(state.wave))
@@ -146,9 +180,19 @@ def serve_stream(
             print(f"{int(state.wave):4d} | {arrived:7d} | "
                   f"{float(state.n):12.0f} | {int(state.stale_waves):5d} /"
                   f"{float(state.stale_samples):8.0f} | {acc:.4f}")
-    state = stream_engine.refresh(state)  # final sync before reporting
-    acc = float(fed3r.accuracy(stream_engine.classifier(state), test.features, test.labels))
-    log["dispatches"] = stream_engine.dispatches
+    if engine == "slots":
+        acc = log["acc_served"][-1]  # slot ticks already serve a fresh head
+        log["dispatches"] = (
+            slot_server.absorb_dispatches + slot_server.solve_dispatches
+            + slot_server.serve_dispatches
+        )
+        log["serve_dispatches"] = slot_server.serve_dispatches
+        log["stage_s"] = dict(slot_server.stage_s)
+    else:
+        state = stream_engine.refresh(state)  # final sync before reporting
+        acc = float(fed3r.accuracy(stream_engine.classifier(state), test.features,
+                                   test.labels))
+        log["dispatches"] = stream_engine.dispatches
     log["acc_final"] = acc
     log["wall_s"] = time.perf_counter() - t0
     log["W"] = stream_engine.classifier(state)
@@ -179,7 +223,8 @@ def main() -> None:
     ap.add_argument("--classes", type=int, default=10)
     ap.add_argument("--ridge-lambda", type=float, default=1e-2)
     ap.add_argument("--engine", choices=("lru", "slots", "async"), default="lru",
-                    help="the synchronous driver (slots and async are not ported yet)")
+                    help="the synchronous driver or the slot-serving engine "
+                         "(async is not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()

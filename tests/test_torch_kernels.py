@@ -1,8 +1,9 @@
 """The port's kernels against the reference kernel, and on the card.
 
-``fed3r_stats`` is held against the reference here; ``rff`` and
-``chol_gram`` in ``test_torch_rff.py`` and ``test_torch_streaming.py``.  The
-tests marked ``gpu`` (all three kernels, and the streaming engine's
+``fed3r_stats`` is held against the reference here; ``rff``, ``chol_gram``
+and ``batched_chol_gram`` in ``test_torch_rff.py``,
+``test_torch_streaming.py`` and ``test_torch_personalization.py``.  The
+tests marked ``gpu`` (all four kernels, and the streaming engine's
 sync-free absorb) run on the card; this file imports JAX only inside the
 reference comparisons, so they run where JAX is not installed.
 
@@ -21,8 +22,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fed3r_stats as fed3r_stats_mod  # noqa: E402
-from repro_torch.kernels.ops import chol_gram, fed3r_stats, rff_transform  # noqa: E402
-from repro_torch.kernels.ref import chol_gram_ref, fed3r_stats_ref, rff_ref  # noqa: E402
+from repro_torch.kernels.ops import (  # noqa: E402
+    batched_chol_gram,
+    chol_gram,
+    fed3r_stats,
+    rff_transform,
+)
+from repro_torch.kernels.ref import (  # noqa: E402
+    batched_chol_gram_ref,
+    chol_gram_ref,
+    fed3r_stats_ref,
+    rff_ref,
+)
 
 # fp32 sums of n ≤ 1024 products in two different orders: ≤ ~n·eps relative
 # to the largest entry; 1e-5 leaves an order of magnitude of headroom
@@ -157,6 +168,32 @@ def test_chol_gram_kernel_on_card(cuda_device, d, n, C):
     assert torch.equal(G, G.T)  # mirrored tiles: exactly symmetric
     G2, B2 = chol_gram(L, Zc, Yc)
     assert torch.equal(G, G2) and torch.equal(B, B2)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,d,n,C", [(8, 1280, 136, 100), (3, 130, 77, 7), (2, 64, 0, 5)])
+def test_batched_chol_gram_kernel_on_card(cuda_device, K, d, n, C):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.default_rng(7)
+    A = r.normal(size=(d, d))
+    L = torch.from_numpy(np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32))
+    Z = np.stack([_inputs(n, d, C, seed=8 + k)[0] for k in range(K)])
+    Y = np.stack([_inputs(n, d, C, seed=8 + k)[1] for k in range(K)])
+    L, Zc, Yc = L.to(cuda_device), torch.from_numpy(Z).to(cuda_device), torch.from_numpy(Y).to(cuda_device)
+    before, single = batched_chol_gram.launches, chol_gram.launches
+    G, B = batched_chol_gram(L, Zc, Yc)
+    torch.cuda.synchronize()
+    assert batched_chol_gram.launches == before + 1 and chol_gram.launches == single
+    Gr, Br = batched_chol_gram_ref(L, Zc, Yc)
+    _assert_scaled_close(G.cpu().numpy(), Gr.cpu().numpy())
+    if n:
+        _assert_scaled_close(B.cpu().numpy(), Br.cpu().numpy())
+    else:
+        assert not B.any()  # no sample rows: B exactly 0
+    assert torch.equal(G, G.transpose(1, 2))  # mirrored tiles: exactly symmetric
+    for k in range(K):  # one tile loop: each head is the single update, bitwise
+        Gk, Bk = chol_gram(L, Zc[k], Yc[k])
+        assert torch.equal(G[k], Gk) and torch.equal(B[k], Bk)
 
 
 @pytest.mark.gpu

@@ -207,9 +207,13 @@ def test_port_imports_without_jax_or_the_reference_package():
         for name in names:
             importlib.import_module(name)
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": ":".join(sys.path)})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25  # every module of the port was imported
+    names = out.stdout.split()
+    assert len(names) >= 30  # every module of the port was imported
+    for name in ("federated.personalization", "federated.slots", "launch.serve_heads",
+                 "launch.serving_engine", "launch.serve_stream", "kernels.chol_update"):
+        assert "repro_torch." + name in names

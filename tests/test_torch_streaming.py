@@ -531,8 +531,7 @@ def test_serve_stream_on_the_cpu(policy, k):
 
 
 def test_serve_stream_refuses_unported_engines():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve_stream_mod.serve_stream(engine="slots", device="cpu")
+    # engine="slots" is ported (tests/test_torch_serving.py); async is not
     with pytest.raises(NotImplementedError, match="item 8"):
         serve_stream_mod.serve_stream(engine="async", device="cpu")
     with pytest.raises(ValueError):
