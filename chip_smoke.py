@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero.  Each
 path resets every kernel's launch count just before it runs and reads the
 counts just after.
 
-1. build     -- compile the four CUDA kernels (``fed3r_stats``, ``rff``,
-                ``chol_gram``, ``batched_chol_gram``) from
+1. build     -- compile the five CUDA sources (``fed3r_stats``, ``rff``,
+                ``chol_gram``, ``batched_chol_gram``, ``quant``: six kernels) from
                 ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a, one
                 nvcc per source, all started together.
 2. slice     -- ``launch/train.py`` phase 1 on ``fed3r-mnv2-proxy`` at full
@@ -42,9 +42,26 @@ counts just after.
                 the widest cohort of the run, alpha = 0 and padded rows
                 bitwise the global head, every head against a float64 closed
                 form, permutation-bitwise heads, and the solve's steps timed.
-9. kernel    -- each kernel against its plain PyTorch version at the shapes
-                the paths gave it and at ragged ones, and at each path's
-                shape the times of kernel, plain version and library call.
+9. wire      -- the simulator's federation through ``AccumulationEngine``
+                under the fp32, int8 (tile 128), fp8 and sketch (rank 16)
+                wires: fp32 bitwise the uncompressed accumulator, int8
+                within half a quantization step per client of it
+                (quantize_tiles and dequant_acc launched twice a client),
+                fp8 and sketch finite; wire bytes, accuracy, wall, memory.
+10. stream-int8 -- the stream's arrivals through ``StreamingEngine`` under
+                the int8 wire: finite, W within the reference's 0.5 of the
+                fp32 stream's, the waves on which the guard retried.
+11. uplink   -- ``UplinkCompressor`` with and without error feedback, 12
+                uploads of one full-width client: the telescoping bound and
+                the priced compression ratio.
+12. secure   -- a 10-client cohort quantized against shared scales and
+                masked mod 2^32 on the card: the masked sum and the
+                survivors' sum after 2 drop out, bitwise; an int32 wrap probe.
+13. kernel    -- each kernel against its plain PyTorch version at the shapes
+                the paths gave it and at ragged ones (the quantization pair
+                bitwise, on all-zero tiles and exact half-way inputs too),
+                and at each path's shape the times of kernel, plain version
+                and library call.
 
 The device-time breakdown of the slice is a separate command,
 ``python -m repro_torch.launch.profile_slice``.
@@ -106,6 +123,12 @@ HEADS_RUNS = (("lru strict", "lru", "strict"), ("lru segmented", "lru", "segment
 # the two engines' served scores under "strict": the same cohorts and solves,
 # contracted by batched GEMMs of different widths
 SCORE_REL = 1e-5
+# the compressed uplink: the reference's default tile and sketch rank
+WIRES = (("fp32", {}), ("int8", {"tile": 128}), ("fp8", {"tile": 128}), ("sketch", {"rank": 16}))
+UPLINK_ROUNDS = 12
+SECURE_CLIENTS, SECURE_DROPPED = 10, (3, 7)
+QUANT_SHAPES = [(1280, 1280, 128), (1280, 100, 128), (5000, 5000, 128), (200, 150, 64),
+                (33, 190, 128), (1281, 77, 16)]
 # the main path: launch/train.py phase 1 at full width
 SLICE_ARCH = "fed3r-mnv2-proxy"
 SLICE = dict(n_samples=8192, seq_len=128, n_classes=100, n_clients=100, clients_per_round=10)
@@ -148,14 +171,17 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20, budget_ms: float = 400.0) ->
 
 
 def reset_counts(ops) -> None:
-    for fn in (ops.fed3r_stats, ops.rff_transform, ops.chol_gram, ops.batched_chol_gram):
+    for fn in (ops.fed3r_stats, ops.rff_transform, ops.chol_gram, ops.batched_chol_gram,
+               ops.quantize_tiles, ops.dequant_accumulate):
         fn.launches = 0
 
 
 def read_counts(ops) -> dict:
     return {"fed3r_stats": ops.fed3r_stats.launches, "rff": ops.rff_transform.launches,
             "chol_gram": ops.chol_gram.launches,
-            "batched_chol_gram": ops.batched_chol_gram.launches}
+            "batched_chol_gram": ops.batched_chol_gram.launches,
+            "quantize_tiles": ops.quantize_tiles.launches,
+            "dequant_acc": ops.dequant_accumulate.launches}
 
 
 def phase_build(build, ops) -> dict:
@@ -1013,6 +1039,368 @@ def phase_kernel_batched(torch, ops, ref, L, packed) -> dict:
     return {"max_abs_err": abs_err, **t}
 
 
+def client_design(torch, packed, s, c, n_classes):
+    """Slot (s, c) of a packed selection: its masked design on the card."""
+    from repro_torch.core import fed3r
+
+    x = torch.as_tensor(packed.inputs[s, c], device="cuda")
+    y = torch.as_tensor(packed.labels[s, c], device="cuda")
+    m = torch.as_tensor(packed.mask[s, c], device="cuda")
+    z, yh, _ = fed3r.masked_design(x, y, n_classes, m)
+    return z.contiguous(), yh.contiguous()
+
+
+def phase_wire(torch, ops, ref, sim) -> dict:
+    """The simulator's federation through AccumulationEngine under each wire."""
+    from repro_torch.core import fed3r
+    from repro_torch.data.pipeline import pack_client_shards
+    from repro_torch.federated.compress import WireFormat
+    from repro_torch.federated.costs import stats_wire_bytes
+    from repro_torch.federated.engine import AccumulationEngine, EngineConfig
+    from repro_torch.federated.fed3r_driver import PACK_ROUND_TO
+
+    fed, test, f3, fc = sim["fed"], sim["test"], sim["f3"], sim["fc"]
+    K, kappa, C, d = fc.n_clients, fc.clients_per_round, fed.n_classes, sim["d"]
+    clients = [(fed.client(k).features, fed.client(k).labels) for k in range(K)]
+    packed = pack_client_shards(clients, kappa, client_ids=list(range(K)), round_to=PACK_ROUND_TO)
+    n_slots = packed.n_shards * packed.clients_per_shard
+    plain = AccumulationEngine(EngineConfig(n_classes=C), device="cuda")
+    base = plain.accumulate(plain.init(d), packed)
+    W32 = fed3r.solve(base.stats, f3.ridge_lambda)
+    tx = torch.as_tensor(test.features, device="cuda")
+    ty = torch.as_tensor(test.labels, device="cuda")
+    fp32_bytes = stats_wire_bytes(d, C, "fp32")
+    out = {}
+    for kind, kw in WIRES:
+        fmt = WireFormat(kind=kind, **kw)
+        eng = AccumulationEngine(EngineConfig(n_classes=C, wire=fmt), device="cuda")
+        acc = eng.init(d)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        acc = eng.accumulate(acc, packed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        peak = torch.cuda.max_memory_allocated()
+        W = fed3r.solve(acc.stats, f3.ridge_lambda)
+        acc_test = float(fed3r.accuracy(W, tx, ty))
+        eA = max_rel_err(acc.stats.A, base.stats.A)
+        eW = float((W - W32).abs().max())
+        nbytes = fmt.wire_bytes(d, C)
+        per_client = {k: v / n_slots for k, v in counts.items() if v}
+        log(f"[wire] {kind} {kw or ''}: {K} clients in {n_slots} slots, launches per client "
+            f"{per_client}; {nbytes:.0f} B an upload ({fp32_bytes / nbytes:.3f}x fewer than fp32 "
+            f"{fp32_bytes:.0f} B); max|dA|/max|A| vs fp32 {eA:.3e}, max|W - W_fp32| {eW:.3e}, test "
+            f"acc {acc_test:.4f}; wall {wall:.3f}s, peak memory {peak / 2**30:.3f} GiB")
+        quant = 2 * n_slots if kind == "int8" else 0
+        if counts["fed3r_stats"] != n_slots or counts["quantize_tiles"] != quant or \
+                counts["dequant_acc"] != quant or counts["chol_gram"] or counts["rff"]:
+            raise AssertionError(f"[wire] {kind}: launches {counts} for {n_slots} client slots")
+        if not all(bool(torch.isfinite(t).all()) for t in (acc.stats.A, acc.stats.b, W)):
+            raise AssertionError(f"[wire] {kind}: the statistics or W are not finite")
+        if float(acc.stats.n) != float(base.stats.n) or not torch.equal(
+                acc.class_counts, base.class_counts):
+            raise AssertionError(f"[wire] {kind}: n or the class counts moved")
+        if kind == "fp32" and not (torch.equal(acc.stats.A, base.stats.A)
+                                   and torch.equal(acc.stats.b, base.stats.b)):
+            raise AssertionError("[wire] fp32: not bitwise the uncompressed accumulator")
+        if kind == "int8":
+            # each client's upload errs by at most half its tile's step per entry
+            halfA = torch.zeros_like(acc.stats.A)
+            halfb = torch.zeros_like(acc.stats.b)
+            tile = fmt.tile
+            for s_ in range(packed.n_shards):
+                for c in range(packed.clients_per_shard):
+                    Ak, bk = ops.fed3r_stats(*client_design(torch, packed, s_, c, C))
+                    halfA += 0.5 * ref.expand_tiles(ref.quantize_tiles_ref(Ak, tile)[1], tile, d, d)
+                    halfb += 0.5 * ref.expand_tiles(ref.quantize_tiles_ref(bk, tile)[1], tile, d, C)
+            slackA = STATS_REL * float(base.stats.A.abs().max())
+            slackb = STATS_REL * float(base.stats.b.abs().max())
+            overA = float(((acc.stats.A - base.stats.A).abs() - halfA).max())
+            overb = float(((acc.stats.b - base.stats.b).abs() - halfb).max())
+            log(f"[wire] int8: max(|dA| - sum_k s_k/2) {overA:.3e} (limit {STATS_REL:g} x max|A| "
+                f"= {slackA:.3e}), max(|db| - sum_k s_k/2) {overb:.3e} (limit {slackb:.3e}); "
+                f"sum_k s_k/2 up to {float(halfA.max()):.3e} on A")
+            if overA > slackA or overb > slackb:
+                raise AssertionError("[wire] int8 is off by more than half a step a client")
+            last = client_design(torch, packed, packed.n_shards - 1, packed.clients_per_shard - 1, C)
+        out[kind] = {"wall_s": wall, "peak_bytes": peak, "counts": counts, "acc": acc_test,
+                     "bytes": nbytes, "err_A": eA}
+    # the path's own kernel inputs: the last client's upload into the int8 accumulator
+    Ak, bk = ops.fed3r_stats(*last)
+    out["case"] = {"A": Ak, "b": bk}
+    out["launches"] = out["int8"]["counts"]
+    return out
+
+
+def phase_stream_int8(torch, ops, W32) -> dict:
+    """serve_stream's arrivals through StreamingEngine under the int8 wire."""
+    from repro_torch.core import fed3r
+    from repro_torch.federated import compress
+    from repro_torch.federated.arrivals import pack_schedule
+    from repro_torch.federated.compress import WireFormat
+    from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
+    from repro_torch.launch.serve_stream import stream_setup
+
+    d, C = STREAM["d"], STREAM["n_classes"]
+    fed, test, schedule = stream_setup(STREAM["n_waves"], STREAM["rate"], 0.0, STREAM["n_clients"],
+                                       d, C, STREAM["seed"], torch.device("cuda"))
+    timeline = pack_schedule(fed, schedule).to("cuda")
+    wire = WireFormat(kind="int8")
+    eng = StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=STREAM["ridge_lambda"],
+                                       wire=wire), device="cuda")
+    T = timeline.n_waves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    state, _ = eng.absorb(eng.init(d), timeline)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(ops)
+    peak = torch.cuda.max_memory_allocated()
+    acc = float(fed3r.accuracy(state.W, test.features, test.labels))
+    rel = float((state.W - W32).abs().max() / W32.abs().max())
+    # the waves whose plain factorization failed, replayed one at a time
+    retried, st = [], eng.init(d)
+    for t in range(T):
+        x = timeline.inputs[t]
+        z, yh, _ = fed3r.masked_design(x.reshape(-1, d), timeline.labels[t].reshape(-1), C,
+                                       timeline.mask[t].reshape(-1))
+        S, dB = ops.fed3r_stats(z.contiguous(), yh.contiguous())
+        G0, _ = ops.chol_gram(st.L, st.L.new_zeros((0, d)), st.b.new_zeros((0, C)))
+        G, _ = compress.roundtrip_add(G0, st.b, S, dB, wire)
+        if int(torch.linalg.cholesky_ex(G)[1]) != 0:
+            retried.append(t)
+        st, _ = eng.absorb(st, timeline.slice_waves(t, t + 1))
+    same = bool(torch.equal(st.W, state.W))
+    log(f"[stream-int8] StreamingEngine(wire=int8, tile {wire.tile}): {T} waves, wall {wall:.3f}s "
+        f"({1e3 * wall / T:.2f} ms a wave), peak memory {peak / 2**30:.3f} GiB, launches {counts}; "
+        f"final acc {acc:.4f}; max|W - W_fp32|/max|W_fp32| {rel:.3e} (limit 0.5); the guard "
+        f"retried on {len(retried)} of {T} waves {retried}; replayed wave by wave, W bitwise: {same}")
+    if counts["fed3r_stats"] != T or counts["chol_gram"] != T or \
+            counts["quantize_tiles"] != 2 * T or counts["dequant_acc"] != 2 * T:
+        raise AssertionError(f"[stream-int8] launched {counts} for {T} waves")
+    if not (bool(torch.isfinite(state.L).all()) and bool(torch.isfinite(state.W).all())):
+        raise AssertionError("[stream-int8] L or W is not finite")
+    if not rel < 0.5 or not same or acc <= 2.0 / C:
+        raise AssertionError("[stream-int8] W strays from the fp32 stream's, or is not repeatable")
+    return {"wall_s": wall, "peak_bytes": peak, "retried": retried, "acc": acc, "rel": rel}
+
+
+def phase_uplink(torch, ops, sim) -> dict:
+    """UplinkCompressor with and without error feedback: 12 uploads of one
+    full-width client."""
+    from repro_torch.core import fed3r
+    from repro_torch.federated.compress import UplinkCompressor, WireFormat
+    from repro_torch.federated.costs import CostModel, stats_wire_bytes
+    from repro_torch.federated.telemetry import Telemetry
+
+    fed, d = sim["fed"], sim["d"]
+    C = fed.n_classes
+    cd = fed.client(0)
+    s = fed3r.client_stats(torch.as_tensor(cd.features, device="cuda"),
+                           torch.as_tensor(cd.labels, device="cuda"), C)
+    step = float(ops.quantize_tiles(s.A.contiguous())[1].max())
+    res = {}
+    for ef in (True, False):
+        up = UplinkCompressor(WireFormat(kind="int8", error_feedback=ef),
+                              cost_model=CostModel(b=2.22e6, d=d, C=C), telemetry=Telemetry())
+        tot, exact = fed3r.init_stats(d, C, "cuda"), fed3r.init_stats(d, C, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(UPLINK_ROUNDS):
+            tot = fed3r.merge(tot, up.upload(0, s))
+            exact = fed3r.merge(exact, s)
+        torch.cuda.synchronize()
+        res[ef] = {"err": float((tot.A - exact.A).abs().max()), "ratio": up.compression_ratio,
+                   "ms": 1e3 * (time.perf_counter() - t0) / UPLINK_ROUNDS,
+                   "drift": up.telemetry.gauge("wire_cost_model_drift", kind="int8", inst=0).value,
+                   "scale": float(exact.A.abs().max())}
+    want_ratio = stats_wire_bytes(d, C, "fp32") / stats_wire_bytes(d, C, "int8")
+    slack = STATS_REL * res[True]["scale"]
+    log(f"[uplink] {UPLINK_ROUNDS} int8 uploads of client 0 (n={len(cd.labels)}, d={d}, C={C}): "
+        f"max|sum A_hat - sum A| with error feedback {res[True]['err']:.4e} (limit one step "
+        f"{step:.4e} + {slack:.3e}), without {res[False]['err']:.4e}; compression ratio "
+        f"{res[True]['ratio']:.6f} (stats_wire_bytes: {want_ratio:.6f}), cost-model drift "
+        f"{res[True]['drift']:.3f}; {res[True]['ms']:.3f} ms an upload")
+    if not (res[True]["err"] <= step + slack and res[True]["err"] < res[False]["err"]):
+        raise AssertionError("[uplink] error feedback does not telescope")
+    if res[True]["ratio"] != want_ratio or res[True]["drift"] != 1.0:
+        raise AssertionError("[uplink] the priced ratio disagrees with stats_wire_bytes")
+    return res
+
+
+def phase_secure(torch, ops, sim) -> dict:
+    """A 10-client cohort quantized against shared scales, masked mod 2^32
+    on the card, summed and recovered after dropout, bitwise."""
+    from repro_torch.core import fed3r
+    from repro_torch.federated import compress, secure_agg
+
+    fed = sim["fed"]
+    C = fed.n_classes
+    cohort = list(range(SECURE_CLIENTS))
+    stats = [fed3r.client_stats(torch.as_tensor(fed.client(k).features, device="cuda"),
+                                torch.as_tensor(fed.client(k).labels, device="cuda"), C)
+             for k in cohort]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads, sA, sb = compress.cohort_quantize_int8(stats)
+    masked = [secure_agg.mask_quantized_payload(p, k, cohort, seed=2024)
+              for k, p in zip(cohort, payloads)]
+    agg = secure_agg.secure_aggregate_quantized(masked)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def int_sum(ps):
+        return [sum(p[i].to(torch.int64) for p in ps) for i in range(2)]
+
+    plain = int_sum(payloads)
+    on_card = all(t.device.type == "cuda" for m in masked for t in m)
+    hidden = min(float((m.qA != p.qA).float().mean()) for m, p in zip(masked, payloads))
+    exact_sum = torch.equal(agg.qA.to(torch.int64), plain[0]) and torch.equal(
+        agg.qb.to(torch.int64), plain[1])
+    survivors = [k for k in cohort if k not in SECURE_DROPPED]
+    rec = secure_agg.recover_survivor_sum_quantized(
+        secure_agg.secure_aggregate_quantized([masked[k] for k in survivors]), survivors,
+        list(SECURE_DROPPED), seed=2024)
+    want = int_sum([payloads[k] for k in survivors])
+    exact_rec = torch.equal(rec.qA.to(torch.int64), want[0]) and torch.equal(
+        rec.qb.to(torch.int64), want[1])
+    A_sum, _ = compress.dequantize_int_sum(agg, sA, sb)
+    exact = fed3r.merge(*stats)
+    rel = max_rel_err(A_sum, exact.A)
+    probe_a = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32, device="cuda")
+    probe_b = torch.tensor([1, -1], dtype=torch.int32, device="cuda")
+    want_wrap = [-(2**31), 2**31 - 1]
+    ring = secure_agg.ring_add(probe_a, probe_b).tolist()
+    native = (probe_a + probe_b).tolist()
+    log(f"[secure] {SECURE_CLIENTS} clients x (d={sim['d']}, C={C}) int32 payloads, masks on the "
+        f"card: {on_card}, each upload masked on >= {hidden:.4f} of its entries; quantize + mask + "
+        f"sum {wall:.3f}s; masked sum bitwise the plain integer sum: {exact_sum}; {len(SECURE_DROPPED)}"
+        f" dropped {list(SECURE_DROPPED)}: recovered survivors' sum bitwise: {exact_rec}; "
+        f"dequantized sum vs fp32 sum max|dA|/max|A| {rel:.3e}; int32 wrap probe on the card: "
+        f"ring_add {ring}, native + {native} (want {want_wrap})")
+    if not (on_card and hidden > 0.99 and exact_sum and exact_rec and ring == want_wrap
+            and rel < 0.02):
+        raise AssertionError("[secure] masked aggregation is not exact on the card")
+    return {"wall_s": wall, "rel": rel}
+
+
+def half_way_matrix(tiles_down, tiles_across, tile, seed):
+    """An fp32 matrix whose every entry but one a tile sits exactly half-way
+    between two integers of its tile's quantization grid (x/s = k + 1/2, no
+    rounding anywhere), so round-half-to-even decides each of them."""
+    r = np.random.default_rng(seed)
+    inv = np.float32(1.0 / 127.0)
+    x = np.empty((tiles_down * tile, tiles_across * tile), np.float32)
+    for i in range(tiles_down):
+        for j in range(tiles_across):
+            while True:  # an absmax whose scale has <= 15 significant bits
+                a = np.float32(r.uniform(1.0, 100.0))
+                s = np.float32(a * inv)
+                if int(s.view(np.uint32)) & 0x1FF == 0:
+                    break
+            k = r.integers(-127, 127, size=(tile, tile))
+            blk = ((k + 0.5) * np.float64(s)).astype(np.float32)
+            blk[0, 0] = a
+            x[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = blk
+    return x
+
+
+def quant_check(torch, ops, ref, x, acc, tile, label) -> float:
+    """Both quantization kernels against their plain versions, bitwise."""
+    q, s = ops.quantize_tiles(x, tile=tile)
+    out = ops.dequant_accumulate(acc, q, s, tile=tile)
+    torch.cuda.synchronize()
+    qr, sr = ref.quantize_tiles_ref(x, tile)
+    outr = ref.dequant_acc_ref(acc, q, s, tile)
+    same = torch.equal(q, qr) and torch.equal(s, sr) and torch.equal(out, outr)
+    zero_tiles = int((s == 1.0).sum())
+    log(f"[kernel] quantize_tiles + dequant_acc {label} ({x.shape[0]}, {x.shape[1]}) tile {tile}: "
+        f"q, scales and fma(q, s, acc) bitwise the plain versions: {same}  (q differs on "
+        f"{int((q != qr).sum())}, out on {int((out != outr).sum())}; {zero_tiles} tiles of scale 1)")
+    if not same:
+        raise AssertionError(f"quantize_tiles / dequant_acc disagree with their plain versions "
+                             f"at {label}")
+    return float((out - outr).abs().max())
+
+
+def phase_kernel_quant(torch, ops, ref, case) -> dict:
+    """quantize_tiles and dequant_acc at the uplink's shapes (A 1280 x 1280
+    and b 1280 x 100 at tile 128, from the [wire] path), at the RF width
+    5000 x 5000, at ragged shapes, on all-zero tiles and on exact half-way
+    inputs; times at the path's shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(60)
+    err = 0.0
+    for name in ("A", "b"):
+        x = case[name]
+        acc = torch.randn(x.shape, generator=gen, device="cuda") * float(x.abs().max())
+        err = max(err, quant_check(torch, ops, ref, x, acc, 128, f"[wire] client {name}"))
+    for M, N, tile in QUANT_SHAPES:
+        x = torch.randn((M, N), generator=gen, device="cuda") * 10.0
+        x[:tile, :tile] = 0.0  # an all-zero tile: scale 1, payload 0
+        acc = torch.randn((M, N), generator=gen, device="cuda")
+        err = max(err, quant_check(torch, ops, ref, x, acc, tile, "random, a zero tile"))
+    hx = torch.as_tensor(half_way_matrix(2, 3, 128, seed=61), device="cuda")
+    q, s = ops.quantize_tiles(hx)
+    ratio = hx.double() / ref.expand_tiles(s, 128, *hx.shape).double()
+    tie = (ratio - ratio.floor() - 0.5) == 0.0
+    even = bool((q[tie].to(torch.int64) % 2 == 0).all())
+    log(f"[kernel] quantize_tiles half-way inputs: {int(tie.sum())} exact ties of "
+        f"{hx.numel()} entries, all rounded to even: {even}")
+    if not even or int(tie.sum()) != hx.numel() - 6:
+        raise AssertionError("quantize_tiles does not round half to even")
+    err = max(err, quant_check(torch, ops, ref, hx, torch.zeros_like(hx), 128, "half-way"))
+
+    out = {}
+    for name in ("A", "b"):
+        x = case[name]
+        M, N = x.shape
+        tile = 128
+        Mt, Nt = -(-M // tile), -(-N // tile)
+        acc = torch.randn((M, N), generator=gen, device="cuda")
+        q, s = ops.quantize_tiles(x)
+        qf = q.to(torch.float32)
+        se = ref.expand_tiles(s, tile, M, N).contiguous()
+        lib_same = bool(torch.equal(torch.addcmul(acc, qf, se), ops.dequant_accumulate(acc, q, s)))
+        nb_q, nb_d = 4.0 * M * N + M * N + 4.0 * Mt * Nt, 4.0 * M * N * 2 + M * N + 4.0 * Mt * Nt
+        ms_q, plain_q = cuda_ms(lambda: ops.quantize_tiles(x)), cuda_ms(
+            lambda: ref.quantize_tiles_ref(x, tile))
+        bq = bound(6.0 * M * N, nb_q)
+        log(f"[kernel] quantize_tiles [wire] {name} ({M}, {N}) tile {tile}: kernel_ms {ms_q:.4f}  "
+            f"plain_ms {plain_q:.4f}  library_ms none (no one PyTorch call quantizes per tile)  "
+            f"bound_ms {bq['bound_ms']:.4f} by {bq['bound_by']} ({nb_q / 1e6:.3f} MB: "
+            f"{bq['t_bytes']:.4f} ms; {bq['flops'] / 1e6:.3f} M ops: {bq['t_ops']:.4f} ms) = "
+            f"{100 * bq['bound_ms'] / ms_q:.1f}% of the bound")
+        td = timed("dequant_acc", f"[wire] {name} ({M}, {N}) tile {tile}",
+                   lambda: ops.dequant_accumulate(acc, q, s),
+                   lambda: ref.dequant_acc_ref(acc, q, s, tile),
+                   lambda: torch.addcmul(acc, qf, se),
+                   "library_ms (torch.addcmul on pre-expanded scales and a float q)",
+                   bound(2.0 * M * N, nb_d))
+        log(f"[kernel] dequant_acc [wire] {name}: torch.addcmul on the card bitwise the kernel's "
+            f"one FMA: {lib_same}")
+        if not out:
+            out = {"quantize_tiles": {"ms": ms_q, "plain_ms": plain_q, "library_ms": None,
+                                      "bound_ms": bq["bound_ms"], "bound_by": bq["bound_by"]},
+                   "dequant_acc": td}
+    M = N = 5000
+    x = torch.randn((M, N), generator=gen, device="cuda")
+    acc = torch.randn((M, N), generator=gen, device="cuda")
+    q, s = ops.quantize_tiles(x)
+    log(f"[kernel] at ({M}, {N}) tile 128: quantize_tiles {cuda_ms(lambda: ops.quantize_tiles(x)):.4f} "
+        f"ms (bound {bound(6.0 * M * N, 5.0 * M * N)['bound_ms']:.4f}), dequant_acc "
+        f"{cuda_ms(lambda: ops.dequant_accumulate(acc, q, s)):.4f} ms (bound "
+        f"{bound(2.0 * M * N, 9.0 * M * N)['bound_ms']:.4f})")
+    for entry in out.values():
+        entry["max_abs_err"] = err
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1038,6 +1426,10 @@ def main() -> int:
     srf = phase_stream_rf(torch, ops, ref, packed, rf["params"])
     phase_stream_slots(torch, ops, stream["arrival"]["W"])
     heads = phase_heads(torch, ops)
+    wire = phase_wire(torch, ops, ref, sim)
+    phase_stream_int8(torch, ops, stream["arrival"]["W"])
+    phase_uplink(torch, ops, sim)
+    phase_secure(torch, ops, sim)
     t_phases = time.perf_counter() - t_all
     gates = phase_heads_gates(torch, heads["lru strict"])
 
@@ -1048,6 +1440,7 @@ def main() -> int:
                                 rf["params"].beta)
     kern_chol = phase_kernel_chol(torch, ops, ref, (stream["arrival"]["L"], z, y), srf["case"])
     kern_batched = phase_kernel_batched(torch, ops, ref, gates["state"].L, gates["packed"])
+    kern_quant = phase_kernel_quant(torch, ops, ref, wire["case"])
     log(f"[done] paths in {t_phases:.1f}s, all phases in {time.perf_counter() - t_all:.1f}s")
 
     entries = [
@@ -1065,6 +1458,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/batched_chol_gram.cu",
          "replaces": "src/repro/kernels/chol_update.py:189",
          "launches": heads["lru strict"]["launches"], **kern_batched},
+        {"name": "quantize_tiles", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
+         "replaces": "src/repro/kernels/quant.py:77",
+         "launches": wire["launches"]["quantize_tiles"], **kern_quant["quantize_tiles"]},
+        {"name": "dequant_acc", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
+         "replaces": "src/repro/kernels/quant.py:108",
+         "launches": wire["launches"]["dequant_acc"], **kern_quant["dequant_acc"]},
     ]
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

@@ -171,7 +171,9 @@ def init_factored(
     )
 
 
-def psd_cholesky(G: torch.Tensor) -> torch.Tensor:
+def psd_cholesky(
+    G: torch.Tensor, bound: Optional[Union[torch.Tensor, float]] = None
+) -> torch.Tensor:
     """Lower Cholesky factor of a nominally positive definite fp32 Gram G.
 
     G is (d, d) or a batch (..., d, d), each matrix factored on its own.
@@ -185,8 +187,12 @@ def psd_cholesky(G: torch.Tensor) -> torch.Tensor:
     for quantization noise: the plain factorization first (bit-identical
     where it succeeds), and only where it fails, retries with a diagonal
     jitter τ ∈ {1, 4, 16}·√d·eps·max diag(G), the bound taken per matrix.
-    Where every retry fails, the factor is NaN on and below the diagonal
-    (zero above), the reference's failure pattern.
+    ``bound`` replaces that rounding bound with the caller's (a scalar, or
+    one per matrix of the batch): the compressed uplink passes its
+    quantization-noise bound (:func:`repro_torch.federated.compress.
+    quant_spectral_bound`), as the reference's ``compress.psd_cholesky``
+    takes it.  Where every retry fails, the factor is NaN on and below the
+    diagonal (zero above), the reference's failure pattern.
 
     Branch-free: ``cholesky_ex`` without its host-side check and ``where``
     chains, so a wave makes no host sync (``torch.linalg.cholesky`` would
@@ -195,7 +201,10 @@ def psd_cholesky(G: torch.Tensor) -> torch.Tensor:
     """
     d = G.shape[-1]
     L, info = torch.linalg.cholesky_ex(G, check_errors=False)
-    bound = math.sqrt(d) * torch.finfo(torch.float32).eps * G.diagonal(dim1=-2, dim2=-1).amax(-1)
+    if bound is None:
+        bound = math.sqrt(d) * torch.finfo(torch.float32).eps * G.diagonal(dim1=-2, dim2=-1).amax(-1)
+    else:
+        bound = torch.as_tensor(bound, dtype=G.dtype, device=G.device)
     eye = torch.eye(d, dtype=G.dtype, device=G.device)
     for mult in (1.0, 4.0, 16.0):
         retry, retry_info = torch.linalg.cholesky_ex(

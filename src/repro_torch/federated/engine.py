@@ -15,7 +15,13 @@ and the datacenter path (:mod:`repro_torch.launch.train`) — funnels through
   rows are masked after the map, in the masked design, as in the reference;
 * per client block, the masked design goes through ONE launch of the
   ``fed3r_stats`` kernel (:func:`repro_torch.kernels.ops.fed3r_stats`; its
-  plain version on the CPU), and the block folds into the accumulator.
+  plain version on the CPU), and the block folds into the accumulator;
+* with a compressed wire format (``EngineConfig(wire=WireFormat(kind="int8"
+  | "fp8" | "sketch"))``) each client's (A_k, b_k) crosses the wire
+  compressed and lands in the fp32 accumulator through
+  :func:`repro_torch.federated.compress.roundtrip_add` — under int8 two
+  ``quantize_tiles`` and two ``dequant_accumulate`` launches per client.
+  The tiny exact sidecars (n, class counts) stay fp32.
 
 Exactness: per-client blocks have identical padded shapes, the kernel sums
 each element in sample order without atomics, and the client fold is a
@@ -24,8 +30,8 @@ shards — so A and b are bit-identical under client reordering AND
 re-sharding (different ``clients_per_shard``), the paper's §4.3 invariance
 made exact rather than approximate.
 
-Not ported yet: compressed wire formats (ROADMAP Queue 1 item 6), the
-psum/mesh/tree backends (item 8).
+Not ported yet: the psum/mesh/tree backends (ROADMAP Queue 1 item 8), and
+with them the compressed wire's psum form.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from repro_torch.core import fed3r, ncm
 from repro_torch.core.fed3r import Fed3RStats
 from repro_torch.core.random_features import RFFParams, rff_map
 from repro_torch.data.pipeline import PackedClients
+from repro_torch.federated import compress
+from repro_torch.federated.compress import WireFormat
 from repro_torch.federated.dist import (
     DistConfig,
     DistContext,
@@ -79,15 +87,10 @@ def to_ncm_stats(acc: EngineStats) -> ncm.NCMStats:
 class EngineConfig:
     n_classes: int
     dist: DistConfig = field(default_factory=DistConfig)  # "merge" only
-    # statistics wire format; the compressed formats are a later slice
-    wire: str = "fp32"
-
-    def __post_init__(self):
-        if self.wire != "fp32":
-            raise NotImplementedError(
-                f"wire={self.wire!r}: compressed statistics uplinks are ROADMAP "
-                "Queue 1 item 6; the port carries fp32 statistics only"
-            )
+    # statistics wire format (repro_torch.federated.compress): each client's
+    # (A_k, b_k) crosses the wire in this format; fp32 is bitwise the
+    # uncompressed engine
+    wire: WireFormat = field(default_factory=WireFormat)
 
 
 class AccumulationEngine(DistDispatchMixin):
@@ -115,6 +118,7 @@ class AccumulationEngine(DistDispatchMixin):
         self.feature_fn = feature_fn
         self.rff_params = rff_params
         self.device = resolve_device(device)
+        self.wire = cfg.wire.resolved()  # fp8 → int8 only where torch lacks fp8
         self.dist = DistContext(cfg.dist, engine="accumulation", telemetry=telemetry)
 
     def init(self, d: int) -> EngineStats:
@@ -123,13 +127,16 @@ class AccumulationEngine(DistDispatchMixin):
     def _client_fold(
         self, acc: EngineStats, feats: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
     ) -> EngineStats:
-        """Fold one client's padded block into the accumulator (one launch)."""
+        """Fold one client's padded block into the accumulator: one
+        ``fed3r_stats`` launch, then the wire format's fold."""
         z, y, n = fed3r.masked_design(feats, labels, self.cfg.n_classes, mask)
         A, b = fed3r_stats(z, y)
-        return EngineStats(
-            stats=fed3r.merge(acc.stats, Fed3RStats(A=A, b=b, n=n)),
-            class_counts=acc.class_counts + y.sum(dim=0),
-        )
+        if self.wire.kind == "fp32":
+            stats = fed3r.merge(acc.stats, Fed3RStats(A=A, b=b, n=n))
+        else:
+            accA, accb = compress.roundtrip_add(acc.stats.A, acc.stats.b, A, b, self.wire)
+            stats = Fed3RStats(A=accA, b=accb, n=acc.stats.n + n)
+        return EngineStats(stats=stats, class_counts=acc.class_counts + y.sum(dim=0))
 
     @torch.no_grad()
     def accumulate(

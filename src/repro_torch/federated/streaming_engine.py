@@ -31,14 +31,25 @@ factors through ``psd_cholesky``: bit-identical where the plain
 factorization succeeds, a jitter of a few rounding steps only where it
 fails.
 
+With a compressed wire format (``StreamConfig(wire=WireFormat(kind="int8" |
+"fp8" | "sketch"))``) each wave's rank-n statistics (S, ΔB) cross the wire
+compressed before they touch the carried factor: S and ΔB by one
+``fed3r_stats`` launch, the Gram L Lᵀ by a ``chol_gram`` launch with no
+sample rows (exactly symmetric), the upload folded in by
+:func:`repro_torch.federated.compress.roundtrip_add`, then the guarded
+factorization with the quantization-noise bound of the wire
+(:func:`repro_torch.federated.compress.quant_spectral_bound`) for int8 and
+fp8.  The fused ``chol_gram`` of the fp32 path is bypassed because the wire
+sits between the sample GEMMs and the factor reconstruction.
+
 Exactness: each wave's clients are canonically packed (sorted by id) and the
 kernels sum without atomics, so the folded state — and the final W — is
 bitwise invariant to the presentation order of concurrent arrivals; across
 waves the stream order IS the semantics.  :class:`ReferenceArrivalLoop`
 keeps the subtractive Woodbury update as the numerical foil.
 
-Not ported yet: compressed wires (ROADMAP Queue 1 item 6), the ``psum``
-backend, meshes and ``tiered_absorber`` (item 8).
+Not ported yet: the ``psum`` backend (and with it the wire's psum form),
+meshes and ``tiered_absorber`` (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -53,6 +64,8 @@ from repro_torch.core import fed3r
 from repro_torch.core.fed3r import Fed3RFactored
 from repro_torch.core.random_features import RFFParams, rff_map
 from repro_torch.data.pipeline import PackedArrivals
+from repro_torch.federated import compress
+from repro_torch.federated.compress import WireFormat
 from repro_torch.federated.dist import (
     DistConfig,
     DistContext,
@@ -60,7 +73,7 @@ from repro_torch.federated.dist import (
     resolve_device,
 )
 from repro_torch.federated.telemetry import Telemetry
-from repro_torch.kernels.ops import chol_gram
+from repro_torch.kernels.ops import chol_gram, fed3r_stats
 
 
 @dataclass(frozen=True)
@@ -72,16 +85,10 @@ class StreamConfig:
     refresh_every: int = 1  # 1 = refresh-on-arrival; k > 1 = every k-th wave
     normalize: bool = True  # per-class column normalization of the served W
     dist: DistConfig = field(default_factory=DistConfig)  # "merge" only
-    # statistics wire format; the compressed formats are a later slice
-    wire: str = "fp32"
-
-    def __post_init__(self):
-        if self.wire != "fp32":
-            raise NotImplementedError(
-                f"wire={self.wire!r}: compressed statistics uplinks are ROADMAP "
-                "Queue 1 item 6 (and their psum form item 8); the port's stream "
-                "carries fp32 statistics only"
-            )
+    # statistics wire format (repro_torch.federated.compress): each wave's
+    # rank-n (S, ΔB) upload crosses the wire in this format before it
+    # touches the carried factor; fp32 is bitwise the uncompressed stream
+    wire: WireFormat = field(default_factory=WireFormat)
 
 
 class StreamState(NamedTuple):
@@ -172,6 +179,7 @@ class StreamingEngine(DistDispatchMixin):
         self.feature_fn = feature_fn
         self.rff_params = rff_params
         self.device = resolve_device(device)
+        self.wire = cfg.wire.resolved()  # fp8 → int8 only where torch lacks fp8
         self.dist = DistContext(cfg.dist, engine="streaming", telemetry=telemetry)
 
     def init(self, d: int) -> StreamState:
@@ -197,9 +205,14 @@ class StreamingEngine(DistDispatchMixin):
             feats = rff_map(self.rff_params, feats)
         # ψ(0) ≠ 0: the mask applies after the map, here
         z, yh, nw = fed3r.masked_design(feats, y.reshape(-1), self.cfg.n_classes, m.reshape(-1))
-        G, dB = chol_gram(state.L, z, yh)
-        L = fed3r.psd_cholesky(G)
-        b = state.b + dB
+        if self.wire.kind == "fp32":
+            G, dB = chol_gram(state.L, z, yh)
+            L = fed3r.psd_cholesky(G)
+            b = state.b + dB
+        else:
+            S, dB = fed3r_stats(z, yh)
+            G, b = compress.roundtrip_add(self._gram(state), state.b, S, dB, self.wire)
+            L = self._lossy_cholesky(G, S)
         t = state.wave + 1
         refresh = t % self.cfg.refresh_every == 0
         if refresh:
@@ -209,6 +222,21 @@ class StreamingEngine(DistDispatchMixin):
         return StreamState(
             L=L, b=b, n=state.n + nw, W=W, wave=t, stale_waves=stale_w, stale_samples=stale_n
         ), refresh
+
+    def _gram(self, state: StreamState) -> torch.Tensor:
+        """L Lᵀ of the carried factor: a ``chol_gram`` launch with no sample
+        rows, exactly symmetric."""
+        d, C = state.b.shape
+        G, _ = chol_gram(state.L, state.L.new_zeros((0, d)), state.b.new_zeros((0, C)))
+        return G
+
+    def _lossy_cholesky(self, G: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+        """The guarded factorization of a Gram that received statistics S
+        through the wire: int8 and fp8 size the jitter by their quantization
+        noise; sketch and fp32 add none, so the fp32 rounding bound guards."""
+        if self.wire.kind in ("int8", "fp8"):
+            return fed3r.psd_cholesky(G, bound=compress.quant_spectral_bound(S, self.wire))
+        return fed3r.psd_cholesky(G)
 
     @torch.no_grad()
     def absorb(
@@ -250,16 +278,16 @@ class StreamingEngine(DistDispatchMixin):
 
         The integration point for round-granular producers: the statistics
         land in the carried factor through the Gram reconstruction L Lᵀ (a
-        ``chol_gram`` launch with no sample rows) and W re-solves.
+        ``chol_gram`` launch with no sample rows) and W re-solves.  Under the
+        ``merge`` backend the already-reduced statistics do not cross the
+        wire again, but a lossy wire's noise bound still sizes the guard.
         """
         with self.dist.telemetry.span("absorb_stats", engine="streaming"):
             self.dist.dispatch()
             A = torch.as_tensor(A, dtype=torch.float32, device=self.device)
             b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
             n = torch.as_tensor(n, dtype=torch.float32, device=self.device)
-            d, C = state.b.shape
-            G0, _ = chol_gram(state.L, state.L.new_zeros((0, d)), state.b.new_zeros((0, C)))
-            L = fed3r.psd_cholesky(G0 + A)
+            L = self._lossy_cholesky(self._gram(state) + A, A)
             b_new = state.b + b
             return StreamState(
                 L=L, b=b_new, n=state.n + n, W=self._solve(L, b_new), wave=state.wave + 1,

@@ -19,6 +19,7 @@ from repro.federated.engine import AccumulationEngine as JEngine  # noqa: E402
 from repro.federated.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro_torch.core import fed3r  # noqa: E402
 from repro_torch.data.pipeline import pack_client_shards  # noqa: E402
+from repro_torch.federated.compress import WireFormat  # noqa: E402
 from repro_torch.federated.dist import DistConfig  # noqa: E402
 from repro_torch.federated.engine import (  # noqa: E402
     AccumulationEngine,
@@ -154,8 +155,11 @@ def test_engine_counts_dispatches_and_spans():
 
 
 def test_engine_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        EngineConfig(n_classes=C, wire="int8")
+    # compressed wires are ported: a WireFormat is taken, an unknown kind refused
+    assert EngineConfig(n_classes=C, wire=WireFormat(kind="int8")).wire.kind == "int8"
+    assert _engine().wire == WireFormat()  # fp32 by default
+    with pytest.raises(ValueError):
+        EngineConfig(n_classes=C, wire=WireFormat(kind="int4"))
     with pytest.raises(NotImplementedError):
         EngineConfig(n_classes=C, dist=DistConfig(aggregation="psum"))
     with pytest.raises(ValueError):

@@ -1,10 +1,11 @@
 """The port's kernels against the reference kernel, and on the card.
 
-``fed3r_stats`` is held against the reference here; ``rff``, ``chol_gram``
-and ``batched_chol_gram`` in ``test_torch_rff.py``,
-``test_torch_streaming.py`` and ``test_torch_personalization.py``.  The
-tests marked ``gpu`` (all four kernels, and the streaming engine's
-sync-free absorb) run on the card; this file imports JAX only inside the
+``fed3r_stats`` is held against the reference here; ``rff``, ``chol_gram``,
+``batched_chol_gram`` and the quantization pair in ``test_torch_rff.py``,
+``test_torch_streaming.py``, ``test_torch_personalization.py`` and
+``test_torch_compress.py``.  The tests marked ``gpu`` (all six kernels, the
+int8 engine's launches, and the streaming engine's sync-free absorb) run on
+the card; this file imports JAX only inside the
 reference comparisons, so they run where JAX is not installed.
 
 On the CPU the port's wrapper runs its plain version; the reference's Pallas
@@ -25,13 +26,17 @@ from repro_torch.kernels import fed3r_stats as fed3r_stats_mod  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     batched_chol_gram,
     chol_gram,
+    dequant_accumulate,
     fed3r_stats,
+    quantize_tiles,
     rff_transform,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
     batched_chol_gram_ref,
     chol_gram_ref,
+    dequant_acc_ref,
     fed3r_stats_ref,
+    quantize_tiles_ref,
     rff_ref,
 )
 
@@ -216,3 +221,49 @@ def test_streaming_absorb_makes_no_host_sync_on_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert state.wave == 8 and bool(torch.isfinite(state.W).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,tile", [(1280, 1280, 128), (1280, 100, 128), (200, 150, 64),
+                                      (33, 190, 128), (1281, 77, 16)])
+def test_quant_kernels_on_card_equal_their_plain_versions_bitwise(cuda_device, M, N, tile):
+    r = np.random.default_rng(9)
+    x = (10.0 * r.normal(size=(M, N))).astype(np.float32)
+    x[:tile, :tile] = 0.0  # an all-zero tile: scale 1, payload 0
+    xc = torch.from_numpy(x).to(cuda_device)
+    acc = torch.from_numpy(r.normal(size=(M, N)).astype(np.float32)).to(cuda_device)
+    before = (quantize_tiles.launches, dequant_accumulate.launches)
+    q, s = quantize_tiles(xc, tile=tile)
+    out = dequant_accumulate(acc, q, s, tile=tile)
+    torch.cuda.synchronize()
+    assert (quantize_tiles.launches, dequant_accumulate.launches) == (before[0] + 1, before[1] + 1)
+    qr, sr = quantize_tiles_ref(xc, tile)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert float(s[0, 0]) == 1.0 and not q[:tile, :tile].any()
+    assert torch.equal(out, dequant_acc_ref(acc, q, s, tile))  # one FMA on both sides
+
+
+@pytest.mark.gpu
+def test_int8_engine_launches_two_quant_pairs_per_client_on_card(cuda_device):
+    from repro_torch.data.pipeline import pack_client_shards
+    from repro_torch.federated.compress import WireFormat
+    from repro_torch.federated.engine import AccumulationEngine, EngineConfig
+
+    r = np.random.default_rng(10)
+    clients = [(r.normal(size=(int(n), 64)).astype(np.float32),
+                r.integers(0, 5, size=int(n)).astype(np.int32)) for n in r.integers(8, 30, size=6)]
+    packed = pack_client_shards(clients, 3)
+    eng = AccumulationEngine(EngineConfig(n_classes=5, wire=WireFormat(kind="int8", tile=32)),
+                             device=cuda_device)
+    before = (fed3r_stats.launches, quantize_tiles.launches, dequant_accumulate.launches)
+    acc = eng.accumulate(eng.init(64), packed)
+    torch.cuda.synchronize()
+    after = (fed3r_stats.launches, quantize_tiles.launches, dequant_accumulate.launches)
+    assert [a - b for a, b in zip(after, before)] == [6, 12, 12]
+    cpu = AccumulationEngine(EngineConfig(n_classes=5, wire=WireFormat(kind="int8", tile=32)),
+                             device="cpu")
+    ref = cpu.accumulate(cpu.init(64), packed)
+    step = sum(float(quantize_tiles_ref(torch.from_numpy(
+        (x.T @ x).astype(np.float32)), 32)[1].max()) for x, _ in clients)
+    assert float((acc.stats.A.cpu() - ref.stats.A).abs().max()) <= step + REL_TOL * float(
+        ref.stats.A.abs().max())

@@ -215,5 +215,7 @@ def test_port_imports_without_jax_or_the_reference_package():
     names = out.stdout.split()
     assert len(names) >= 30  # every module of the port was imported
     for name in ("federated.personalization", "federated.slots", "launch.serve_heads",
-                 "launch.serving_engine", "launch.serve_stream", "kernels.chol_update"):
+                 "launch.serving_engine", "launch.serve_stream", "kernels.chol_update",
+                 "federated.compress", "federated.secure_agg", "federated.costs",
+                 "kernels.quant"):
         assert "repro_torch." + name in names

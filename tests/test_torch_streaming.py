@@ -42,6 +42,7 @@ from repro_torch.data.pipeline import (  # noqa: E402
     pack_arrival_waves,
 )
 from repro_torch.federated import arrivals  # noqa: E402
+from repro_torch.federated.compress import WireFormat  # noqa: E402
 from repro_torch.federated.dist import DistConfig  # noqa: E402
 from repro_torch.federated.streaming_engine import (  # noqa: E402
     ReferenceArrivalLoop,
@@ -498,8 +499,10 @@ def test_legacy_woodbury_visibly_diverges_where_engine_holds():
 def test_streaming_rejects_unported_options():
     with pytest.raises(ValueError):
         _engine(refresh_every=0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _cfg(wire="int8")
+    # compressed wires are ported: a WireFormat is taken, an unknown kind refused
+    assert _engine(wire=WireFormat(kind="int8", tile=16)).wire == WireFormat(kind="int8", tile=16)
+    with pytest.raises(ValueError):
+        _cfg(wire=WireFormat(kind="int4"))
     with pytest.raises(NotImplementedError, match="item 8"):
         _cfg(dist=DistConfig(aggregation="psum"))
     with pytest.raises(NotImplementedError, match="item 8"):
