@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero.  Each
 path resets every kernel's launch count just before it runs and reads the
 counts just after.
 
-1. build     -- compile the five CUDA sources (``fed3r_stats``, ``rff``,
-                ``chol_gram``, ``batched_chol_gram``, ``quant``: six kernels) from
+1. build     -- compile the six CUDA sources (``fed3r_stats``, ``rff``,
+                ``chol_gram``, ``batched_chol_gram``, ``quant``,
+                ``flash_attention``: seven kernels) from
                 ``src/repro_torch/kernels/csrc/`` with nvcc for sm_90a, one
                 nvcc per source, all started together.
 2. slice     -- ``launch/train.py`` phase 1 on ``fed3r-mnv2-proxy`` at full
@@ -57,11 +58,29 @@ counts just after.
 12. secure   -- a 10-client cohort quantized against shared scales and
                 masked mod 2^32 on the card: the masked sum and the
                 survivors' sum after 2 drop out, bitwise; an int32 wrap probe.
-13. kernel    -- each kernel against its plain PyTorch version at the shapes
+13. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
+                layers, d_model 3584, GQA 28/4, vocab 152,064), bf16, random
+                weights: batch 8, 2048-token prompts, 64 tokens; flash_attention
+                launches 28 in the prefill and 0 in the decode steps.  Then a
+                ragged 1000-token prompt at batch 1.
+14. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
+                decode steps against one train-mode forward over the 2048
+                tokens (the plain attention), the logits' gap and the share
+                of equal argmaxes within the bounds measured once, and
+                three faults planted in the prefill's attention (window 1,
+                KV heads rolled in every layer or in one) outside them; decode
+                with the fp32 weights cast at every product against a bf16
+                copy of the matrices cast once (the same bits); then
+                ``qwen2-7b-smoke`` in fp32, card against CPU: the same greedy
+                tokens, logits within 2e-4 of the largest.
+15. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
-                bitwise, on all-zero tiles and exact half-way inputs too),
-                and at each path's shape the times of kernel, plain version
-                and library call.
+                bitwise, on all-zero tiles and exact half-way inputs too;
+                flash attention in bf16 and fp32, with and without a
+                window; in bf16 also each row within 2 bf16 ulps of the
+                plain version in fp32, a limit that an emulated skipped key
+                tile must exceed), and at each path's shape the times of
+                kernel, plain version and library call.
 
 The device-time breakdown of the slice is a separate command,
 ``python -m repro_torch.launch.profile_slice``.
@@ -129,6 +148,39 @@ UPLINK_ROUNDS = 12
 SECURE_CLIENTS, SECURE_DROPPED = 10, (3, 7)
 QUANT_SHAPES = [(1280, 1280, 128), (1280, 100, 128), (5000, 5000, 128), (200, 150, 64),
                 (33, 190, 128), (1281, 77, 16)]
+# the dense serving path (launch/serve.py) at Qwen2-7B's full width, bf16
+SERVE_ARCH = "qwen2-7b"
+SERVE_FULL = dict(batch=8, prompt_len=2048, gen=64)
+SERVE_RAGGED = dict(batch=1, prompt_len=1000, gen=16)
+CONSIST = dict(B=2, S=1984, T=64)  # the decode-consistency test's contract at full width
+DECODE_COST_STEPS = 16
+# prefill (the kernel: fp32 scores, p rounded before the normalization) +
+# decode against the train forward (the plain attention: bf16 scores, p
+# rounded after it) over 28 bf16 layers of random weights.  Measured once on
+# the card (PERF.md, PR 15): max|dlogit| 1.105e-2 of max|logit| 5.656 (2 bf16
+# ulps of it), 130 of 130 argmaxes equal.  Bounds: twice the gap (4 ulps),
+# and at most 3 of the 130 positions flipped; never to be loosened.
+CONSIST_REL = 2.2e-2
+CONSIST_ARGMAX = 0.97
+# faults planted in the consistency prefill (a wrapper around the kernel,
+# installed for one run and removed): the gap must read above CONSIST_REL
+# for each, or the bound could not see a wrong prefill attention
+CONSIST_FAULTS = ("window 1", "KV heads rolled", "KV heads rolled in one layer")
+SMOKE_SERVE = dict(arch="qwen2-7b-smoke", B=2, S=16, gen=8, rel=2e-4)
+# flash attention: the reference test's tolerances (tests/test_kernels.py),
+# at the serve shape, a long one, the reference test's MHA/GQA/MQA shapes and
+# ragged lengths; times at the first two (bf16)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
+                (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64)]
+FLASH_TIMED = 2
+# bf16 kernel against the plain version on the same inputs in fp32 (exact
+# to ~1e-6 here): the kernel rounds p and the output to bf16, so each row's
+# largest error should stay within a bf16 ulp or so of the row's max|o|.
+# Limit in ulps of that max; a planted fault (key tile 0 skipped for the
+# last query tile) must read above it.
+FLASH_BF16_ULPS = 2.0
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet, 700 W)
 # the main path: launch/train.py phase 1 at full width
 SLICE_ARCH = "fed3r-mnv2-proxy"
 SLICE = dict(n_samples=8192, seq_len=128, n_classes=100, n_clients=100, clients_per_round=10)
@@ -172,7 +224,7 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20, budget_ms: float = 400.0) ->
 
 def reset_counts(ops) -> None:
     for fn in (ops.fed3r_stats, ops.rff_transform, ops.chol_gram, ops.batched_chol_gram,
-               ops.quantize_tiles, ops.dequant_accumulate):
+               ops.quantize_tiles, ops.dequant_accumulate, ops.flash_attention):
         fn.launches = 0
 
 
@@ -181,7 +233,8 @@ def read_counts(ops) -> dict:
             "chol_gram": ops.chol_gram.launches,
             "batched_chol_gram": ops.batched_chol_gram.launches,
             "quantize_tiles": ops.quantize_tiles.launches,
-            "dequant_acc": ops.dequant_accumulate.launches}
+            "dequant_acc": ops.dequant_accumulate.launches,
+            "flash_attention": ops.flash_attention.launches}
 
 
 def phase_build(build, ops) -> dict:
@@ -342,10 +395,11 @@ def stats_flops(Z, Y) -> float:
     return float(n_live * d * (d + 1) + d * (ones + 2 * (nnz - ones)))
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: FLOPs at the fp32 FMA peak or the
-    bytes at the HBM rate, whichever is larger."""
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> dict:
+    """The least time the card could take: FLOPs at the peak of their type
+    (the fp32 FMA peak unless given) or the bytes at the HBM rate, whichever
+    is larger."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "t_ops": t_ops, "t_bytes": t_bytes, "flops": flops, "nbytes": nbytes}
@@ -1401,6 +1455,336 @@ def phase_kernel_quant(torch, ops, ref, case) -> dict:
     return out
 
 
+def phase_serve(torch, ops) -> dict:
+    """launch/serve.py at Qwen2-7B's full width: the main configuration cold
+    (the first prefill after emptying the allocator's cache) and warm, then a
+    ragged prompt with weights serve draws itself."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    log(f"[serve] {SERVE_ARCH}: d_model={cfg.d_model} layers={cfg.n_layers} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} dtype={cfg.dtype}, "
+        f"fp32 weights from seed 0, random prompts")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] weights drawn in {time.perf_counter() - t0:.2f}s")
+    out = {}
+    for label, kw in (("cold", SERVE_FULL), ("full", SERVE_FULL), ("ragged", SERVE_RAGGED)):
+        p = params if label != "ragged" else None
+        if p is None:
+            del params
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = serve(SERVE_ARCH, verbose=False, device="cuda", seed=0, params=p, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        toks = res.tokens
+        step_ms = res.decode_s * 1e3 / (kw["gen"] - 1)
+        log(f"[serve] {label} batch {kw['batch']} x prompt {kw['prompt_len']}, gen {kw['gen']}: "
+            f"prefill {res.prefill_s * 1e3:.1f} ms  decode {step_ms:.2f} ms a step "
+            f"({kw['gen'] - 1} steps, {res.tokens_per_s:.1f} tok/s)  peak memory "
+            f"{res.peak_bytes / 2**30:.3f} GiB  wall {wall:.2f}s"
+            f"{' (weights drawn inside)' if p is None else ''}  flash_attention launches: "
+            f"prefill {res.prefill_launches}, decode {res.decode_launches}  (all counts {counts})")
+        log(f"[serve] {label} generated[0]: {toks[0, :16].tolist()}")
+        others = {k: v for k, v in counts.items() if k != "flash_attention" and v}
+        if res.prefill_launches != cfg.n_layers or res.decode_launches != 0 or others:
+            raise AssertionError(f"serve launched {res.prefill_launches} flash_attention kernels "
+                                 f"in the prefill, {res.decode_launches} in decode, {others}")
+        if counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"flash_attention launched {counts['flash_attention']} times")
+        if tuple(toks.shape) != (kw["batch"], kw["gen"]) or not (
+                int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"tokens of shape {tuple(toks.shape)} outside [0, vocab)")
+        out[label] = {"launches": counts["flash_attention"], "prefill_ms": res.prefill_s * 1e3,
+                      "decode_step_ms": step_ms, "tok_s": res.tokens_per_s,
+                      "peak_gib": res.peak_bytes / 2**30, "wall_s": wall}
+        del res, toks, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prefill_decode(model, params, toks, S, T):
+    """Prefill toks[:, :S], then T decode steps fed toks[:, S:S + T]: the
+    logits of positions S-1 .. S+T-1, (B, T + 1, V) in fp32."""
+    import torch
+
+    logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, cache_capacity=S + T)
+    got = [logits]
+    for i in range(T):
+        logits, cache = model.decode_step(params, cache, toks[:, S + i:S + i + 1], S + i)
+        got.append(logits)
+    return torch.stack(got, dim=1).float()
+
+
+def _planted(real, fault, n_layers):
+    """A stand-in for ops.flash_attention that gets the prefill's attention
+    wrong: every query sees only itself ("window 1"), or reads the next KV
+    head's keys and values, in every layer or in the middle one only."""
+    calls = [0]
+
+    def wrong(q, k, v, *, causal=True, window=None):
+        layer = calls[0]
+        calls[0] += 1
+        if fault == "window 1":
+            return real(q, k, v, causal=causal, window=1)
+        if fault == "KV heads rolled" or layer == n_layers // 2:
+            k, v = (x.roll(1, dims=2).contiguous() for x in (k, v))
+        return real(q, k, v, causal=causal, window=window)
+
+    return wrong
+
+
+def phase_serve_consistency(torch, ops) -> dict:
+    """Full width, bf16: prefill + decode against the train forward; decode
+    with fp32 weights against a bf16 copy; smoke width fp32 card vs CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    B, S, T = CONSIST["B"], CONSIST["S"], CONSIST["T"]
+    torch.cuda.empty_cache()
+    params = model.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), generator=gen, device="cuda")
+    reset_counts(ops)
+    got = _prefill_decode(model, params, toks, S, T)
+    ref = model.forward(params, {"tokens": toks}).logits[:, S - 1:S + T].float()
+    launches = read_counts(ops)["flash_attention"]
+    rel = max_rel_err(got, ref)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    pre_rel = max_rel_err(got[:, 0], ref[:, 0])
+    # an argmax can flip only where the reference's top-2 gap is under
+    # twice the largest logit gap
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    near = int((gap < 2 * float((got - ref).abs().max())).sum())
+    log(f"[serve-consistency] {SERVE_ARCH} bf16, B={B} S={S} T={T}: prefill + {T} decode steps vs "
+        f"one train forward over {S + T} tokens (plain attention): max|dlogit|/max|logit| "
+        f"{rel:.4e} (prefill position {pre_rel:.4e}; limit {CONSIST_REL:g})  equal argmax "
+        f"{agree:.4f} of {got.shape[0] * got.shape[1]} (limit >= {CONSIST_ARGMAX:g}; "
+        f"{near} positions with a top-2 gap under twice max|dlogit|, smallest gap "
+        f"{float(gap.min()):.4f})  max|logit| {float(ref.abs().max()):.3f}  flash_attention "
+        f"launches {launches}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the consistency prefill launched flash_attention {launches} times")
+    if not (rel <= CONSIST_REL and agree >= CONSIST_ARGMAX):
+        raise AssertionError(f"prefill + decode disagree with the full forward: {rel}, {agree}")
+    del got
+    # the same run with a fault planted in the prefill's attention
+    unseen = []
+    for fault in CONSIST_FAULTS:
+        real = ops.flash_attention
+        ops.flash_attention = _planted(real, fault, cfg.n_layers)
+        try:
+            bad = _prefill_decode(model, params, toks, S, T)
+        finally:
+            ops.flash_attention = real
+        frel = max_rel_err(bad, ref)
+        fagree = float((bad.argmax(-1) == ref.argmax(-1)).float().mean())
+        log(f"[serve-consistency] planted fault, prefill {fault}: max|dlogit|/max|logit| "
+            f"{frel:.4e} (must exceed {CONSIST_REL:g})  equal argmax {fagree:.4f}")
+        if not frel > CONSIST_REL:
+            unseen.append(fault)
+        del bad
+    if unseen:
+        raise AssertionError(f"the consistency bound cannot see these prefill faults: {unseen}")
+    del ref
+
+    # decode's cost of fp32 weights cast at every product, against a bf16
+    # copy of the matrices cast once (1-D norm scales and biases stay fp32):
+    # the same casts, so the same bits
+    Bs, Ss = SERVE_FULL["batch"], SERVE_FULL["prompt_len"]
+    n = DECODE_COST_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (Bs, Ss + n), generator=gen, device="cuda")
+    _, cache = model.prefill(params, {"tokens": toks[:, :Ss]}, cache_capacity=Ss + n)
+    lowp = _cast_matrices(params, torch.bfloat16)
+    times, outs = {"fp32": [], "bf16": []}, {}
+    # each once to warm up, then in turns: fp32, bf16, bf16, fp32
+    for label in ("fp32", "bf16", "fp32", "bf16", "bf16", "fp32"):
+        p = params if label == "fp32" else lowp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = [model.decode_step(p, cache, toks[:, Ss + i:Ss + i + 1], Ss + i)[0] for i in range(n)]
+        torch.cuda.synchronize()
+        times[label].append((time.perf_counter() - t0) * 1e3 / n)
+        outs[label] = torch.stack(lg)
+    same = bool(torch.equal(outs["fp32"], outs["bf16"]))
+    # a decode step never waits on the card: no host sync anywhere in it
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, toks[:, Ss:Ss + 1], Ss)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    moved = 4 * model.param_count(params) / 2**30
+    fp32_ms, bf16_ms = (" / ".join(f"{t:.2f}" for t in times[k][1:]) for k in ("fp32", "bf16"))
+    log(f"[serve-consistency] decode at batch {Bs}, cache {Ss + n}, {n} steps a window, after "
+        f"one warm-up window each: fp32 weights cast every product {fp32_ms} ms a step, bf16 "
+        f"copy of the matrices {bf16_ms} ms a step; logits bitwise equal {same}  (fp32 weights "
+        f"{moved:.2f} GiB); a step under sync-debug 'error': no host sync")
+    if not same:
+        raise AssertionError("decode with a bf16 copy of the weights changed the logits")
+    del lowp, cache, params, outs
+    torch.cuda.empty_cache()
+
+    # smoke width, fp32: serve on the card (the fp32 kernel) against the CPU's
+    sm = SMOKE_SERVE
+    scfg = get_config(sm["arch"]).replace(dtype="float32")
+    p_cpu = build_model(scfg).init(seed=0, device="cpu")
+    cpu_gen = torch.Generator(device="cpu")
+    cpu_gen.manual_seed(8)
+    prompts = torch.randint(0, scfg.vocab_size, (sm["B"], sm["S"]), generator=cpu_gen)
+    kw = dict(gen=sm["gen"], verbose=False, dtype="float32", prompts=prompts)
+    reset_counts(ops)
+    card = serve(sm["arch"], device="cuda", params=_to(p_cpu, "cuda"), **kw)
+    launches = read_counts(ops)["flash_attention"]
+    cpu = serve(sm["arch"], device="cpu", params=p_cpu, **kw)
+    srel = max_rel_err(card.logits.cpu().float(), cpu.logits.float())
+    same_toks = bool(torch.equal(card.tokens.cpu(), cpu.tokens))
+    log(f"[serve-consistency] {sm['arch']} fp32, card vs CPU plain path, B={sm['B']} "
+        f"S={sm['S']} gen={sm['gen']}: same greedy tokens {same_toks}  max|dlogit|/max|logit| "
+        f"{srel:.3e} (limit {sm['rel']:g})  flash_attention launches {launches}")
+    if not same_toks or srel > sm["rel"] or launches != scfg.n_layers:
+        raise AssertionError("the smoke-width fp32 serving path on the card disagrees with the CPU")
+    return {"rel": rel, "agree": agree, "smoke_rel": srel}
+
+
+def _cast_matrices(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_matrices(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_matrices(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.dim() >= 2 else tree
+
+
+def flash_bound(B, S, H, KV, hd, window, elem_bytes, peak) -> dict:
+    """4·hd FLOPs a (query, key) pair the causal (and window) mask keeps, a
+    head; q, k, v read and o written once."""
+    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(S))
+    flops = 4.0 * B * H * hd * pairs
+    nbytes = elem_bytes * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    return bound(flops, nbytes, peak)
+
+
+def bf16_row_ulps(o, exact):
+    """Each row's max|o - exact| in bf16 ulps of that row's max|exact|."""
+    import torch
+
+    top = exact.abs().amax(-1).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)  # bf16 keeps 8 significant bits
+    return (o.float() - exact).abs().amax(-1) / ulp
+
+
+def _attend(torch, q, k, v, q_pos, k_pos, p_dtype=None):
+    """Causal softmax attention in fp32 of queries at q_pos over keys at
+    k_pos (GQA); with p_dtype, p is rounded to it for the normaliser and
+    the value product alike."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * hd ** -0.5
+    s = s.masked_fill(k_pos[None, :] > q_pos[:, None], -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float()) / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, Sq, H, hd)
+
+
+def flash_faults(torch, q, k, v, exact):
+    """The bf16 ulps reading of two faults a bf16 kernel could make, each
+    emulated in plain PyTorch on the kernel's inputs (causal, no window):
+    key tile 0 skipped for the last query tile (a loop that starts one tile
+    late), and p rounded once for both l and the value product (over the
+    first 256 rows, where it weighs most)."""
+    S = q.shape[1]
+    dev = q.device
+    q0 = (S - 1) // 64 * 64
+    skip = _attend(torch, q[:, q0:], k[:, 64:], v[:, 64:], torch.arange(q0, S, device=dev),
+                   torch.arange(64, S, device=dev))
+    n = min(S, 256)
+    pos = torch.arange(n, device=dev)
+    once = _attend(torch, q[:, :n], k[:, :n], v[:, :n], pos, pos, p_dtype=q.dtype)
+    return (float(bf16_row_ulps(skip.to(q.dtype), exact[:, q0:]).max()),
+            float(bf16_row_ulps(once.to(q.dtype), exact[:, :n]).max()))
+
+
+def phase_kernel_flash(torch, ops, ref) -> dict:
+    """flash_attention against its plain version at every shape, window and
+    type; kernel, plain and SDPA times at the serve and long shapes (bf16)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(50)
+    abs_err, out = 0.0, {}
+    for i, (B, S, H, KV, hd) in enumerate(FLASH_SHAPES):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
+            k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+            v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+            for window in (None, 128):
+                o = ops.flash_attention(q, k, v, causal=True, window=window)
+                torch.cuda.synchronize()
+                want = ref.flash_attention_ref(q, k, v, causal=True, window=window).float()
+                diff = (o.float() - want).abs()
+                tol = FLASH_TOL[dtype]
+                worst = float((diff - tol * want.abs()).max())
+                err = float(diff.max())
+                abs_err = max(abs_err, err)
+                del want, diff
+                tight = ""
+                if dtype == "bfloat16":
+                    exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                                    window=window)
+                    ulps = float(bf16_row_ulps(o, exact).max())
+                    tight = f"; vs the plain version in fp32 {ulps:.3f} bf16 ulps of the row's max"
+                    if window is None:
+                        skip, once = flash_faults(torch, q, k, v, exact)
+                        tight += (f" (planted: key tile 0 skipped for the last query tile "
+                                  f"{skip:.1f}, p rounded once for l and p.v {once:.3f})")
+                    del exact
+                log(f"[kernel] flash_attention {(B, S, H, KV, hd)} {dtype} window {window}: "
+                    f"max|do| {err:.3e}, max(|do| - tol*|o|) {worst:.3e} (tol {tol:g}){tight}  "
+                    f"repeatable {bool(torch.equal(o, ops.flash_attention(q, k, v, window=window)))}")
+                if not worst <= tol or not bool(torch.isfinite(o).all()):
+                    raise AssertionError(f"flash_attention disagrees with its plain version at "
+                                         f"{(B, S, H, KV, hd)} {dtype} window {window}")
+                if dtype == "bfloat16" and not ulps <= FLASH_BF16_ULPS:
+                    raise AssertionError(f"bf16 flash_attention {ulps} ulps from the fp32 plain "
+                                         f"version at {(B, S, H, KV, hd)} window {window}")
+                if dtype == "bfloat16" and window is None and not skip > FLASH_BF16_ULPS:
+                    raise AssertionError(f"the bf16 limit cannot see a skipped key tile at "
+                                         f"{(B, S, H, KV, hd)}: {skip} ulps")
+                del o
+            if i < FLASH_TIMED and dtype == "bfloat16":
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                t = timed("flash_attention", f"{'serve' if i == 0 else 'long'} shape "
+                          f"{(B, S, H, KV, hd)} bf16 causal",
+                          lambda: ops.flash_attention(q, k, v),
+                          lambda: ref.flash_attention_ref(q, k, v),
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                 enable_gqa=True),
+                          "library_ms (F.scaled_dot_product_attention, is_causal, enable_gqa)",
+                          flash_bound(B, S, H, KV, hd, None, 2, BF16_FLOPS))
+                if i == 0:
+                    out = t
+            del q, k, v
+            torch.cuda.empty_cache()
+    return {"max_abs_err": abs_err, **out}
+
+
 def main() -> int:
     import torch
 
@@ -1430,6 +1814,8 @@ def main() -> int:
     phase_stream_int8(torch, ops, stream["arrival"]["W"])
     phase_uplink(torch, ops, sim)
     phase_secure(torch, ops, sim)
+    srv = phase_serve(torch, ops)
+    phase_serve_consistency(torch, ops)
     t_phases = time.perf_counter() - t_all
     gates = phase_heads_gates(torch, heads["lru strict"])
 
@@ -1441,6 +1827,7 @@ def main() -> int:
     kern_chol = phase_kernel_chol(torch, ops, ref, (stream["arrival"]["L"], z, y), srf["case"])
     kern_batched = phase_kernel_batched(torch, ops, ref, gates["state"].L, gates["packed"])
     kern_quant = phase_kernel_quant(torch, ops, ref, wire["case"])
+    kern_flash = phase_kernel_flash(torch, ops, ref)
     log(f"[done] paths in {t_phases:.1f}s, all phases in {time.perf_counter() - t_all:.1f}s")
 
     entries = [
@@ -1464,6 +1851,10 @@ def main() -> int:
         {"name": "dequant_acc", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
          "replaces": "src/repro/kernels/quant.py:108",
          "launches": wire["launches"]["dequant_acc"], **kern_quant["dequant_acc"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:85",
+         "launches": srv["full"]["launches"], **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
     smi = subprocess.run(

@@ -2,8 +2,9 @@
 
 Each module defines ``CONFIG`` (the configuration, with source citation) and
 ``REDUCED`` (a smoke-test variant of the same family) registered as
-``<name>-smoke``.  This slice of the port carries the FED3R proxy backbone
-only; the reference's other backbones are ported with their model families.
+``<name>-smoke``.  The port carries the FED3R proxy backbone and Qwen2-7B
+(the dense serving path); the reference's other backbones are ported with
+their model families.
 """
 from repro_torch.configs.base import (  # noqa: F401
     Fed3RConfig,
@@ -16,6 +17,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 ARCH_MODULES = [
     "fed3r_mnv2_proxy",
+    "qwen2_7b",
 ]
 
 _loaded = False

@@ -9,7 +9,11 @@
                     batched_chol_gram (``csrc/batched_chol_gram.cu``);
   * quantize_tiles / dequant_accumulate — the compressed uplink's per-tile
                     absmax int8 quantization and its fused
-                    dequantize-accumulate (``csrc/quant.cu``).
+                    dequantize-accumulate (``csrc/quant.cu``);
+  * flash_attention — causal GQA attention with an online softmax and an
+                    optional window (``csrc/flash_attention.cu``), launched
+                    once a layer by a prefill of the dense backbone; decode
+                    and the train / feature forward use the plain attention.
 
 All are CUDA C++ for sm_90a, built by :mod:`repro_torch.kernels.build`
 and bound with ctypes.  Call them through :mod:`repro_torch.kernels.ops`.

@@ -1,0 +1,121 @@
+"""Causal GQA flash attention on Hopper: the dense backbone's prefill.
+
+The port of the TPU kernel ``flash_attention_pallas`` (``_flash_kernel``) of
+the reference package, which the reference names as the fast path of its
+prefill attention:
+
+* the CUDA C++ kernel, ``csrc/flash_attention.cu`` (design notes there):
+  one block per 64-row query tile and head, the loop over 64-key tiles
+  inside the block up to the diagonal, an online softmax in the Pallas
+  kernel's order (fp32 scores scaled after the product, l summed from the
+  unrounded p, p rounded to v's type for the value product), any S >= 1.
+  bf16 runs on the tensor cores (``mma.sync``), fp32 on IEEE FMA.  Bound
+  by operations: 4·hd FLOPs a kept (query, key) pair and head;
+* its plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`;
+* the wrapper :func:`flash_attention`: a CPU tensor goes to the plain
+  version, a CUDA tensor to the kernel, with no fallback.
+  ``flash_attention.launches`` counts kernel launches.
+
+``models/attention.py`` calls it for the attention of a prefill (every
+layer, once); decode and the train / feature forward keep the plain
+attention.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel is instantiated for
+DTYPES = (torch.bfloat16, torch.float32)
+
+LIBRARY = _build.CudaLibrary("flash_attention", {
+    "flash_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                               + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 2
+                               + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+})
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int]) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: q (B, S, H, hd) and k, v (B, S, KV, hd) expected, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+        raise ValueError(
+            f"flash_attention: k, v {tuple(k.shape)} do not match q {tuple(q.shape)} "
+            "in batch, sequence or head width"
+        )
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: {H} query heads do not group over {KV} KV heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {hd} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(
+            f"flash_attention takes q, k, v all bf16 or all fp32, got {q.dtype}, {k.dtype}, "
+            f"{v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"flash_attention: window must be None or an int >= 1, got {window!r}")
+    # the same contract on both devices, so the CPU tests check what the card needs
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on 16-byte boundaries")
+    _build.require_hopper(q.device, "flash_attention")
+    lib = LIBRARY.load()
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            int(causal), window or 0, hd ** -0.5, stream,
+        )
+    LIBRARY.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Masked softmax attention, GQA: q (B, S, H, hd), k/v (B, S, KV, hd) → (B, S, H, hd).
+
+    Query position p attends to keys ``k <= p`` (``causal``) and, with a
+    ``window`` W, ``k > p - W``.  A CUDA tensor launches the CUDA kernel on
+    the current stream; a CPU tensor runs the plain version.  Any other
+    device raises.
+    """
+    _check(q, k, v, window)
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+
+
+flash_attention.launches = 0

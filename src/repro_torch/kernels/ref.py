@@ -7,7 +7,7 @@ each kernel against its plain version on the card.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,3 +111,33 @@ def dequant_acc_ref(
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
     d = torch.where((err != 0) & even, torch.nextafter(d, toward), d)
     return d.to(torch.float32)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Masked softmax attention (fp32 softmax), GQA-aware, any S >= 1.
+
+    q: (B, S, H, hd); k/v: (B, S, KV, hd); query head h reads KV head
+    h // (H/KV).  Scores in q's dtype, scaled by hd^-0.5, then fp32, masked
+    with −1e30 outside ``k <= q`` (causal) and ``k > q − window``, soft-maxed,
+    and the probabilities taken back to q's dtype for the value product.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    scores = (torch.einsum("bqkgh,bskh->bkgqs", qg, k) * hd ** -0.5).to(torch.float32)
+    pos = torch.arange(S, device=q.device)
+    valid = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        valid &= pos[None, :] > pos[:, None] - window
+    scores = torch.where(valid, scores, torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v).reshape(B, S, H, hd)

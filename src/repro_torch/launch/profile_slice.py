@@ -1,13 +1,20 @@
-"""Device-time breakdown of the statistics pass (``launch/train.py`` phase 1).
+"""Device-time breakdowns of ``chip_smoke.py``'s cells under ``torch.profiler``.
 
-Runs phase 1 once to warm up (CUDA, cuBLAS and the kernel build), then once
-more under ``torch.profiler`` and prints the device's busy share of the
-wall time, device time by kernel group, and the ten aten ops that launched
-the most device time.  A measurement tool, not a check: ``chip_smoke.py``
-holds the checks.
+* ``--cell slice``: the statistics pass (``launch/train.py`` phase 1), run
+  once to warm up (CUDA, cuBLAS and the kernel build), then once more
+  profiled;
+* ``--cell serve``: the dense serving cell (Qwen2-7B at full width, batch
+  8 × 2048-token prompts): one prefill and 16 decode steps to warm up, then
+  one prefill and 16 decode steps, each profiled on its own.
 
-Usage (on the card; it profiles ``chip_smoke.py``'s slice):
-  PYTHONPATH=src python -m repro_torch.launch.profile_slice
+Each prints the device's busy share of the wall time, device time by
+kernel group, and the ten aten ops that launched the most device time.
+The profiler adds host time to every op, so a host-bound phase (decode)
+reads idler here than it runs.  A measurement tool, not a check:
+``chip_smoke.py`` holds the checks.
+
+Usage (on the card):
+  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve]
 """
 from __future__ import annotations
 
@@ -23,9 +30,15 @@ from repro_torch.launch import train
 SLICE_ARCH = "fed3r-mnv2-proxy"
 SLICE = dict(n_samples=8192, seq_len=128, n_classes=100, n_clients=100, clients_per_round=10)
 
+# chip_smoke.py's serve cell
+SERVE_ARCH = "qwen2-7b"
+SERVE = dict(batch=8, prompt_len=2048, gen=64)
+DECODE_STEPS = 16
+
 # (group, substrings of the kernel's name), first match wins
 KERNEL_GROUPS = (
     ("fed3r_stats (the port's CUDA kernel)", ("fed3r_stats",)),
+    ("flash_attention (the port's CUDA kernel)", ("flash_bf16", "flash_fp32")),
     ("GEMM (cuBLAS: projections, MLPs, attention einsums)",
      ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("softmax", ("softmax",)),
@@ -43,30 +56,36 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_phase1(arch: str, *, device="cuda", **run_kw) -> dict:
-    """Phase 1 warm, then profiled; prints and returns the breakdown."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _card(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_slice measures device time: it runs on the card only")
-    t0 = time.perf_counter()
-    train.run(arch, device=dev, verbose=False, **run_kw)
-    torch.cuda.synchronize()
-    print(f"[profile] warm-up run: wall {time.perf_counter() - t0:.3f}s", flush=True)
+    return dev
+
+
+def _profiled(fn):
+    """Run ``fn`` under torch.profiler; return (its profile, wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train.run(arch, device=dev, verbose=False, **run_kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _report(prof, wall: float, label: str = "") -> dict:
+    """Print the busy share, the kernel groups and the top aten ops."""
+    from torch.autograd import DeviceType
+
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     if busy_s <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    print(f"[profile] under torch.profiler: wall {wall:.3f}s, device busy {busy_s:.3f}s "
+    tag = f"[profile]{' ' + label if label else ''}"
+    print(f"{tag} under torch.profiler: wall {wall:.3f}s, device busy {busy_s:.3f}s "
           f"({100 * busy_s / wall:.1f}%), idle {100 * (1 - busy_s / wall):.1f}%")
     groups: dict = {}
     for e in kernels:
@@ -74,19 +93,68 @@ def profile_phase1(arch: str, *, device="cuda", **run_kw) -> dict:
         us, calls = groups.get(g, (0.0, 0))
         groups[g] = (us + e.self_device_time_total, calls + e.count)
     for g, (us, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile]   {us / 1e3:10.3f} ms  {100 * us / 1e6 / busy_s:5.1f}%  "
+        print(f"{tag}   {us / 1e3:10.3f} ms  {100 * us / 1e6 / busy_s:5.1f}%  "
               f"{calls:6d} launches  {g}")
     # each kernel's time, charged to the innermost aten op that launched it
     aten = [e for e in events if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     for e in sorted(aten, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile]   op {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key}")
+        print(f"{tag}   op {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key}")
     return {"wall_s": wall, "busy_s": busy_s, "groups": groups}
+
+
+def profile_phase1(arch: str, *, device="cuda", **run_kw) -> dict:
+    """Phase 1 warm, then profiled; prints and returns the breakdown."""
+    dev = _card(device)
+    t0 = time.perf_counter()
+    train.run(arch, device=dev, verbose=False, **run_kw)
+    torch.cuda.synchronize()
+    print(f"[profile] warm-up run: wall {time.perf_counter() - t0:.3f}s", flush=True)
+    prof, wall = _profiled(lambda: train.run(arch, device=dev, verbose=False, **run_kw))
+    return _report(prof, wall)
+
+
+def profile_serve(arch: str, *, batch: int, prompt_len: int, gen: int, device="cuda") -> dict:
+    """One prefill and DECODE_STEPS decode steps warm, then each profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = _card(device)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    gen_ = torch.Generator(device=dev)
+    gen_.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len + DECODE_STEPS), generator=gen_,
+                         device=dev)
+    state = {}
+
+    def prefill():
+        state["cache"] = model.prefill(params, {"tokens": toks[:, :prompt_len]},
+                                       cache_capacity=prompt_len + gen)[1]
+
+    def decode():
+        for i in range(DECODE_STEPS):
+            p = prompt_len + i
+            model.decode_step(params, state["cache"], toks[:, p:p + 1], p)
+
+    prefill()
+    decode()
+    torch.cuda.synchronize()
+    shape = f"{arch} batch {batch} x prompt {prompt_len}"
+    out = {"prefill": _report(*_profiled(prefill), f"prefill {shape}")}
+    out["decode"] = _report(*_profiled(decode), f"decode {shape}, {DECODE_STEPS} steps")
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    profile_phase1(SLICE_ARCH, device=ap.parse_args().device, **SLICE)
+    ap.add_argument("--cell", choices=("slice", "serve"), default="slice")
+    args = ap.parse_args()
+    if args.cell == "serve":
+        profile_serve(SERVE_ARCH, device=args.device, **SERVE)
+    else:
+        profile_phase1(SLICE_ARCH, device=args.device, **SLICE)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
-"""Attention of the dense path: GQA/MHA with position-based masking.
+"""Attention of the dense path: GQA/MHA, position masks, KV ring caches.
 
-The port of the reference's ``models/attention.py`` without caches (train
-and feature extraction only).  Layout: q ``(B, Sq, H, hd)``, k/v
-``(B, Sk, KV, hd)``; projection weights ``wq`` (d, H, hd), ``wk``/``wv``
-(d, KV, hd), ``wo`` (H, hd, d), as in the reference.
+The port of the reference's ``models/attention.py``.  Layout: q
+``(B, Sq, H, hd)``, k/v ``(B, Sk, KV, hd)``; projection weights ``wq``
+(d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d), as in the
+reference.
 
 Masking is position-based: a query at position p attends to key slots with
 ``0 <= k_pos <= p`` and, with a sliding window W, ``k_pos > p - W``.  Scores
@@ -12,20 +12,43 @@ with −1e30 and soft-maxed; the probabilities go back to the query dtype
 before the value product — the reference's rounding points.  Queries longer
 than ``2·Q_CHUNK`` run chunk by chunk (the same rows, less memory).
 
-KV caches, prefill and decode are a later slice of the port.
+Modes of :func:`attn_apply`:
+
+* train / feature: the plain attention above (the FED3R feature pass);
+* prefill: the attention over positions 0..S−1 goes through
+  ``ops.flash_attention`` (the CUDA kernel on the card, once a layer), and
+  the keys and values fill a KV ring cache;
+* decode: one query against the ring buffer (``k_pos`` −1 on empty slots)
+  through the plain attention, as in the reference.
+
+The KV cache is a ring buffer of capacity ``Scap`` (the window for
+sliding-window configs): slot j holds the latest position p with
+p % Scap == j; RoPE is applied to keys before they are written.  With
+``kv_cache_quant`` it holds int8 values and one fp32 scale per (batch,
+token, head).  Unlike the reference's functional updates, prefill fills
+fresh buffers and decode writes its token into the cache IN PLACE (one slot
+a layer instead of a copy of the whole cache a step); both return the cache.
+No step makes a device tensor from host data (``torch.tensor(..., device=)``
+blocks the host until the card drains its queue): positions are filled on
+the card and the mask value is a scalar.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
 
 Q_CHUNK = 1024  # query-chunk size of long sequences
 
 NEG_INF = -1e30
+# the int8 cache's scale is absmax · fl(1/127): the reference runs its cache
+# updates compiled, and XLA folds the division by the constant 127 into that
+# product (as in kernels/ref.py::quantize_tiles_ref)
+_INV_QMAX = 1.0 / 127.0
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -59,7 +82,7 @@ def _scores_softmax_values(q, k, v, q_pos, k_pos, window, bidirectional):
         valid = valid & (k_pos[None, :] <= q_pos[:, None])
     if window is not None:
         valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
-    scores = torch.where(valid, scores, torch.tensor(NEG_INF, device=scores.device))
+    scores = torch.where(valid, scores, NEG_INF)  # a scalar: no host-to-device copy
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
@@ -107,6 +130,92 @@ def multihead_attention(
     return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
+# ---------------------------------------------------------------------------
+# KV cache (ring buffer, optionally int8-quantized)
+# ---------------------------------------------------------------------------
+
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(batch, token, head) int8 quantization over hd."""
+    xf = x.to(torch.float32)
+    inv = torch.full((), _INV_QMAX, dtype=torch.float32, device=x.device)  # fl(1/127)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) * inv, 1e-8)
+    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(cache: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Read k/v back to compute dtype (a cast for unquantized caches)."""
+    arr = cache[name]
+    if arr.dtype == torch.int8:
+        return (arr.to(torch.float32) * cache[name + "_scale"]).to(dtype)
+    return arr.to(dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype: torch.dtype,
+               device=None) -> dict:
+    """An empty ring cache: zeros, every slot's position −1."""
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    shape = (batch, capacity, KV, hd)
+    pos = torch.full((capacity,), -1, dtype=torch.int32, device=device)
+    if cfg.kv_cache_quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros((batch, capacity, KV, 1), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros((batch, capacity, KV, 1), dtype=torch.float32, device=device),
+            "pos": pos,
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": pos,
+    }
+
+
+def fill_cache_from_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor, seq_len: int) -> dict:
+    """Scatter the last ``capacity`` keys of a prefill into their ring slots (in place)."""
+    cap = cache["k"].shape[1]
+    keep = min(seq_len, cap)
+    ps = torch.arange(seq_len - keep, seq_len, dtype=torch.int32, device=k.device)
+    slots = (ps % cap).long()
+    k_w, v_w = k[:, seq_len - keep:], v[:, seq_len - keep:]
+    cache["pos"][slots] = ps
+    if cache["k"].dtype == torch.int8:
+        kq, ks = _quantize(k_w)
+        vq, vs = _quantize(v_w)
+        cache["k"][:, slots] = kq
+        cache["v"][:, slots] = vq
+        cache["k_scale"][:, slots] = ks
+        cache["v_scale"][:, slots] = vs
+    else:
+        cache["k"][:, slots] = k_w.to(cache["k"].dtype)
+        cache["v"][:, slots] = v_w.to(cache["v"].dtype)
+    return cache
+
+
+def cache_decode_update(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: int) -> dict:
+    """Write one token (k_t/v_t: (B, 1, KV, hd)) at ring slot pos % cap (in place)."""
+    slot = pos % cache["k"].shape[1]
+    cache["pos"][slot:slot + 1].fill_(pos)  # `[slot] = pos` would copy from the host
+    if cache["k"].dtype == torch.int8:
+        kq, ks = _quantize(k_t)
+        vq, vs = _quantize(v_t)
+        cache["k"][:, slot:slot + 1] = kq
+        cache["v"][:, slot:slot + 1] = vq
+        cache["k_scale"][:, slot:slot + 1] = ks
+        cache["v_scale"][:, slot:slot + 1] = vs
+    else:
+        cache["k"][:, slot:slot + 1] = k_t.to(cache["k"].dtype)
+        cache["v"][:, slot:slot + 1] = v_t.to(cache["v"].dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# full attention layer (projections + rope + cache + attention + out-proj)
+# ---------------------------------------------------------------------------
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") with the fp32 weight cast to x's dtype."""
     d, h, k = w.shape
@@ -121,9 +230,22 @@ def attn_apply(
     angles: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     bidirectional: bool = False,
-) -> torch.Tensor:
-    """Self-attention layer over a whole sequence (train / feature mode)."""
-    S = x.shape[1]
+    cache: Optional[dict] = None,
+    decode_pos: Optional[int] = None,
+    build_cache: bool = False,
+    cache_capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention layer.
+
+    Modes:
+      * train/feature: ``cache=None, build_cache=False`` -> (y, None), plain
+        attention;
+      * prefill: ``build_cache=True`` -> (y, filled cache), the attention
+        through ``ops.flash_attention``;
+      * decode: ``cache`` set, x is (B, 1, d), ``decode_pos`` the token's
+        absolute position -> (y, the cache updated in place).
+    """
+    B, S, _ = x.shape
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
@@ -134,7 +256,26 @@ def attn_apply(
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
-    pos = torch.arange(S, device=x.device)
-    y = multihead_attention(q, k, v, pos, pos, window=window, bidirectional=bidirectional)
+
+    if cache is not None:  # decode: one new token against the ring buffer
+        if S != 1 or decode_pos is None:
+            raise ValueError(f"decode takes one token and its position, got S={S}, "
+                             f"decode_pos={decode_pos}")
+        cache = cache_decode_update(cache, k, v, decode_pos)
+        q_pos = torch.full((1,), decode_pos, dtype=torch.int32, device=x.device)
+        y = multihead_attention(
+            q, dequantize_kv(cache, "k", x.dtype), dequantize_kv(cache, "v", x.dtype),
+            q_pos, cache["pos"], window=window, bidirectional=False,
+        )
+    elif build_cache:  # prefill
+        if bidirectional:
+            raise ValueError("prefill is causal")
+        y = ops.flash_attention(q, k, v, causal=True, window=window)
+        cap = cache_capacity or (window if window else S)
+        cache = fill_cache_from_prefill(init_cache(cfg, B, cap, k.dtype, x.device), k, v, S)
+    else:
+        pos = torch.arange(S, device=x.device)
+        y = multihead_attention(q, k, v, pos, pos, window=window, bidirectional=bidirectional)
+
     H, hd, d = p["wo"].shape
-    return y.reshape(*y.shape[:2], H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d)
+    return y.reshape(*y.shape[:2], H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d), cache

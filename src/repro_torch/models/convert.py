@@ -1,15 +1,18 @@
-"""Carry the reference package's parameters over to the port.
+"""Carry the reference package's parameters and caches over to the port.
 
 :func:`params_from_jax` takes the reference's parameter pytree with numpy
 leaves (``jax.tree.map(np.asarray, params)`` on the reference side) and
 returns the port's parameter dict on ``device``: the same names and
-layouts, with the stacked ``(n_layers, …)`` layer leaves sliced into a list
-of per-layer dicts.  This is how the tests make both packages compute the
-same function.  It imports no jax: the input is numpy already.
+layouts (``lm_head``, Qwen2's ``bq``/``bk``/``bv`` included), with the
+stacked ``(n_layers, …)`` layer leaves sliced into a list of per-layer
+dicts.  :func:`cache_from_jax` does the same for a KV ring cache, keeping
+each leaf's dtype (bf16, fp32, int8, int32).  This is how the tests make
+both packages compute the same function from the same state.  It imports
+no jax: the input is numpy already.
 """
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, List, Union
 
 import numpy as np
 import torch
@@ -30,6 +33,14 @@ def _layer(tree: Any, i: int) -> Any:
     return np.asarray(tree)[i]
 
 
+def _cache_leaf(a: Any, dev: torch.device) -> torch.Tensor:
+    # a copy: decode writes the port's cache in place
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
 def params_from_jax(
     cfg: ModelConfig, params_np: dict, device: Union[str, torch.device] = "cuda"
 ) -> dict:
@@ -41,3 +52,15 @@ def params_from_jax(
     stacked = params_np["layers"]
     out["layers"] = [_to_torch(_layer(stacked, i), dev) for i in range(cfg.n_layers)]
     return out
+
+
+def cache_from_jax(
+    cfg: ModelConfig, cache_np: dict, device: Union[str, torch.device] = "cuda"
+) -> List[dict]:
+    """The reference's stacked ring cache (numpy leaves, ``(n_layers, …)``) →
+    the port's list of per-layer cache dicts, dtypes kept."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(f"{cfg.arch_type!r} caches: the port has the dense path only")
+    dev = resolve_device(device)
+    return [{k: _cache_leaf(np.asarray(v)[i], dev) for k, v in cache_np.items()}
+            for i in range(cfg.n_layers)]

@@ -1,7 +1,8 @@
-"""Model facade of the dense path: init / forward / extract_features.
+"""Model facade of the dense path: init / forward / prefill / decode / features.
 
-The port of the reference's ``models/model.py``.  ``build_model(cfg)``
-returns a :class:`Model` of plain functions over a parameter dict:
+The port of the reference's ``models/model.py`` for ``arch_type ==
+"dense"``.  ``build_model(cfg)`` returns a :class:`Model` of plain functions
+over a parameter dict:
 
     {"embed": {"embedding": (padded_vocab, d)},
      "final_norm": {...},
@@ -11,12 +12,16 @@ with the reference's names and layouts (the reference's stacked
 ``(n_layers, …)`` leaves are a list here; :mod:`repro_torch.models.convert`
 turns one into the other).
 
-Batch dict contract: ``tokens`` (B, S) int — always present.
+Batch dict contract: ``tokens`` (B, S) int — always present (decode: (B, 1)).
+
+Caches are a list of per-layer ring-cache dicts (``make_cache``); decode
+updates them in place.  MoE, SSM, hybrid, VLM and audio models raise
+``NotImplementedError`` (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, NamedTuple, Optional, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -26,11 +31,13 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_apply, norm_apply, norm_init, rope_angles, unembed_apply
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+_FAMILIES_LATER = "MoE, SSM, hybrid, VLM and audio models are ROADMAP Queue 1 item 11"
 
 
 class ForwardOut(NamedTuple):
     hidden: torch.Tensor  # (B, S, d) post-final-norm hidden states
     logits: Optional[torch.Tensor]
+    cache: Optional[List[dict]] = None  # per-layer ring caches (prefill / decode)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -40,7 +47,8 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn on the generator's device."""
     if cfg.arch_type != "dense":
-        raise NotImplementedError(f"{cfg.arch_type!r} models: the port has the dense path only")
+        raise NotImplementedError(
+            f"{cfg.arch_type!r} models: the port has the dense path only ({_FAMILIES_LATER})")
     params: Dict[str, Any] = {
         "embed": {
             "embedding": 0.02 * torch.randn(
@@ -65,22 +73,77 @@ def forward(
     batch: Dict[str, torch.Tensor],
     *,
     mode: str = "train",
+    cache: Optional[List[dict]] = None,
+    decode_pos: Optional[int] = None,
+    cache_capacity: Optional[int] = None,
     return_logits: bool = True,
 ) -> ForwardOut:
-    if cfg.arch_type != "dense" or mode != "train":
+    """The dense forward in ``mode`` "train" (also the feature pass),
+    "prefill" (returns the filled caches) or "decode" (one token at absolute
+    position ``decode_pos``; ``cache`` is updated in place and returned)."""
+    if cfg.arch_type != "dense":
         raise NotImplementedError(
-            f"forward of a {cfg.arch_type!r} model in mode {mode!r}: the port has "
-            "the dense train/feature path only"
-        )
+            f"forward of a {cfg.arch_type!r} model: the port has the dense path only "
+            f"({_FAMILIES_LATER})")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     x = embed_apply(params["embed"], batch["tokens"], compute_dtype(cfg))
     S = x.shape[1]
-    angles = rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
-    h = tfm.apply_stack(
-        cfg, "attn", params["layers"], x, angles=angles, window=cfg.sliding_window, mode=mode
+    if mode == "decode":
+        if decode_pos is None:
+            raise ValueError("decode needs decode_pos")
+        decode_pos = int(decode_pos)
+        seq_idx = torch.full((1,), decode_pos, device=x.device)
+    else:
+        seq_idx = torch.arange(S, device=x.device)
+    angles = rope_angles(seq_idx, cfg.hd, cfg.rope_theta)
+
+    window = cfg.sliding_window
+    capacity = cache_capacity
+    if capacity is not None and window is not None:
+        capacity = min(capacity, window)
+    h, new_cache = tfm.apply_stack(
+        cfg, "attn", params["layers"], x, angles=angles, window=window, mode=mode,
+        cache=cache, decode_pos=decode_pos, cache_capacity=capacity,
     )
     h = norm_apply(cfg, params["final_norm"], h)
     logits = unembed_apply(cfg, params, h) if return_logits else None
-    return ForwardOut(h, logits)
+    return ForwardOut(h, logits, new_cache)
+
+
+def make_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device: Union[str, torch.device] = "cuda") -> List[dict]:
+    """Empty per-layer ring caches (capacity clamped to the sliding window)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(f"caches of a {cfg.arch_type!r} model ({_FAMILIES_LATER})")
+    if cfg.sliding_window is not None:
+        capacity = min(capacity, cfg.sliding_window)
+    return tfm.stacked_attn_cache(cfg, cfg.n_layers, batch, capacity, compute_dtype(cfg),
+                                  resolve_device(device))
+
+
+def prefill(
+    cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor], cache_capacity: int
+) -> Tuple[torch.Tensor, List[dict]]:
+    """(last position's logits (B, V), the filled caches)."""
+    out = forward(
+        cfg, params, batch, mode="prefill", cache_capacity=cache_capacity,
+        return_logits=False,  # unembed only the last position (B·V, not B·S·V)
+    )
+    logits = unembed_apply(cfg, params, out.hidden[:, -1:, :])
+    return logits[:, 0, :], out.cache
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: dict,
+    cache: List[dict],
+    token: torch.Tensor,  # (B, 1) int
+    pos: int,  # absolute position of this token
+) -> Tuple[torch.Tensor, List[dict]]:
+    """(this token's logits (B, V), the caches, updated in place)."""
+    out = forward(cfg, params, {"tokens": token}, mode="decode", cache=cache, decode_pos=pos)
+    return out.logits[:, 0, :], out.cache
 
 
 def extract_features(
@@ -102,6 +165,9 @@ class Model:
         self.cfg = cfg
         self.forward = functools.partial(forward, cfg)
         self.extract_features = functools.partial(extract_features, cfg)
+        self.prefill = functools.partial(prefill, cfg)
+        self.decode_step = functools.partial(decode_step, cfg)
+        self.make_cache = functools.partial(make_cache, cfg)
 
     def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> dict:
         """Random parameters from ``seed``, drawn on ``device``."""

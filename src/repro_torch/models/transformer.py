@@ -1,20 +1,24 @@
 """Backbone stack of the dense path: the ``"attn"`` block and its stack.
 
 The port of the reference's ``models/transformer.py`` for decoder-only dense
-models in train / feature mode.  The reference stacks the layer parameters
-on a leading ``(n_layers, …)`` axis and scans over it; here the stack is a
-list of per-layer parameter dicts and the scan is a Python loop.
+models, in its three modes: ``train`` (causal, no cache; also the feature
+pass), ``prefill`` (build one KV ring cache a layer) and ``decode`` (one
+token, consume and update the caches).  The reference stacks the layer
+parameters and caches on a leading ``(n_layers, …)`` axis and scans over
+it; here the stack is a list of per-layer parameter dicts, the caches a
+list of per-layer cache dicts, and the scan a Python loop.
 
-MoE, SSM, hybrid and encoder-decoder stacks, caches and decode are later
-slices of the port.
+MoE, SSM, hybrid and encoder-decoder stacks are later slices of the port
+(ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 
@@ -40,21 +44,35 @@ def block_apply(
     angles: Optional[torch.Tensor],
     window: Optional[int],
     mode: str = "train",
-) -> torch.Tensor:
-    """Apply one block (pre-norm residual). Returns x'."""
-    if kind != "attn" or mode != "train":
-        raise NotImplementedError(f"block {kind!r} in mode {mode!r}: the port has train-mode attn blocks only")
+    cache: Optional[dict] = None,
+    decode_pos: Optional[int] = None,
+    cache_capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Apply one block (pre-norm residual). Returns (x', the layer's cache)."""
+    if kind != "attn" or mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(
+            f"block {kind!r} in mode {mode!r}: the port has the dense attn blocks only")
     h = norm_apply(cfg, p["norm1"], x)
-    a = attn_apply(cfg, p["attn"], h, angles=angles, window=window)
+    a, new_cache = attn_apply(
+        cfg, p["attn"], h, angles=angles, window=window,
+        cache=cache if mode == "decode" else None, decode_pos=decode_pos,
+        build_cache=mode == "prefill", cache_capacity=cache_capacity,
+    )
     if cfg.parallel_block:
-        return x + a + mlp_apply(cfg, p["mlp"], h)
+        return x + a + mlp_apply(cfg, p["mlp"], h), new_cache
     x = x + a
     h = norm_apply(cfg, p["norm2"], x)
-    return x + mlp_apply(cfg, p["mlp"], h)
+    return x + mlp_apply(cfg, p["mlp"], h), new_cache
 
 
 def stacked_block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, n: int) -> List[dict]:
     return [block_init(gen, cfg, kind) for _ in range(n)]
+
+
+def stacked_attn_cache(cfg: ModelConfig, n: int, batch: int, cap: int, dtype: torch.dtype,
+                       device=None) -> List[dict]:
+    """``n`` empty ring caches, one a layer (the reference's stacked leaves)."""
+    return [attn_mod.init_cache(cfg, batch, cap, dtype, device) for _ in range(n)]
 
 
 def apply_stack(
@@ -66,8 +84,23 @@ def apply_stack(
     angles=None,
     window=None,
     mode="train",
-) -> torch.Tensor:
-    """Run the layers in order (the reference's scan over stacked params)."""
-    for p in layers:
-        x = block_apply(cfg, kind, p, x, angles=angles, window=window, mode=mode)
-    return x
+    cache: Optional[List[dict]] = None,
+    decode_pos: Optional[int] = None,
+    cache_capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[List[dict]]]:
+    """Run the layers in order (the reference's scan over stacked params).
+
+    Returns (x, the per-layer caches): built in ``prefill``, updated in
+    ``decode`` (in place), None in ``train``.
+    """
+    if mode == "decode" and (cache is None or len(cache) != len(layers)):
+        raise ValueError("decode needs one cache a layer")
+    caches = []
+    for i, p in enumerate(layers):
+        x, c = block_apply(
+            cfg, kind, p, x, angles=angles, window=window, mode=mode,
+            cache=cache[i] if mode == "decode" else None, decode_pos=decode_pos,
+            cache_capacity=cache_capacity,
+        )
+        caches.append(c)
+    return x, (caches if mode != "train" else None)

@@ -3,10 +3,11 @@
 ``fed3r_stats`` is held against the reference here; ``rff``, ``chol_gram``,
 ``batched_chol_gram`` and the quantization pair in ``test_torch_rff.py``,
 ``test_torch_streaming.py``, ``test_torch_personalization.py`` and
-``test_torch_compress.py``.  The tests marked ``gpu`` (all six kernels, the
-int8 engine's launches, and the streaming engine's sync-free absorb) run on
-the card; this file imports JAX only inside the
-reference comparisons, so they run where JAX is not installed.
+``test_torch_compress.py``, ``flash_attention`` in ``test_torch_flash.py``.
+The tests marked ``gpu`` (all seven kernels, the int8 engine's launches,
+the streaming engine's sync-free absorb, and the smoke-width fp32 serving
+path against the CPU) run on the card; this file imports JAX only inside
+the reference comparisons, so they run where JAX is not installed.
 
 On the CPU the port's wrapper runs its plain version; the reference's Pallas
 kernel runs in interpret mode.  Tolerances are scaled to the largest entry
@@ -267,3 +268,66 @@ def test_int8_engine_launches_two_quant_pairs_per_client_on_card(cuda_device):
         (x.T @ x).astype(np.float32)), 32)[1].max()) for x, _ in clients)
     assert float((acc.stats.A.cpu() - ref.stats.A).abs().max()) <= step + REL_TOL * float(
         ref.stats.A.abs().max())
+
+
+# flash attention: the reference test's tolerances (tests/test_kernels.py);
+# in bf16 also each row's error against the plain version on the same inputs
+# in fp32, in bf16 ulps of the row's max|o| (chip_smoke.py's FLASH_BF16_ULPS)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+FLASH_BF16_ULPS = 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64),
+                                         (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128),
+                                         (2, 77, 8, 2, 64)])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_card(cuda_device, B, S, H, KV, hd, window, dtype):
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    r = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(r.normal(size=(B, S, n, hd)).astype(np.float32)).to(
+        cuda_device, dtype) for n in (H, KV, KV))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=True, window=window)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True, window=window))
+    if dtype == torch.bfloat16:
+        exact = flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+        top = exact.abs().amax(-1)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        assert float(((got.float() - exact).abs().amax(-1) / ulp).max()) <= FLASH_BF16_ULPS
+
+
+@pytest.mark.gpu
+def test_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_device):
+    """qwen2-7b-smoke in fp32: the card's prefill (the fp32 kernel) and
+    decode give the CPU's plain path's greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-7b-smoke").replace(dtype="float32")
+    params = build_model(cfg).init(seed=0, device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 16)))
+    kw = dict(gen=6, verbose=False, dtype="float32", prompts=prompts)
+    cpu = serve("qwen2-7b-smoke", device="cpu", params=params, **kw)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda_device)
+
+    card = serve("qwen2-7b-smoke", device=cuda_device, params=to_card(params), **kw)
+    assert card.prefill_launches == cfg.n_layers and card.decode_launches == 0
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)

@@ -169,6 +169,10 @@ def test_fed3r_rf_and_finetuning_are_not_ported_yet(fed_data):
 def test_profile_slice_measures_the_card_only():
     with pytest.raises(RuntimeError, match="card only"):
         profile_slice.profile_phase1(ARCH, device="cpu")
+    with pytest.raises(RuntimeError, match="card only"):
+        profile_slice.profile_serve("qwen2-7b-smoke", batch=1, prompt_len=4, gen=2, device="cpu")
+    assert profile_slice.kernel_group(
+        "void (anonymous namespace)::flash_bf16_kernel<128>(Args)").startswith("flash_attention")
     assert profile_slice.kernel_group("fed3r_stats_kernel") == "fed3r_stats (the port's CUDA kernel)"
     assert profile_slice.kernel_group("nvjet_tst_128x64").startswith("GEMM")
     assert profile_slice.kernel_group("void at::native::elementwise_kernel<...>").startswith("other elementwise")
@@ -217,5 +221,6 @@ def test_port_imports_without_jax_or_the_reference_package():
     for name in ("federated.personalization", "federated.slots", "launch.serve_heads",
                  "launch.serving_engine", "launch.serve_stream", "kernels.chol_update",
                  "federated.compress", "federated.secure_agg", "federated.costs",
-                 "kernels.quant"):
+                 "kernels.quant", "kernels.flash_attention", "launch.serve", "launch.steps",
+                 "configs.qwen2_7b"):
         assert "repro_torch." + name in names
