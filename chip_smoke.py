@@ -70,17 +70,26 @@ counts just after.
                 three faults planted in the prefill's attention (window 1,
                 KV heads rolled in every layer or in one) outside them; decode
                 with the fp32 weights cast at every product against a bf16
-                copy of the matrices cast once (the same bits); then
-                ``qwen2-7b-smoke`` in fp32, card against CPU: the same greedy
-                tokens, logits within 2e-4 of the largest.
+                copy of the matrices cast once (the same bits); the same
+                contract for ``sliding_window=1024`` (the window through the
+                kernel, the ring cache wrapping) and for the int8 KV cache,
+                each against its own train forward within its bound, with a
+                planted fault outside it (window 1; int8 scales rolled
+                across KV heads); then ``qwen2-7b-smoke`` in fp32, card
+                against CPU: the same greedy tokens, logits within 2e-4 of
+                the largest.
 15. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
                 bitwise, on all-zero tiles and exact half-way inputs too;
                 flash attention in bf16 and fp32, with and without a
-                window; in bf16 also each row within 2 bf16 ulps of the
-                plain version in fp32, a limit that an emulated skipped key
-                tile must exceed), and at each path's shape the times of
-                kernel, plain version and library call.
+                window, at head widths 16 to 256; in bf16 also each row
+                within 2 bf16 ulps of the plain version in fp32, a limit
+                that an emulated skipped key tile must exceed, and each
+                row's log-sum-exp, written by the kernel, within 1e-5 of an
+                fp32 logsumexp, a limit that an emulated early rounding of
+                p must exceed), and at each path's shape the times of
+                kernel, plain version and library call (flash attention at
+                the serve, long and hd-256 shapes).
 
 The device-time breakdown of the slice is a separate command,
 ``python -m repro_torch.launch.profile_slice``.
@@ -166,14 +175,40 @@ CONSIST_ARGMAX = 0.97
 # installed for one run and removed): the gap must read above CONSIST_REL
 # for each, or the bound could not see a wrong prefill attention
 CONSIST_FAULTS = ("window 1", "KV heads rolled", "KV heads rolled in one layer")
+# the same contract for two variants of the configuration, each against its
+# own train forward: a 1024-token sliding window (the prefill's window path
+# through the kernel, the ring cache of 1024 slots wrapping in the prefill
+# and in decode) and the int8 KV cache (decode reads K/V rounded to int8).
+# Bounds: twice the gap of one sound run (measured on one H100, PERF.md:
+# 8.333e-3 and 1.105e-2 of max|logit|, 130 of 130 argmaxes equal in both),
+# never to be loosened; the planted fault must read above each (read 1.544
+# and 0.178).
+CONSIST_VARIANTS = (
+    ("sliding_window=1024", dict(sliding_window=1024), "window 1"),
+    ("kv_cache_quant", dict(kv_cache_quant=True), "int8 scales rolled"),
+)
+CONSIST_VARIANT_REL = {"sliding_window=1024": 1.67e-2, "kv_cache_quant": 2.21e-2}
 SMOKE_SERVE = dict(arch="qwen2-7b-smoke", B=2, S=16, gen=8, rel=2e-4)
 # flash attention: the reference test's tolerances (tests/test_kernels.py),
-# at the serve shape, a long one, the reference test's MHA/GQA/MQA shapes and
-# ragged lengths; times at the first two (bf16)
+# at the serve shape, a long one, the reference test's MHA/GQA/MQA shapes,
+# ragged lengths, recurrentgemma-9b's attention (hd 256, one KV head; its
+# local window 2048, and 128) and a width that runs on a wider instance (hd
+# 96 on the 128-column one); times (bf16, causal, no window) at the shapes
+# FLASH_TIMED names
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
-                (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64)]
-FLASH_TIMED = 2
+                (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64),
+                (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96)]
+FLASH_WINDOWS = {(2, 4096, 16, 1, 256): (None, 2048, 128)}  # else (None, 128)
+FLASH_TIMED = {(8, 2048, 28, 4, 128): "serve", (1, 8192, 28, 4, 128): "long",
+               (2, 4096, 16, 1, 256): "hd-256"}
+# the bf16 kernel's row log-sum-exp m + log l against an fp32 logsumexp of
+# the scaled, masked scores: max |difference| over the rows.  The sound
+# kernel read at most 1.907e-6 (measured on one H100: ex2.approx and the fp32
+# sums); the limit is 5x that.  An emulated fault, p rounded to bf16 before
+# the row sum (its second rounding taken first), must read above it (read
+# 9.8e-4 to 1.55e-3).
+FLASH_LSE_LIMIT = 1e-5
 # bf16 kernel against the plain version on the same inputs in fp32 (exact
 # to ~1e-6 here): the kernel rounds p and the output to bf16, so each row's
 # largest error should stay within a bf16 ulp or so of the row's max|o|.
@@ -244,7 +279,7 @@ def phase_build(build, ops) -> dict:
     for lib in ops.LIBRARIES:
         log(f"[build] {lib.source.relative_to(ROOT)} -> {lib.path().relative_to(ROOT)}")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 log(f"[build] {lib.name} ptxas: {line.strip()}")
     return {"seconds": seconds}
 
@@ -1600,6 +1635,9 @@ def phase_serve_consistency(torch, ops) -> dict:
     if unseen:
         raise AssertionError(f"the consistency bound cannot see these prefill faults: {unseen}")
     del ref
+    for label, change, fault in CONSIST_VARIANTS:
+        _consistency_variant(torch, ops, build_model(cfg.replace(**change)), params, toks, S, T,
+                             label, fault)
 
     # decode's cost of fp32 weights cast at every product, against a bf16
     # copy of the matrices cast once (1-D norm scales and biases stay fp32):
@@ -1658,6 +1696,63 @@ def phase_serve_consistency(torch, ops) -> dict:
     if not same_toks or srel > sm["rel"] or launches != scfg.n_layers:
         raise AssertionError("the smoke-width fp32 serving path on the card disagrees with the CPU")
     return {"rel": rel, "agree": agree, "smoke_rel": srel}
+
+
+def _int8_scales_rolled(real):
+    """A stand-in for attention.dequantize_kv that reads an int8 cache with
+    the next KV head's scales."""
+    import torch
+
+    def wrong(cache, name, dtype):
+        if cache[name].dtype != torch.int8:
+            return real(cache, name, dtype)
+        return (cache[name].to(torch.float32) * cache[name + "_scale"].roll(1, dims=2)).to(dtype)
+
+    return wrong
+
+
+def _consistency_variant(torch, ops, model, params, toks, S, T, label, fault):
+    """Prefill + decode of a variant of the configuration against its own
+    train forward, within its bound; then with a planted fault, outside it."""
+    from repro_torch.models import attention
+
+    n_layers = model.cfg.n_layers
+    bound = CONSIST_VARIANT_REL[label]
+    reset_counts(ops)
+    got = _prefill_decode(model, params, toks, S, T)
+    launches = read_counts(ops)["flash_attention"]
+    ref = model.forward(params, {"tokens": toks}).logits[:, S - 1:S + T].float()
+    rel = max_rel_err(got, ref)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    del got
+    if fault == "window 1":
+        real = ops.flash_attention
+        ops.flash_attention = _planted(real, fault, n_layers)
+        try:
+            bad = _prefill_decode(model, params, toks, S, T)
+        finally:
+            ops.flash_attention = real
+    else:
+        real = attention.dequantize_kv
+        attention.dequantize_kv = _int8_scales_rolled(real)
+        try:
+            bad = _prefill_decode(model, params, toks, S, T)
+        finally:
+            attention.dequantize_kv = real
+    frel = max_rel_err(bad, ref)
+    fagree = float((bad.argmax(-1) == ref.argmax(-1)).float().mean())
+    del bad, ref
+    log(f"[serve-consistency] {SERVE_ARCH}.replace({label}) bf16, B={toks.shape[0]} S={S} T={T}: "
+        f"prefill + {T} decode steps vs its own train forward: max|dlogit|/max|logit| {rel:.4e} "
+        f"(limit {bound:g})  equal argmax {agree:.4f}  flash_attention launches {launches}; "
+        f"planted fault, {fault}: {frel:.4e} (must exceed {bound:g})  equal argmax {fagree:.4f}")
+    if launches != n_layers:
+        raise AssertionError(f"the {label} prefill launched flash_attention {launches} times")
+    if not rel <= bound:
+        raise AssertionError(f"{label}: prefill + decode disagree with the full forward: {rel}")
+    if not frel > bound:
+        raise AssertionError(f"{label}: the bound cannot see the planted fault {fault}: {frel}")
+    return {"rel": rel, "agree": agree, "fault_rel": frel}
 
 
 def _cast_matrices(tree, dtype):
@@ -1720,21 +1815,48 @@ def flash_faults(torch, q, k, v, exact):
             float(bf16_row_ulps(once.to(q.dtype), exact[:, :n]).max()))
 
 
+def flash_lse(torch, fa_mod, q, k, v, window):
+    """The kernel's row log-sum-exp (through the module's private launch)
+    against an fp32 logsumexp of the scaled, masked scores, and the same
+    reading for p rounded to q's type before the row sum (emulated)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    lse = torch.empty((B, H, S), device=q.device)
+    fa_mod._launch(q, k, v, True, window, lse)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float().reshape(B, S, KV, H // KV, hd),
+                     k.float()) * hd ** -0.5
+    pos = torch.arange(S, device=q.device)
+    valid = pos[None, :] <= pos[:, None]
+    if window:
+        valid &= pos[None, :] > pos[:, None] - window
+    s.masked_fill_(~valid, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = s.sub_(m).exp_()
+    m = m.squeeze(-1)
+    want = (m + torch.log(p.sum(-1))).reshape(B, H, S)
+    once = (m + torch.log(p.to(q.dtype).sum(-1, dtype=torch.float32))).reshape(B, H, S)
+    del s, p
+    return float((lse - want).abs().max()), float((once - want).abs().max())
+
+
 def phase_kernel_flash(torch, ops, ref) -> dict:
     """flash_attention against its plain version at every shape, window and
-    type; kernel, plain and SDPA times at the serve and long shapes (bf16)."""
+    type, its bf16 row log-sum-exp against fp32; kernel, plain and SDPA times
+    at the shapes FLASH_TIMED names (bf16)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(50)
     abs_err, out = 0.0, {}
-    for i, (B, S, H, KV, hd) in enumerate(FLASH_SHAPES):
+    for shape in FLASH_SHAPES:
+        B, S, H, KV, hd = shape
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
             k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
             v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
-            for window in (None, 128):
+            for window in FLASH_WINDOWS.get(shape, (None, 128)):
                 o = ops.flash_attention(q, k, v, causal=True, window=window)
                 torch.cuda.synchronize()
                 want = ref.flash_attention_ref(q, k, v, causal=True, window=window).float()
@@ -1755,34 +1877,41 @@ def phase_kernel_flash(torch, ops, ref) -> dict:
                         tight += (f" (planted: key tile 0 skipped for the last query tile "
                                   f"{skip:.1f}, p rounded once for l and p.v {once:.3f})")
                     del exact
-                log(f"[kernel] flash_attention {(B, S, H, KV, hd)} {dtype} window {window}: "
+                    lse_err, lse_once = flash_lse(torch, fa_mod, q, k, v, window)
+                    tight += (f"; row lse vs fp32 {lse_err:.3e} (limit {FLASH_LSE_LIMIT:g}; "
+                              f"emulated p rounded before the row sum {lse_once:.3e})")
+                log(f"[kernel] flash_attention {shape} {dtype} window {window}: "
                     f"max|do| {err:.3e}, max(|do| - tol*|o|) {worst:.3e} (tol {tol:g}){tight}  "
                     f"repeatable {bool(torch.equal(o, ops.flash_attention(q, k, v, window=window)))}")
                 if not worst <= tol or not bool(torch.isfinite(o).all()):
                     raise AssertionError(f"flash_attention disagrees with its plain version at "
-                                         f"{(B, S, H, KV, hd)} {dtype} window {window}")
+                                         f"{shape} {dtype} window {window}")
                 if dtype == "bfloat16" and not ulps <= FLASH_BF16_ULPS:
                     raise AssertionError(f"bf16 flash_attention {ulps} ulps from the fp32 plain "
-                                         f"version at {(B, S, H, KV, hd)} window {window}")
+                                         f"version at {shape} window {window}")
                 if dtype == "bfloat16" and window is None and not skip > FLASH_BF16_ULPS:
                     raise AssertionError(f"the bf16 limit cannot see a skipped key tile at "
-                                         f"{(B, S, H, KV, hd)}: {skip} ulps")
+                                         f"{shape}: {skip} ulps")
+                if dtype == "bfloat16" and not lse_err <= FLASH_LSE_LIMIT:
+                    raise AssertionError(f"bf16 flash_attention's row lse {lse_err} from fp32 at "
+                                         f"{shape} window {window}")
+                if dtype == "bfloat16" and not lse_once > FLASH_LSE_LIMIT:
+                    raise AssertionError(f"the lse limit cannot see p rounded before the row sum "
+                                         f"at {shape} window {window}: {lse_once}")
                 del o
-            if i < FLASH_TIMED and dtype == "bfloat16":
+            if shape in FLASH_TIMED and dtype == "bfloat16":
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                t = timed("flash_attention", f"{'serve' if i == 0 else 'long'} shape "
-                          f"{(B, S, H, KV, hd)} bf16 causal",
-                          lambda: ops.flash_attention(q, k, v),
-                          lambda: ref.flash_attention_ref(q, k, v),
-                          lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                 enable_gqa=True),
-                          "library_ms (F.scaled_dot_product_attention, is_causal, enable_gqa)",
-                          flash_bound(B, S, H, KV, hd, None, 2, BF16_FLOPS))
-                if i == 0:
-                    out = t
+                out[FLASH_TIMED[shape]] = timed(
+                    "flash_attention", f"{FLASH_TIMED[shape]} shape {shape} bf16 causal",
+                    lambda: ops.flash_attention(q, k, v),
+                    lambda: ref.flash_attention_ref(q, k, v),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           enable_gqa=True),
+                    "library_ms (F.scaled_dot_product_attention, is_causal, enable_gqa)",
+                    flash_bound(B, S, H, KV, hd, None, 2, BF16_FLOPS))
             del q, k, v
             torch.cuda.empty_cache()
-    return {"max_abs_err": abs_err, **out}
+    return {"max_abs_err": abs_err, **out["serve"]}
 
 
 def main() -> int:

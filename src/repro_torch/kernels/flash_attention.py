@@ -5,12 +5,13 @@ the reference package, which the reference names as the fast path of its
 prefill attention:
 
 * the CUDA C++ kernel, ``csrc/flash_attention.cu`` (design notes there):
-  one block per 64-row query tile and head, the loop over 64-key tiles
-  inside the block up to the diagonal, an online softmax in the Pallas
-  kernel's order (fp32 scores scaled after the product, l summed from the
-  unrounded p, p rounded to v's type for the value product), any S >= 1.
-  bf16 runs on the tensor cores (``mma.sync``), fp32 on IEEE FMA.  Bound
-  by operations: 4·hd FLOPs a kept (query, key) pair and head;
+  one block per query tile and head, the loop over key tiles inside the
+  block up to the diagonal, an online softmax in the Pallas kernel's order
+  (fp32 scores scaled after the product, l summed from the unrounded p, p
+  rounded to v's type for the value product), any S >= 1, any head width
+  that is a multiple of 8 up to 256.  bf16 runs warp-specialized on the
+  tensor cores (``wgmma`` fed by a TMA ring of K/V tiles), fp32 on IEEE
+  FMA.  Bound by operations: 4·hd FLOPs a kept (query, key) pair and head;
 * its plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`;
 * the wrapper :func:`flash_attention`: a CPU tensor goes to the plain
   version, a CUDA tensor to the kernel, with no fallback.
@@ -30,11 +31,11 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel is instantiated for
+MAX_HEAD_DIM = 256  # head widths: multiples of 8 up to this
 DTYPES = (torch.bfloat16, torch.float32)
 
 LIBRARY = _build.CudaLibrary("flash_attention", {
-    "flash_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    "flash_attention_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                                + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 2
                                + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
 })
@@ -55,8 +56,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
     KV = k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention: {H} query heads do not group over {KV} KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {hd} not in {HEAD_DIMS}")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head width {hd} is not a multiple of 8 in [8, {MAX_HEAD_DIM}]"
+        )
     if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(
             f"flash_attention takes q, k, v all bf16 or all fp32, got {q.dtype}, {k.dtype}, "
@@ -72,10 +75,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: Optional[int]) -> torch.Tensor:
+            window: Optional[int], lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on the current stream.  ``lse``, where given, is an fp32
+    (B, H, S) buffer the kernel fills with each row's log-sum-exp m + log l
+    (l the sum of the unrounded p): a check of the kernel's arithmetic,
+    which the public function never asks for."""
     B, S, H, hd = q.shape
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must start on 16-byte boundaries")
+    if lse is not None and (lse.shape != (B, H, S) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be a contiguous fp32 ({B}, {H}, {S}) "
+                         f"tensor on {q.device}")
     _build.require_hopper(q.device, "flash_attention")
     lib = LIBRARY.load()
     out = torch.empty_like(q)
@@ -85,6 +96,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),

@@ -31,6 +31,8 @@ SHAPES = [
     (1, 128, 2, 2, 32),  # MHA
     (2, 256, 4, 2, 64),  # GQA
     (1, 384, 8, 1, 16),  # MQA, 3 tiles
+    (1, 256, 4, 1, 256),  # recurrentgemma-9b's head width
+    (1, 128, 2, 2, 48),  # a width the card runs on its 64-column instance
 ]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # the reference's own bound between its kernel and its XLA attention
@@ -97,11 +99,12 @@ def test_plain_version_matches_model_attention():
 
 @pytest.mark.parametrize("S,window", [(200, None), (200, 64), (1, None), (130, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ragged_length_equals_padded_then_cropped(S, window, dtype):
+@pytest.mark.parametrize("hd", [32, 48, 256])
+def test_ragged_length_equals_padded_then_cropped(S, window, dtype, hd):
     """Any S: the rows of a ragged run are those of a 128-padded run (the
     only lengths the Pallas kernel takes), whatever the padding holds."""
     Sp = -(-S // 128) * 128
-    (q, k, v), (jq, jk, jv) = _qkv(2, Sp, 4, 2, 32, dtype, seed=4)
+    (q, k, v), (jq, jk, jv) = _qkv(2, Sp, 4, 2, hd, dtype, seed=4)
     got = ops.flash_attention(q[:, :S].contiguous(), k[:, :S].contiguous(),
                               v[:, :S].contiguous(), causal=True, window=window)
     padded = ops.flash_attention(q, k, v, causal=True, window=window)[:, :S]
@@ -122,13 +125,35 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ops.flash_attention(q3, k3, v3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
-    with pytest.raises(ValueError, match="head width"):
-        (q5, k5, v5), _ = _qkv(1, 64, 4, 2, 48, "float32")
-        ops.flash_attention(q5, k5, v5)
+    for hd in (12, 264):  # not a multiple of 8; wider than 256
+        (q5, k5, v5), _ = _qkv(1, 64, 4, 2, hd, "float32")
+        with pytest.raises(ValueError, match="head width"):
+            ops.flash_attention(q5, k5, v5)
     with pytest.raises(ValueError):  # k and v of different shapes
         ops.flash_attention(q, k, v[:, :32])
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 40, 64, 72, 128, 136, 200, 256])
+def test_wrapper_takes_every_multiple_of_8_up_to_256(hd):
+    """The contract the card's kernel takes: the plain version runs at each
+    such width and agrees with the reference's oracle."""
+    (q, k, v), (jq, jk, jv) = _qkv(1, 40, 2, 1, hd, "float32", seed=6)
+    got = ops.flash_attention(q, k, v, causal=True, window=16)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True, window=16)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_private_launch_refuses_a_wrong_lse_buffer():
+    """The lse buffer (chip_smoke.py's check of the kernel's row sums) is
+    fp32 (B, H, S); anything else is refused before any build or launch."""
+    (q, k, v), _ = _qkv(2, 64, 4, 2, 32, "bfloat16")
+    for lse in (torch.empty(2, 64, 4), torch.empty(2, 4, 64, dtype=torch.bfloat16),
+                torch.empty(2, 4, 128)[..., ::2]):
+        with pytest.raises(ValueError, match="lse"):
+            fa_mod._launch(q, k, v, True, None, lse)
+    assert fa_mod.LIBRARY.lib is None
 
 
 def test_cpu_path_is_the_plain_version_and_launches_nothing():

@@ -280,7 +280,8 @@ FLASH_BF16_ULPS = 2.0
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,hd", [(1, 128, 2, 2, 32), (2, 256, 4, 2, 64),
                                          (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128),
-                                         (2, 77, 8, 2, 64)])
+                                         (2, 77, 8, 2, 64), (1, 300, 4, 1, 256),
+                                         (2, 200, 4, 2, 48)])
 @pytest.mark.parametrize("window", [None, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_on_card(cuda_device, B, S, H, KV, hd, window, dtype):
@@ -304,6 +305,28 @@ def test_flash_attention_kernel_on_card(cuda_device, B, S, H, KV, hd, window, dt
         top = exact.abs().amax(-1)
         ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
         assert float(((got.float() - exact).abs().amax(-1) / ulp).max()) <= FLASH_BF16_ULPS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_is_the_logsumexp_of_the_scaled_scores(cuda_device, hd, dtype):
+    """The kernel's row log-sum-exp (l from the unrounded p) against an fp32
+    logsumexp of the scaled, masked scores (chip_smoke.py's check)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+
+    B, S, H, KV, window = 2, 300, 4, 2, 100
+    r = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(r.normal(size=(B, S, n, hd)).astype(np.float32)).to(
+        cuda_device, dtype) for n in (H, KV, KV))
+    lse = torch.empty((B, H, S), device=cuda_device)
+    fa_mod._launch(q, k, v, True, window, lse)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float().reshape(B, S, KV, H // KV, hd),
+                     k.float()) * hd ** -0.5
+    pos = torch.arange(S, device=cuda_device)
+    valid = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    want = torch.logsumexp(s.masked_fill(~valid, -1e30), -1).reshape(B, H, S)
+    assert float((lse - want).abs().max()) <= 1e-5  # chip_smoke.py's FLASH_LSE_LIMIT
 
 
 @pytest.mark.gpu
