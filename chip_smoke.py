@@ -87,9 +87,14 @@ counts just after.
                 that an emulated skipped key tile must exceed, and each
                 row's log-sum-exp, written by the kernel, within 1e-5 of an
                 fp32 logsumexp, a limit that an emulated early rounding of
-                p must exceed), and at each path's shape the times of
-                kernel, plain version and library call (flash attention at
-                the serve, long and hd-256 shapes).
+                p must exceed; fed3r_stats also exactly symmetric at every
+                shape and bitwise repeatable at the rf shape), and at each
+                path's shape the times of kernel, plain version and library
+                call, and the device time alone of kernel and library call
+                (a CUDA graph of the calls replayed) beside the call time
+                (flash attention at the serve, long and hd-256 shapes;
+                dequant_acc also at 5000 x 5000, where no one PyTorch call
+                computes it).
 
 The device-time breakdown of the slice is a separate command,
 ``python -m repro_torch.launch.profile_slice``.
@@ -129,10 +134,9 @@ SMOKE_W_ATOL = 1e-2
 # with n >> d keep A well-conditioned, so fp32 reassociation only
 SIM_W_ATOL = 1e-4
 KERNEL_SHAPES_RAGGED = [(513, 1281, 37), (64, 32, 5)]
-# FED3R-RF: the smaller of the paper's D in {5k, 10k}, sigma from the config
+# FED3R-RF at D = repro_torch.configs.simulator.RF_D, sigma from the config
 # default (paper App. C); psi is bounded by sqrt(2/D), so the kernel holds
 # its plain version within 1e-5 of that bound
-RF_D = 5000
 RFF_REL = 1e-5
 RFF_SHAPES_RAGGED = [(37, 100, 130)]
 CHOL_SHAPES_RAGGED = [(130, 77, 7)]
@@ -232,31 +236,6 @@ def max_rel_err(got, want) -> float:
     return err / scale if scale > 0 else err
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 20, budget_ms: float = 400.0) -> float:
-    """Mean device time of ``fn()`` over back-to-back calls: ``iters`` of
-    them, fewer where one call is long (about ``budget_ms`` in all, at least 3)."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    once = max(start.elapsed_time(end), 1e-3)
-    iters = max(3, min(iters, int(budget_ms / once)))
-    for _ in range(min(warmup, iters)):
-        fn()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def reset_counts(ops) -> None:
     for fn in (ops.fed3r_stats, ops.rff_transform, ops.chol_gram, ops.batched_chol_gram,
                ops.quantize_tiles, ops.dequant_accumulate, ops.flash_attention):
@@ -354,16 +333,12 @@ def _to(tree, device):
 
 
 def phase_simulator(torch, ops) -> dict:
-    from repro_torch.configs.base import Fed3RConfig, FederatedConfig
+    from repro_torch.configs.simulator import simulator_setup
     from repro_torch.core import fed3r, ncm
-    from repro_torch.data.pipeline import make_federated_features
     from repro_torch.federated.fed3r_driver import PACK_ROUND_TO, run_fed3r, run_fedncm
 
-    n, d, C, K, kappa = 50_000, 1280, 100, 100, 10
-    fed, test = make_federated_features(seed=0, n=n, d=d, n_classes=C, n_clients=K, alpha=0.0,
-                                        noise=2.0, device="cuda")
-    f3 = Fed3RConfig(ridge_lambda=0.01, n_classes=C)
-    fc = FederatedConfig(n_clients=K, clients_per_round=kappa, n_rounds=K)
+    fed, test, f3, fc = simulator_setup("cuda")
+    d, C, K, kappa = fed.features.shape[1], fed.n_classes, fc.n_clients, fc.clients_per_round
     torch.cuda.synchronize()
     reset_counts(ops)
     t0 = time.perf_counter()
@@ -441,16 +416,31 @@ def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> dict:
 
 
 def timed(name, shape, kernel, plain, library, library_label, b) -> dict:
-    """Kernel, plain-version and library times at one shape, with the bound."""
+    """Kernel, plain-version and library times at one shape, with the bound.
+
+    ``ms`` and ``library_ms`` time back-to-back calls (``cuda_ms``): the
+    slower of the device work and the host's launch path.  ``device_ms``
+    and ``library_device_ms`` are each call's device time alone, from a CUDA
+    graph of the calls replayed; the gap between the two is host time
+    (:mod:`repro_torch.launch.timing`).
+    """
+    from repro_torch.launch.timing import cuda_ms, device_ms
+
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    library_ms = cuda_ms(library)
-    log(f"[kernel] {name} {shape}: kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
-        f"{library_label} {library_ms:.4f}  bound_ms {b['bound_ms']:.4f} by {b['bound_by']} "
+    dev_ms = device_ms(kernel)
+    library_ms = cuda_ms(library) if library is not None else None
+    lib_dev_ms = device_ms(library) if library is not None else None
+    lib = (f"{library_label} {library_ms:.4f} (device_ms {lib_dev_ms:.4f})"
+           if library is not None else library_label)
+    log(f"[kernel] {name} {shape}: kernel_ms {ms:.4f}  device_ms {dev_ms:.4f}  plain_ms "
+        f"{plain_ms:.4f}  {lib}  bound_ms {b['bound_ms']:.4f} by {b['bound_by']} "
         f"({b['flops'] / 1e9:.4f} GFLOP needed: {b['t_ops']:.4f} ms; {b['nbytes'] / 1e6:.3f} MB: "
         f"{b['t_bytes']:.4f} ms)  {b['flops'] / ms / 1e9:.2f} TFLOP/s needed-work rate = "
-        f"{100 * b['bound_ms'] / ms:.1f}% of the bound")
+        f"{100 * b['bound_ms'] / ms:.1f}% of the bound ({100 * b['bound_ms'] / dev_ms:.1f}% in "
+        f"device_ms)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
 
 
 def phase_kernel(torch, ops, ref, slice_shape, sim_shape, rf_shape) -> dict:
@@ -465,10 +455,19 @@ def phase_kernel(torch, ops, ref, slice_shape, sim_shape, rf_shape) -> dict:
         Ar, br = ref.fed3r_stats_ref(Z, Y)
         eA, eb = max_rel_err(A, Ar), max_rel_err(b, br)
         abs_err = max(abs_err, float((A - Ar).abs().max()), float((b - br).abs().max()))
+        symmetric = bool(torch.equal(A, A.T))
         log(f"[kernel] fed3r_stats n={n} d={d} C={C}: max|dA|/max|A| {eA:.3e}  "
-            f"max|db|/max|b| {eb:.3e}  (limit {STATS_REL:g})  symmetric {bool(torch.equal(A, A.T))}")
-        if not (eA <= STATS_REL and eb <= STATS_REL):
-            raise AssertionError(f"fed3r_stats disagrees with its plain version at {(n, d, C)}")
+            f"max|db|/max|b| {eb:.3e}  (limit {STATS_REL:g})  symmetric {symmetric}")
+        if not (eA <= STATS_REL and eb <= STATS_REL and symmetric):
+            raise AssertionError(f"fed3r_stats disagrees with its plain version at {(n, d, C)}, "
+                                 f"or its A is not symmetric")
+        if i == 2:  # no atomics, no split-K: a second launch gives the same bits
+            A2, b2 = ops.fed3r_stats(Z, Y)
+            same = bool(torch.equal(A, A2) and torch.equal(b, b2))
+            log(f"[kernel] fed3r_stats rf shape: two launches bitwise equal: {same}")
+            if not same:
+                raise AssertionError("fed3r_stats is not bitwise repeatable at the rf shape")
+            del A2, b2
         if i > 2:
             continue
         ZY = torch.cat([Z, Y], dim=1)
@@ -521,7 +520,8 @@ def phase_kernel_rff(torch, ops, ref, rf_shard, stream_wave, omega, beta) -> dic
                   "GEMM only (torch.addmm(beta, Z, Omega), no cos: not the same function)",
                   bound(2.0 * n * d * D, 4.0 * (n * d + d * D + D + n * D)))
         if not out:
-            out = {**t, "library_ms": None, "gemm_only_ms": t["library_ms"]}
+            out = {**t, "library_ms": None, "library_device_ms": None,
+                   "gemm_only_ms": t["library_ms"]}
     return {"max_abs_err": abs_err, **out}
 
 
@@ -582,6 +582,7 @@ def phase_kernel_chol(torch, ops, ref, stream_case, rf_case) -> dict:
 
 def phase_rf(torch, ops, ref, sim) -> dict:
     """FED3R-RF at D = 5000 through run_fed3r, on the simulator's set-up."""
+    from repro_torch.configs.simulator import RF_D
     from repro_torch.core import fed3r
     from repro_torch.core.random_features import rff_init
     from repro_torch.federated.fed3r_driver import run_fed3r
@@ -728,6 +729,7 @@ def phase_stream(torch, ops) -> dict:
 
 def phase_stream_rf(torch, ops, ref, packed, params) -> dict:
     """The stream's arrivals through StreamingEngine(rff_params) at D = 5000."""
+    from repro_torch.configs.simulator import RF_D
     from repro_torch.core import fed3r
     from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
 
@@ -781,6 +783,7 @@ def wave_breakdown(torch, ops, label, L, x, y, m, n_classes, params=None) -> dic
     factorization (four Cholesky factorizations) against one plain
     ``cholesky_ex``, and the refresh's two triangular solves."""
     from repro_torch.core import fed3r
+    from repro_torch.launch.timing import cuda_ms
 
     steps = {}
     if params is not None:
@@ -1013,6 +1016,7 @@ def solve_breakdown(torch, eng, state, packed, alphas) -> dict:
     from repro_torch.core import fed3r
     from repro_torch.core.fed3r import Fed3RFactored
     from repro_torch.kernels.ops import batched_chol_gram
+    from repro_torch.launch.timing import cuda_ms
 
     L, b = state.L, state.b
     x, y, m, ho = eng._cohort(packed, "inputs", "labels", "mask", "holdout")
@@ -1422,6 +1426,8 @@ def phase_kernel_quant(torch, ops, ref, case) -> dict:
     and b 1280 x 100 at tile 128, from the [wire] path), at the RF width
     5000 x 5000, at ragged shapes, on all-zero tiles and on exact half-way
     inputs; times at the path's shapes."""
+    from repro_torch.launch.timing import broadcast_addcmul, cuda_ms, device_ms
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(60)
     err = 0.0
@@ -1453,38 +1459,41 @@ def phase_kernel_quant(torch, ops, ref, case) -> dict:
         Mt, Nt = -(-M // tile), -(-N // tile)
         acc = torch.randn((M, N), generator=gen, device="cuda")
         q, s = ops.quantize_tiles(x)
-        qf = q.to(torch.float32)
-        se = ref.expand_tiles(s, tile, M, N).contiguous()
-        lib_same = bool(torch.equal(torch.addcmul(acc, qf, se), ops.dequant_accumulate(acc, q, s)))
+        library = broadcast_addcmul(acc, q, s, tile)
+        lib_same = bool(torch.equal(library().reshape(M, N), ops.dequant_accumulate(acc, q, s)))
         nb_q, nb_d = 4.0 * M * N + M * N + 4.0 * Mt * Nt, 4.0 * M * N * 2 + M * N + 4.0 * Mt * Nt
         ms_q, plain_q = cuda_ms(lambda: ops.quantize_tiles(x)), cuda_ms(
             lambda: ref.quantize_tiles_ref(x, tile))
+        dev_q = device_ms(lambda: ops.quantize_tiles(x))
         bq = bound(6.0 * M * N, nb_q)
         log(f"[kernel] quantize_tiles [wire] {name} ({M}, {N}) tile {tile}: kernel_ms {ms_q:.4f}  "
-            f"plain_ms {plain_q:.4f}  library_ms none (no one PyTorch call quantizes per tile)  "
+            f"device_ms {dev_q:.4f}  plain_ms {plain_q:.4f}  library_ms none (no one PyTorch call "
+            f"quantizes per tile)  "
             f"bound_ms {bq['bound_ms']:.4f} by {bq['bound_by']} ({nb_q / 1e6:.3f} MB: "
             f"{bq['t_bytes']:.4f} ms; {bq['flops'] / 1e6:.3f} M ops: {bq['t_ops']:.4f} ms) = "
             f"{100 * bq['bound_ms'] / ms_q:.1f}% of the bound")
         td = timed("dequant_acc", f"[wire] {name} ({M}, {N}) tile {tile}",
                    lambda: ops.dequant_accumulate(acc, q, s),
-                   lambda: ref.dequant_acc_ref(acc, q, s, tile),
-                   lambda: torch.addcmul(acc, qf, se),
-                   "library_ms (torch.addcmul on pre-expanded scales and a float q)",
-                   bound(2.0 * M * N, nb_d))
-        log(f"[kernel] dequant_acc [wire] {name}: torch.addcmul on the card bitwise the kernel's "
-            f"one FMA: {lib_same}")
+                   lambda: ref.dequant_acc_ref(acc, q, s, tile), library,
+                   "library_ms (one torch.addcmul on the kernel's int8 q and tile scales "
+                   "through broadcast views)", bound(2.0 * M * N, nb_d))
+        log(f"[kernel] dequant_acc [wire] {name}: that torch.addcmul on the card bitwise the "
+            f"kernel's one FMA: {lib_same}")
         if not out:
             out = {"quantize_tiles": {"ms": ms_q, "plain_ms": plain_q, "library_ms": None,
-                                      "bound_ms": bq["bound_ms"], "bound_by": bq["bound_by"]},
+                                      "bound_ms": bq["bound_ms"], "bound_by": bq["bound_by"],
+                                      "device_ms": dev_q, "library_device_ms": None},
                    "dequant_acc": td}
     M = N = 5000
     x = torch.randn((M, N), generator=gen, device="cuda")
     acc = torch.randn((M, N), generator=gen, device="cuda")
     q, s = ops.quantize_tiles(x)
     log(f"[kernel] at ({M}, {N}) tile 128: quantize_tiles {cuda_ms(lambda: ops.quantize_tiles(x)):.4f} "
-        f"ms (bound {bound(6.0 * M * N, 5.0 * M * N)['bound_ms']:.4f}), dequant_acc "
-        f"{cuda_ms(lambda: ops.dequant_accumulate(acc, q, s)):.4f} ms (bound "
-        f"{bound(2.0 * M * N, 9.0 * M * N)['bound_ms']:.4f})")
+        f"ms (bound {bound(6.0 * M * N, 5.0 * M * N)['bound_ms']:.4f})")
+    timed("dequant_acc", f"({M}, {N}) tile 128", lambda: ops.dequant_accumulate(acc, q, s),
+          lambda: ref.dequant_acc_ref(acc, q, s, 128), broadcast_addcmul(acc, q, s, 128),
+          "library_ms none (tile 128 does not divide 5000: no one PyTorch call computes it at "
+          "this shape)", bound(2.0 * M * N, 9.0 * M * N))
     for entry in out.values():
         entry["max_abs_err"] = err
     return out
@@ -1922,6 +1931,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.simulator import RF_D
     from repro_torch.kernels import build, ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -115,6 +115,14 @@ class CudaLibrary:
                 self.lib = lib
             return self.lib
 
+    def function(self, name: str):
+        """The bound C function ``name``, the library built and loaded at the
+        first call; later calls take no lock."""
+        lib = self.lib
+        if lib is None:
+            lib = self.load()
+        return getattr(lib, name)
+
     def check(self, err: int, what: str) -> None:
         """Raise if a launch function returned a nonzero ``cudaError_t``."""
         if err != 0:
@@ -135,13 +143,56 @@ def build_all(libraries: Sequence[CudaLibrary]) -> float:
     return time.perf_counter() - t0
 
 
-def require_hopper(device, what: str) -> None:
-    """The kernels are built for sm_90a only: refuse another card."""
+# device index -> its SM count, for each card found to be sm_90
+_HOPPER_SMS: Dict[int, int] = {}
+
+
+def require_hopper(device, what: str) -> int:
+    """The kernels are built for sm_90a only: refuse another card.
+
+    Returns the card's SM count.  A card that passes is remembered by its
+    device index, so later launches on it query nothing; a card
+    that fails is asked again, and refused, at every launch.
+    """
     import torch
 
-    cap = torch.cuda.get_device_capability(device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"{what} is built for sm_90a (Hopper); {torch.cuda.get_device_name(device)} "
-            f"has compute capability {cap}"
-        )
+    index = torch.cuda.current_device() if device.index is None else device.index
+    sms = _HOPPER_SMS.get(index)
+    if sms is None:
+        cap = torch.cuda.get_device_capability(index)
+        if cap != (9, 0):
+            raise RuntimeError(
+                f"{what} is built for sm_90a (Hopper); {torch.cuda.get_device_name(index)} "
+                f"has compute capability {cap}"
+            )
+        sms = _HOPPER_SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
+
+
+def current_stream_handle(index: int) -> int:
+    """The raw ``cudaStream_t`` of the current stream of card ``index``.
+
+    Read through torch's private ``_cuda_getCurrentRawStream`` where this
+    torch has it (a few µs less host time a launch than building the
+    ``torch.cuda.Stream``), else through the public ``current_stream``, so a
+    torch that renames the private one launches the same kernels."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C launch function given the raw handle of the
+    current stream of ``device`` (a CUDA device with its index); the device
+    guard is entered only where ``device`` is not the current device.
+    Returns what ``fn`` returns, the launch's ``cudaError_t``."""
+    import torch
+
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, current_stream_handle(index))
+    with torch.cuda.device(index):
+        return fn(*args, current_stream_handle(index))

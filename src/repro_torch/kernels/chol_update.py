@@ -75,15 +75,10 @@ def _launch(L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Te
     if max(n, d + C) >= 2**31 or d == 0 or C == 0:
         raise ValueError(f"chol_gram: unsupported shape d={d}, n={n}, C={C}")
     _build.require_hopper(L.device, "chol_gram")
-    lib = LIBRARY.load()
     G = torch.empty((d, d), dtype=torch.float32, device=L.device)
     B = torch.empty((d, C), dtype=torch.float32, device=L.device)
-    with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream(L.device).cuda_stream
-        err = lib.chol_gram_launch(
-            L.data_ptr(), Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(),
-            d, n, C, stream,
-        )
+    err = _build.launch(L.device, LIBRARY.function("chol_gram_launch"), L.data_ptr(),
+                        Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(), d, n, C)
     LIBRARY.check(err, "chol_gram")
     chol_gram.launches += 1
     return G, B
@@ -140,15 +135,11 @@ def _launch_batched(
     if not 1 <= K < 2**16 or max(n, d + C) >= 2**31 or d == 0 or C == 0:
         raise ValueError(f"batched_chol_gram: unsupported shape K={K}, d={d}, n={n}, C={C}")
     _build.require_hopper(L.device, "batched_chol_gram")
-    lib = BATCHED_LIBRARY.load()
     G = torch.empty((K, d, d), dtype=torch.float32, device=L.device)
     B = torch.empty((K, d, C), dtype=torch.float32, device=L.device)
-    with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream(L.device).cuda_stream
-        err = lib.batched_chol_gram_launch(
-            L.data_ptr(), Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(),
-            K, d, n, C, stream,
-        )
+    err = _build.launch(L.device, BATCHED_LIBRARY.function("batched_chol_gram_launch"),
+                        L.data_ptr(), Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(),
+                        K, d, n, C)
     BATCHED_LIBRARY.check(err, "batched_chol_gram")
     batched_chol_gram.launches += 1
     return G, B

@@ -6,12 +6,21 @@ reference package.  Three pieces:
 * the CUDA C++ kernel, ``csrc/fed3r_stats.cu`` (design notes there), built
   for ``sm_90a`` by the port's one builder (:mod:`repro_torch.kernels.build`)
   at the first launch, never at import, into ``build/``
-  at the checkout root, keyed by a hash of the source;
+  at the checkout root, keyed by a hash of the source.  An IEEE-fp32 SGEMM
+  of the tiles of A on or above the diagonal (each mirrored below it) and
+  of b, with 8 × 8 register tiles (4 × 4 in the 64-wide instance) fed
+  from a ``cp.async`` ring; its 128-wide instance where the tiles fill
+  the card, else a 64-wide one (:func:`pick_tile`).  Each output element
+  is one ``fmaf`` chain over the samples in order: A is exactly symmetric
+  and a launch bitwise repeatable;
 * its plain version, :func:`repro_torch.kernels.ref.fed3r_stats_ref`;
 * the wrapper :func:`fed3r_stats`: a CPU tensor goes to the plain version, a
   CUDA tensor to the kernel.  There is no fallback: a CUDA tensor launches
   the kernel or raises.  ``fed3r_stats.launches`` counts kernel launches,
-  so a run can show that its main path went through the kernel.
+  so a run can show that its main path went through the kernel.  The
+  launch path pays per call only what depends on the inputs (the
+  capability is checked once per device index, the C function bound once,
+  the device guard entered only off the current device).
 
 The kernel multiplies in IEEE fp32 (no TF32) and takes fp32 inputs only;
 bf16 inputs are later work.
@@ -27,7 +36,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import fed3r_stats_ref
 
 LIBRARY = _build.CudaLibrary("fed3r_stats", {
-    "fed3r_stats_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "fed3r_stats_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                            ctypes.c_int),
 })
 SOURCE = LIBRARY.source
@@ -63,20 +72,29 @@ def _check(Z: torch.Tensor, Y: torch.Tensor) -> None:
         raise ValueError("fed3r_stats: Z and Y must be contiguous (row-major)")
 
 
-def _launch(Z: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def pick_tile(d: int, C: int, sms: int) -> int:
+    """The kernel's instance for a (d, C) output on a card of ``sms`` SMs:
+    128-wide tiles where their T(T+1)/2 + T·Tc blocks fill the card at least
+    twice over (two such blocks fit an SM), else 64-wide ones."""
+    T, Tc = -(-d // 128), -(-C // 128)
+    return 128 if T * (T + 1) // 2 + T * Tc >= 2 * sms else 64
+
+
+def _launch(Z: torch.Tensor, Y: torch.Tensor, tile: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel; ``tile`` 64 or 128 forces an instance, 0 lets
+    :func:`pick_tile` choose."""
     n, d = Z.shape
     C = Y.shape[1]
     if max(n, d, C) >= 2**31 or d == 0 or C == 0:
         raise ValueError(f"fed3r_stats: unsupported shape n={n}, d={d}, C={C}")
-    _build.require_hopper(Z.device, "fed3r_stats")
-    lib = LIBRARY.load()
+    if tile not in (0, 64, 128):
+        raise ValueError(f"fed3r_stats: tile must be 0, 64 or 128, got {tile!r}")
+    sms = _build.require_hopper(Z.device, "fed3r_stats")
     A = torch.empty((d, d), dtype=torch.float32, device=Z.device)
     b = torch.empty((d, C), dtype=torch.float32, device=Z.device)
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = lib.fed3r_stats_launch(
-            Z.data_ptr(), Y.data_ptr(), A.data_ptr(), b.data_ptr(), n, d, C, stream
-        )
+    err = _build.launch(Z.device, LIBRARY.function("fed3r_stats_launch"), Z.data_ptr(),
+                        Y.data_ptr(), A.data_ptr(), b.data_ptr(), n, d, C,
+                        tile or pick_tile(d, C, sms))
     LIBRARY.check(err, "fed3r_stats")
     fed3r_stats.launches += 1
     return A, b

@@ -88,20 +88,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"flash_attention: lse must be a contiguous fp32 ({B}, {H}, {S}) "
                          f"tensor on {q.device}")
     _build.require_hopper(q.device, "flash_attention")
-    lib = LIBRARY.load()
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            int(causal), window or 0, hd ** -0.5, stream,
-        )
+    err = _build.launch(
+        q.device, LIBRARY.function("flash_attention_launch"),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        int(causal), window or 0, hd ** -0.5,
+    )
     LIBRARY.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

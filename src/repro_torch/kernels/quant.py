@@ -5,19 +5,28 @@ and ``dequant_acc_pallas`` (``_dequant_acc_kernel``) of the reference
 package, the two ends of the compressed uplink
 (:mod:`repro_torch.federated.compress`):
 
-* the CUDA C++ kernels, ``csrc/quant.cu`` (design notes there): one block
-  per tile; ``quantize_tiles`` takes the tile's absmax, writes its scale
+* the CUDA C++ kernels, ``csrc/quant.cu`` (design notes there), both
+  bound by bytes (5 and 9 bytes an element).  ``quantize_tiles``, one
+  block per tile, takes the tile's absmax, writes its scale
   s = max|x|·fl(1/127) (1 for an all-zero tile) and the payload
-  q = clip(rne(x / s), ±127); ``dequant_accumulate`` writes fma(q, s, acc)
-  with the tile's scale read once, so no dense dequantized or expanded
-  scale array exists.  Every rounding is an explicit ``_rn`` intrinsic, and
-  both kernels equal their plain versions bitwise.  Bound by bytes (5 and
-  9 bytes an element);
+  q = clip(rne(x / s), ±127).  ``dequant_accumulate`` writes
+  fma(q, s, acc) over runs of 16 (or 4) consecutive elements of a row, one
+  wide load of q and float4 loads and stores, each run's scale read once;
+  a scalar path takes rows whose width is not a multiple of 4 and
+  pointers not aligned to 16 bytes (the launch function picks the path
+  from the pointers and N, and sizes the grid from the SM count that
+  :func:`repro_torch.kernels.build.require_hopper` learned once a card).  No dense dequantized or expanded scale array
+  exists.  Every rounding is an explicit ``_rn`` intrinsic, and both
+  kernels equal their plain versions bitwise;
 * their plain versions, :func:`repro_torch.kernels.ref.quantize_tiles_ref`
   and :func:`repro_torch.kernels.ref.dequant_acc_ref`;
 * the wrappers :func:`quantize_tiles` and :func:`dequant_accumulate`: a CPU
   tensor goes to the plain version, a CUDA tensor to the kernel, with no
-  fallback.  Their ``launches`` attributes count kernel launches.
+  fallback.  Their ``launches`` attributes count kernel launches.  The
+  launch path pays per call only what depends on the inputs: the card's
+  capability is checked once per device index, the C function is bound
+  once, and the device guard is entered only off the current device
+  (:func:`repro_torch.kernels.build.launch`).
 
 NaN inputs are outside the contract (the kernel's max skips NaN, the
 reference's propagates it); statistics are finite.
@@ -37,7 +46,7 @@ TILE = 128  # absmax granularity: one fp32 scale per (TILE, TILE) block
 LIBRARY = _build.CudaLibrary("quant", {
     "quantize_tiles_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                               ctypes.c_int),
-    "dequant_acc_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "dequant_acc_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                            ctypes.c_int),
 })
 
@@ -87,13 +96,14 @@ def _check_dequant(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, til
         raise ValueError("dequant_accumulate: acc, q and scales must be contiguous (row-major)")
 
 
-def _launch_ready(x: torch.Tensor, tile: int, what: str) -> ctypes.CDLL:
+def _launch_ready(x: torch.Tensor, tile: int, what: str) -> int:
+    """Refuse a shape the launch cannot take or a card that is not sm_90;
+    return the card's SM count."""
     M, N = x.shape
     Mt, _ = _grid(M, N, tile)
     if max(M, N) >= 2**31 or Mt > 65535:
         raise ValueError(f"{what}: unsupported shape ({M}, {N}) at tile {tile}")
-    _build.require_hopper(x.device, what)
-    return LIBRARY.load()
+    return _build.require_hopper(x.device, what)
 
 
 def quantize_tiles(x: torch.Tensor, tile: int = TILE) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,15 +120,13 @@ def quantize_tiles(x: torch.Tensor, tile: int = TILE) -> Tuple[torch.Tensor, tor
     if x.device.type != "cuda":
         raise RuntimeError(f"quantize_tiles: no kernel for device {x.device}")
     M, N = x.shape
-    lib = _launch_ready(x, tile, "quantize_tiles")
+    _launch_ready(x, tile, "quantize_tiles")
     q = torch.empty((M, N), dtype=torch.int8, device=x.device)
     scales = torch.empty(_grid(M, N, tile), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return q, scales
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.quantize_tiles_launch(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                                        M, N, tile, stream)
+    err = _build.launch(x.device, LIBRARY.function("quantize_tiles_launch"), x.data_ptr(),
+                        q.data_ptr(), scales.data_ptr(), M, N, tile)
     LIBRARY.check(err, "quantize_tiles")
     quantize_tiles.launches += 1
     return q, scales
@@ -135,19 +143,18 @@ def dequant_accumulate(
     raises.
     """
     _check_dequant(acc, q, scales, tile)
-    if acc.device.type == "cpu":
+    device = acc.device
+    if device.type == "cpu":
         return dequant_acc_ref(acc, q, scales, tile)
-    if acc.device.type != "cuda":
-        raise RuntimeError(f"dequant_accumulate: no kernel for device {acc.device}")
+    if device.type != "cuda":
+        raise RuntimeError(f"dequant_accumulate: no kernel for device {device}")
     M, N = acc.shape
-    lib = _launch_ready(acc, tile, "dequant_accumulate")
-    out = torch.empty((M, N), dtype=torch.float32, device=acc.device)
+    sms = _launch_ready(acc, tile, "dequant_accumulate")
+    out = torch.empty_like(acc)  # acc is contiguous fp32 (checked): so is out
     if M == 0 or N == 0:
         return out
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        err = lib.dequant_acc_launch(acc.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                                     out.data_ptr(), M, N, tile, stream)
+    err = _build.launch(device, LIBRARY.function("dequant_acc_launch"), acc.data_ptr(),
+                        q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, tile, sms)
     LIBRARY.check(err, "dequant_accumulate")
     dequant_accumulate.launches += 1
     return out

@@ -60,16 +60,12 @@ def _launch(Z: torch.Tensor, omega: torch.Tensor, beta: torch.Tensor) -> torch.T
     if max(n, d, D) >= 2**31 or D == 0:
         raise ValueError(f"rff_transform: unsupported shape n={n}, d={d}, D={D}")
     _build.require_hopper(Z.device, "rff")
-    lib = LIBRARY.load()
     out = torch.empty((n, D), dtype=torch.float32, device=Z.device)
     if n == 0:
         return out
-    with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = lib.rff_launch(
-            Z.data_ptr(), omega.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            n, d, D, math.sqrt(2.0 / D), stream,
-        )
+    err = _build.launch(Z.device, LIBRARY.function("rff_launch"), Z.data_ptr(),
+                        omega.data_ptr(), beta.data_ptr(), out.data_ptr(), n, d, D,
+                        math.sqrt(2.0 / D))
     LIBRARY.check(err, "rff")
     rff_transform.launches += 1
     return out

@@ -5,7 +5,12 @@
   profiled;
 * ``--cell serve``: the dense serving cell (Qwen2-7B at full width, batch
   8 × 2048-token prompts): one prefill and 16 decode steps to warm up, then
-  one prefill and 16 decode steps, each profiled on its own.
+  one prefill and 16 decode steps, each profiled on its own;
+* ``--cell rf``: ``chip_smoke.py``'s ``[rf]`` cell (``run_fed3r`` FED3R-RF
+  at D = 5000 on the simulator's 50,000 features, 100 clients, 10 a
+  round; both build it with :mod:`repro_torch.configs.simulator`), run
+  once to warm up, then ``RF_WALLS`` times on the host clock
+  (the spread of its wall on one card), then once profiled.
 
 Each prints the device's busy share of the wall time, device time by
 kernel group, and the ten aten ops that launched the most device time.
@@ -14,7 +19,7 @@ reads idler here than it runs.  A measurement tool, not a check:
 ``chip_smoke.py`` holds the checks.
 
 Usage (on the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve]
+  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|rf]
 """
 from __future__ import annotations
 
@@ -35,10 +40,14 @@ SERVE_ARCH = "qwen2-7b"
 SERVE = dict(batch=8, prompt_len=2048, gen=64)
 DECODE_STEPS = 16
 
+RF_WALLS = 3
+
 # (group, substrings of the kernel's name), first match wins
 KERNEL_GROUPS = (
     ("fed3r_stats (the port's CUDA kernel)", ("fed3r_stats",)),
+    ("rff (the port's CUDA kernel)", ("rff_kernel",)),
     ("flash_attention (the port's CUDA kernel)", ("flash_bf16", "flash_fp32")),
+    ("Cholesky and triangular solves (cuSOLVER, cuBLAS trsm)", ("potrf", "trsm", "trsv")),
     ("GEMM (cuBLAS: projections, MLPs, attention einsums)",
      ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("softmax", ("softmax",)),
@@ -146,13 +155,38 @@ def profile_serve(arch: str, *, batch: int, prompt_len: int, gen: int, device="c
     return out
 
 
+def profile_rf(device="cuda") -> dict:
+    """FED3R-RF warm, then RF_WALLS timed runs, then one profiled."""
+    from repro_torch.configs.simulator import RF_D, simulator_setup
+    from repro_torch.federated.fed3r_driver import run_fed3r
+
+    dev = _card(device)
+    fed, test, f3, fc = simulator_setup(dev, n_random_features=RF_D)
+
+    def run():
+        run_fed3r(fed, test.features, test.labels, f3, fc, device=dev)
+
+    walls = []
+    for _ in range(1 + RF_WALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"[profile] rf D={RF_D}: warm-up run {walls[0]:.3f}s, then walls "
+          + ", ".join(f"{w:.3f}s" for w in walls[1:]), flush=True)
+    return _report(*_profiled(run), f"rf D={RF_D}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--cell", choices=("slice", "serve"), default="slice")
+    ap.add_argument("--cell", choices=("slice", "serve", "rf"), default="slice")
     args = ap.parse_args()
     if args.cell == "serve":
         profile_serve(SERVE_ARCH, device=args.device, **SERVE)
+    elif args.cell == "rf":
+        profile_rf(device=args.device)
     else:
         profile_phase1(SLICE_ARCH, device=args.device, **SLICE)
 

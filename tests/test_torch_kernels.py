@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import fed3r_stats as fed3r_stats_mod  # noqa: E402
+from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     batched_chol_gram,
     chol_gram,
@@ -107,6 +108,125 @@ def test_kernel_module_imports_without_building():
     )
     assert out.stdout.strip() == fed3r_stats_mod.library_path().name
     assert fed3r_stats_mod.SOURCE.exists()
+
+
+@pytest.mark.parametrize("M,N", [(1280, 1280), (1280, 100)])
+def test_broadcast_addcmul_is_dequant_acc_bitwise(M, N):
+    """The yardstick chip_smoke.py times beside dequant_acc: one
+    torch.addcmul on the kernel's own int8 q and tile scales through
+    broadcast views computes the same function, bitwise."""
+    from repro_torch.launch.timing import broadcast_addcmul
+
+    r = np.random.default_rng(11)
+    x = torch.from_numpy((10.0 * r.normal(size=(M, N))).astype(np.float32))
+    acc = torch.from_numpy(r.normal(size=(M, N)).astype(np.float32))
+    q, s = quantize_tiles_ref(x, 128)
+    lib = broadcast_addcmul(acc, q, s, 128)
+    assert torch.equal(lib().reshape(M, N), dequant_acc_ref(acc, q, s, 128))
+
+
+def test_broadcast_addcmul_refuses_shapes_the_tile_does_not_divide():
+    from repro_torch.launch.timing import broadcast_addcmul
+
+    acc = torch.zeros((5000, 5000))
+    q = torch.zeros((5000, 5000), dtype=torch.int8)
+    assert broadcast_addcmul(acc, q, torch.ones((40, 40)), 128) is None
+
+
+def test_require_hopper_cache_refuses_another_card_per_device_index(monkeypatch):
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "_HOPPER_SMS", {})
+    caps = {5: (9, 0), 6: (8, 0)}
+    asked = []
+
+    def capability(index):
+        asked.append(index)
+        return caps[index]
+
+    monkeypatch.setattr(torch.cuda, "get_device_capability", capability)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda index: f"card {index}")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda index: SimpleNamespace(multi_processor_count=132))
+    assert build.require_hopper(torch.device("cuda", 5), "k") == 132
+    assert build.require_hopper(torch.device("cuda", 5), "k") == 132
+    assert asked == [5]  # a card that passed is not asked again
+    for _ in range(2):  # one reported as (8, 0) is refused at every launch
+        with pytest.raises(RuntimeError, match=r"sm_90a.*card 6.*\(8, 0\)"):
+            build.require_hopper(torch.device("cuda", 6), "k")
+    assert asked == [5, 6, 6] and set(build._HOPPER_SMS) == {5}
+    caps[5] = (8, 0)  # the cache is per device index: index 5 stays admitted
+    assert build.require_hopper(torch.device("cuda", 5), "k") == 132
+
+
+@pytest.mark.parametrize("private", [True, False])
+@pytest.mark.parametrize("index,current", [(0, 0), (3, 0)])
+def test_launch_passes_the_current_stream_handle_with_or_without_the_private_getter(
+        monkeypatch, private, index, current):
+    """build.launch hands the C function the raw handle of the card's
+    current stream: through torch's private getter where torch has it, else
+    through the public current_stream, so a torch that renames the private
+    one still launches.  The device guard is entered only off the current
+    device."""
+    from contextlib import contextmanager
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import build
+
+    if private:
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                            raising=False)
+    else:
+        monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream", raising=False)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda i: SimpleNamespace(cuda_stream=2000 + i))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    guarded = []
+
+    @contextmanager
+    def guard(i):
+        guarded.append(i)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    calls = []
+    err = build.launch(torch.device("cuda", index),
+                       lambda *args: calls.append(args) or 7, 1, 2)
+    assert err == 7
+    assert calls == [(1, 2, (1000 if private else 2000) + index)]
+    assert guarded == ([] if index == current else [index])
+
+
+@pytest.mark.parametrize("library", [lib.name for lib in _ops.LIBRARIES])
+def test_c_launch_functions_take_the_arguments_their_bindings_pass(library):
+    """Each ctypes binding has as many arguments as its C function in the
+    source: a launch function that gains an argument (dequant_acc_launch's
+    SM count, fed3r_stats_launch's tile) cannot be called with the old
+    list, which only a card would otherwise show."""
+    import re
+
+    lib = next(lib for lib in _ops.LIBRARIES if lib.name == library)
+    text = lib.source.read_text()
+    for fn, (argtypes, _) in lib.functions.items():
+        decl = re.search(r"\b" + fn + r"\(([^)]*)\)\s*\{", text)
+        assert decl is not None, fn
+        params = [p for p in decl.group(1).split(",") if p.strip()]
+        assert len(params) == len(argtypes), (fn, params)
+
+
+@pytest.mark.parametrize("d,C,sms,tile", [(1280, 100, 132, 64), (5000, 100, 132, 128),
+                                          (2560, 100, 132, 64), (4096, 100, 132, 128),
+                                          (37, 1, 132, 64), (1280, 100, 16, 128)])
+def test_fed3r_stats_picks_the_128_instance_only_where_it_fills_the_card(d, C, sms, tile):
+    assert fed3r_stats_mod.pick_tile(d, C, sms) == tile
+
+
+def test_fed3r_stats_launch_refuses_a_tile_it_has_no_instance_for():
+    Z, Y = _inputs(8, 4, 2)
+    with pytest.raises(ValueError, match="tile"):
+        fed3r_stats_mod._launch(torch.from_numpy(Z), torch.from_numpy(Y), tile=32)
 
 
 @pytest.fixture
@@ -225,6 +345,21 @@ def test_streaming_absorb_makes_no_host_sync_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+def test_current_stream_handle_on_card_is_the_current_stream(cuda_device):
+    """On this torch the launches take the private raw-stream getter (the
+    cheap path), and it names the same stream as the public API, on the
+    default stream and on a side one."""
+    from repro_torch.kernels import build
+
+    index = torch.cuda.current_device()
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+    assert build.current_stream_handle(index) == torch.cuda.current_stream(index).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert build.current_stream_handle(index) == side.cuda_stream
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M,N,tile", [(1280, 1280, 128), (1280, 100, 128), (200, 150, 64),
                                       (33, 190, 128), (1281, 77, 16)])
 def test_quant_kernels_on_card_equal_their_plain_versions_bitwise(cuda_device, M, N, tile):
@@ -242,6 +377,77 @@ def test_quant_kernels_on_card_equal_their_plain_versions_bitwise(cuda_device, M
     assert torch.equal(q, qr) and torch.equal(s, sr)
     assert float(s[0, 0]) == 1.0 and not q[:tile, :tile].any()
     assert torch.equal(out, dequant_acc_ref(acc, q, s, tile))  # one FMA on both sides
+
+
+# the edges of both fed3r_stats instances: d < 64, d not a multiple of 128,
+# d % 4 != 0 (the 4-byte copies), n = 1, n not a multiple of the 16-sample
+# panel, C = 1, d + C crossing a tile, and the shapes of the three paths
+STATS_EDGES = [(1, 37, 1), (37, 37, 5), (17, 200, 1), (100, 120, 20), (513, 1281, 37),
+               (104, 1280, 100), (33, 130, 130), (512, 5000, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("n,d,C", STATS_EDGES)
+def test_fed3r_stats_both_instances_on_card(cuda_device, n, d, C, tile):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Z, Y = _inputs(n, d, C, seed=12)
+    Zc, Yc = torch.from_numpy(Z).to(cuda_device), torch.from_numpy(Y).to(cuda_device)
+    A, b = fed3r_stats_mod._launch(Zc, Yc, tile=tile)
+    torch.cuda.synchronize()
+    Ar, br = fed3r_stats_ref(Zc, Yc)
+    _assert_scaled_close(A.cpu().numpy(), Ar.cpu().numpy())
+    _assert_scaled_close(b.cpu().numpy(), br.cpu().numpy())
+    assert torch.equal(A, A.T)
+    A2, b2 = fed3r_stats_mod._launch(Zc, Yc, tile=tile)
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+    # both instances run the same fmaf chain an element: the same bits
+    A3, b3 = fed3r_stats_mod._launch(Zc, Yc, tile=192 - tile)
+    assert torch.equal(A, A3) and torch.equal(b, b3)
+
+
+@pytest.mark.gpu
+def test_fed3r_stats_on_card_takes_inputs_not_aligned_to_16_bytes(cuda_device):
+    n, d, C = 40, 256, 12
+    Z, Y = _inputs(n, d, C, seed=13)
+    flat = torch.zeros(n * d + 1, device=cuda_device)
+    flat[1:] = torch.from_numpy(Z).reshape(-1).to(cuda_device)
+    Zc = flat[1:].view(n, d)  # contiguous, 4 bytes past a 16-byte boundary
+    assert Zc.is_contiguous() and Zc.data_ptr() % 16 == 4
+    Yc = torch.from_numpy(Y).to(cuda_device)
+    A, b = fed3r_stats(Zc, Yc)
+    torch.cuda.synchronize()
+    Ar, br = fed3r_stats_ref(Zc, Yc)
+    _assert_scaled_close(A.cpu().numpy(), Ar.cpu().numpy())
+    _assert_scaled_close(b.cpu().numpy(), br.cpu().numpy())
+    assert torch.equal(A, A.T)
+
+
+# dequant_acc's paths: runs of 16 (N % 16 == 0), of 4 (N % 4 == 0), single
+# elements (N % 4 != 0); a tile that is not a multiple of the run (each
+# element its own scale); q 4 bytes (runs of 4) and 1 byte (single
+# elements) past a 16-byte boundary
+DEQUANT_PATHS = [(1280, 1280, 128, 0), (1280, 100, 128, 0), (129, 77, 16, 0),
+                 (256, 1280, 8, 0), (96, 96, 6, 0), (50, 100, 6, 0), (64, 100, 128, 100),
+                 (64, 1280, 128, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,tile,q_offset", DEQUANT_PATHS)
+def test_dequant_acc_paths_on_card_bitwise(cuda_device, M, N, tile, q_offset):
+    r = np.random.default_rng(14)
+    x = torch.from_numpy((10.0 * r.normal(size=(M, N))).astype(np.float32)).to(cuda_device)
+    acc = torch.from_numpy(r.normal(size=(M, N)).astype(np.float32)).to(cuda_device)
+    q0, s = quantize_tiles_ref(x, tile)
+    flat = torch.zeros(M * N + q_offset, dtype=torch.int8, device=cuda_device)
+    flat[q_offset:] = q0.reshape(-1)
+    q = flat[q_offset:].view(M, N)  # q[1:] of a (M + 1, N) payload when q_offset == N
+    assert q.is_contiguous() and q.data_ptr() % 16 == q_offset % 16
+    before = dequant_accumulate.launches
+    out = dequant_accumulate(acc, q, s, tile=tile)
+    torch.cuda.synchronize()
+    assert dequant_accumulate.launches == before + 1
+    assert torch.equal(out, dequant_acc_ref(acc, q, s, tile))
 
 
 @pytest.mark.gpu

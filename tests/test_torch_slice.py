@@ -179,6 +179,19 @@ def test_profile_slice_measures_the_card_only():
     assert profile_slice.kernel_group("ampere_something_unknown") == "other"
 
 
+def test_profile_rf_cell_is_the_simulator_setup_and_runs_on_the_card_only():
+    """profile_slice --cell rf profiles the cell chip_smoke.py's [rf] checks:
+    both build it from repro_torch.configs.simulator, and it refuses the CPU
+    before it makes any data; its kernel groups name rff and the solves."""
+    from repro_torch.configs import simulator
+
+    with pytest.raises(RuntimeError, match="card only"):
+        profile_slice.profile_rf(device="cpu")
+    assert simulator.RF_D == 5000 and simulator.FEATURES["d"] == 1280
+    assert profile_slice.kernel_group("void rff_kernel<64>(...)").startswith("rff")
+    assert profile_slice.kernel_group("potrf_alg2_kernel").startswith("Cholesky")
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
