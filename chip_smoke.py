@@ -88,7 +88,10 @@ counts just after.
                 row's log-sum-exp, written by the kernel, within 1e-5 of an
                 fp32 logsumexp, a limit that an emulated early rounding of
                 p must exceed; fed3r_stats also exactly symmetric at every
-                shape and bitwise repeatable at the rf shape), and at each
+                shape and bitwise repeatable at the rf shape; chol_gram's
+                stream and stream-rf waves and batched_chol_gram's widest
+                cohort also bitwise equal to their live rows compacted, with
+                the instance that ran), and at each
                 path's shape the times of kernel, plain version and library
                 call, and the device time alone of kernel and library call
                 (a CUDA graph of the calls replayed) beside the call time
@@ -550,14 +553,48 @@ def chol_check(torch, ops, ref, L, Z, Y, label) -> float:
     return max(float((G - Gr).abs().max()), float((B - Br).abs().max()))
 
 
+def live_rows(Z, Y):
+    """The rows of a masked design that are not all zero, in order."""
+    live = Z.ne(0).any(dim=-1) | Y.ne(0).any(dim=-1)
+    return Z[live].contiguous(), Y[live].contiguous()
+
+
+def padding_gate(torch, ops, L, Z, Y, label) -> None:
+    """The path's own padded wave against its live rows compacted: G and B
+    bitwise equal (the kernel skips all-zero panels and multiplies the other
+    padding rows; either leaves every fmaf chain as it was)."""
+    from repro_torch.kernels.chol_update import pick_tile
+
+    d, (n, C) = L.shape[0], Y.shape
+    Zl, Yl = live_rows(Z, Y)
+    G, B = ops.chol_gram(L, Z, Y)
+    Gl, Bl = ops.chol_gram(L, Zl, Yl)
+    same = bool(torch.equal(G, Gl) and torch.equal(B, Bl))
+    minus0 = int((Z.eq(0) & torch.signbit(Z)).sum())
+    log(f"[kernel] chol_gram {label}: instance {pick_tile(d, C, sm_count(torch))}-wide tiles; "
+        f"{Zl.shape[0]} live rows of {n} ({minus0} entries -0.0); G and B bitwise equal to the "
+        f"live rows compacted: {same}")
+    if not same:
+        raise AssertionError(f"chol_gram's padding rows changed a bit at {label}")
+
+
+def sm_count(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def phase_kernel_chol(torch, ops, ref, stream_case, rf_case) -> dict:
     """chol_gram at the stream's wave shape (d = 1280), at D = 5000, at n = 0
-    and a ragged shape; times at both path shapes.  The library call is one
+    and a ragged shape; both path waves also against their live rows
+    compacted; times at both path shapes.  The library call is one
     torch.matmul of the pre-stacked [L^T; Z]^T and [[L^T | 0]; [Z | Y]]."""
+    from repro_torch.launch.timing import stacked_gram
+
     L, Z, Y = stream_case
     abs_err = max(chol_check(torch, ops, ref, L, Z, Y, "stream wave"),
                   chol_check(torch, ops, ref, *rf_case, "stream-rf wave"),
                   chol_check(torch, ops, ref, L, Z[:0], Y[:0], "empty wave"))
+    padding_gate(torch, ops, L, Z, Y, "stream wave")
+    padding_gate(torch, ops, *rf_case, "stream-rf wave")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(40)
     for d, n, C in CHOL_SHAPES_RAGGED:
@@ -568,12 +605,9 @@ def phase_kernel_chol(torch, ops, ref, stream_case, rf_case) -> dict:
     out = {}
     for label, (L, Z, Y) in (("stream wave", stream_case), ("stream-rf wave", rf_case)):
         d, (n, C) = L.shape[0], Y.shape
-        left = torch.cat([L.T, Z], dim=0).T.contiguous()  # (d, d + n)
-        right = torch.cat([torch.cat([L.T, torch.zeros((d, C), device="cuda")], dim=1),
-                           torch.cat([Z, Y], dim=1)], dim=0)  # (d + n, d + C)
         t = timed("chol_gram", f"{label} shape d={d} n={n} C={C}",
                   lambda: ops.chol_gram(L, Z, Y), lambda: ref.chol_gram_ref(L, Z, Y),
-                  lambda: torch.matmul(left, right),
+                  stacked_gram(L, Z, Y),
                   "library_ms (one torch.matmul [L^T; Z]^T [[L^T|0]; [Z|Y]], fp32, no TF32)",
                   bound(gram_flops(L, Z, Y), 4.0 * (d * d + n * d + n * C + d * d + d * C)))
         out = out or t
@@ -1075,6 +1109,8 @@ def phase_kernel_batched(torch, ops, ref, L, packed) -> dict:
     n = 0; times at the widest cohort.  Each head is also held bitwise
     against chol_gram(L, Z_k, Y_k): the two kernels share their tile loop."""
     from repro_torch.core import fed3r
+    from repro_torch.kernels.chol_update import pick_tile
+    from repro_torch.launch.timing import stacked_gram
 
     C = HEADS["n_classes"]
     x = torch.as_tensor(packed.inputs, device="cuda")
@@ -1107,6 +1143,23 @@ def phase_kernel_batched(torch, ops, ref, L, packed) -> dict:
 
     abs_err = max(check(L, Z, Y, "widest cohort"), check(L, Z[:8], Y[:8], "8 heads"),
                   check(L, Z[:8, :0], Y[:8, :0], "no sample rows"))
+    # each head's live rows moved to the front, the cohort cut to the widest
+    # head's live rows: G and B bitwise equal to the padded cohort's
+    live = [live_rows(Z[k], Y[k]) for k in range(K)]
+    w = max(z.shape[0] for z, _ in live)
+    Zp, Yp = Z.new_zeros((K, w, Z.shape[2])), Y.new_zeros((K, w, C))
+    for k, (zk, yk) in enumerate(live):
+        Zp[k, :zk.shape[0]], Yp[k, :yk.shape[0]] = zk, yk
+    G, B = ops.batched_chol_gram(L, Z, Y)
+    Gp, Bp = ops.batched_chol_gram(L, Zp, Yp)
+    same = bool(torch.equal(G, Gp) and torch.equal(B, Bp))
+    sms, d = sm_count(torch), L.shape[0]
+    log(f"[kernel] batched_chol_gram widest cohort: instances {pick_tile(d, 0, sms)}-wide (L L^T) "
+        f"and {pick_tile(d, C, sms, K)}-wide (heads); {sum(z.shape[0] for z, _ in live)} live rows "
+        f"of {K * n}, at most {w} a head; G and B bitwise equal to the live rows compacted: {same}")
+    if not same:
+        raise AssertionError("batched_chol_gram's padding rows changed a bit")
+    del G, B, Gp, Bp
     gen = torch.Generator(device="cuda")
     gen.manual_seed(50)
     for Kr, d, nr, Cr in BATCHED_SHAPES_RAGGED:
@@ -1118,14 +1171,10 @@ def phase_kernel_batched(torch, ops, ref, L, packed) -> dict:
         abs_err = max(abs_err, check(Lr, Zr, Yr, "ragged"))
 
     d = L.shape[0]
-    LT = L.T.expand(K, d, d)
-    left = torch.cat([LT.transpose(1, 2), Z.transpose(1, 2)], dim=2).contiguous()  # (K, d, d+n)
-    right = torch.cat([torch.cat([LT, torch.zeros((K, d, C), device="cuda")], dim=2),
-                       torch.cat([Z, Y], dim=2)], dim=1).contiguous()  # (K, d+n, d+C)
     flops = float(d * (d + 1) * (d + 2) / 3) + sum(stats_flops(Z[k], Y[k]) for k in range(K))
     t = timed("batched_chol_gram", f"widest cohort K={K} d={d} n={n} C={C}",
               lambda: ops.batched_chol_gram(L, Z, Y), lambda: ref.batched_chol_gram_ref(L, Z, Y),
-              lambda: torch.matmul(left, right),
+              stacked_gram(L, Z, Y),
               "library_ms (one torch.matmul [L^T; Z_k]^T [[L^T|0]; [Z_k|Y_k]] over K, fp32, "
               "no TF32)",
               bound(flops, 4.0 * (d * d + K * n * d + K * n * C + K * (d * d + d * C))))

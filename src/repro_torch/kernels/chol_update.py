@@ -8,21 +8,25 @@ personalization engine's refit over K heads against one shared factor
 (:mod:`repro_torch.federated.personalization`):
 
 * the CUDA C++ kernels, ``csrc/chol_gram.cu`` and
-  ``csrc/batched_chol_gram.cu``, built on one tile loop,
-  ``csrc/chol_gram_tile.cuh`` (design notes there): one block per 64×64
-  tile of [G | B] (of head ``blockIdx.z`` in the batched kernel), sweeping
-  the rows of Lᵀ first (G columns only) and the sample rows of [Z | Y]
-  second into one fp32 accumulator per element, with no stacked operand in
-  device memory, no atomics and no split-K (a launch is bitwise
-  repeatable, and each head of a batched launch is bitwise the single
-  update).  They read only the lower triangle of L, compute the lower tiles
-  of the symmetric G and mirror them.  Bound by arithmetic: ≈ d³/3 FLOPs
-  for L Lᵀ (a head) plus n·d·(d+1) for ZᵀZ, on the FMA units in IEEE fp32;
+  ``csrc/batched_chol_gram.cu``, on one IEEE-fp32 SGEMM tile loop,
+  ``csrc/chol_gram_tile.cuh`` (design notes there): one block for each
+  tile of G on or below its diagonal (mirrored) and each tile of B, the
+  longest factor sweeps first; 8 × 8 register tiles fed from a ``cp.async``
+  ring at 128-wide tiles, 4 × 4 at 64-wide ones (:func:`pick_tile`); Z and
+  Y read in place and L's lower triangle copied transposed into shared
+  memory; all-zero sample panels skipped.  The batched refit forms
+  G0 = L Lᵀ once (the same code at n = 0) and starts each head's
+  accumulators from it.  Each element is one ``fmaf`` chain (factor rows,
+  then sample rows, in order, from +0) with no atomics and no split-K: a
+  launch is bitwise repeatable, G exactly symmetric, and each head of a
+  batched launch bitwise the single update;
 * their plain versions, :func:`repro_torch.kernels.ref.chol_gram_ref` and
   :func:`repro_torch.kernels.ref.batched_chol_gram_ref`;
 * the wrappers :func:`chol_gram` and :func:`batched_chol_gram`: a CPU
   tensor goes to the plain version, a CUDA tensor to the kernel, with no
-  fallback.  Their ``launches`` attributes count kernel launches.
+  fallback.  Their ``launches`` attributes count wrapper calls that
+  launched on the card (a batched call is two kernel launches, counted
+  once, and never as a ``chol_gram``).
 
 ``L`` must be lower-triangular, as a Cholesky factor is: the kernels do not
 read its upper triangle.  ``n = 0`` is legal and gives (L Lᵀ, 0) exactly.
@@ -38,13 +42,27 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import batched_chol_gram_ref, chol_gram_ref
 
 LIBRARY = _build.CudaLibrary("chol_gram", {
-    "chol_gram_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "chol_gram_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                          ctypes.c_int),
 })
 BATCHED_LIBRARY = _build.CudaLibrary("batched_chol_gram", {
-    "batched_chol_gram_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "batched_chol_gram_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                                  ctypes.c_int),
 })
+
+
+def pick_tile(d: int, C: int, sms: int, heads: int = 1) -> int:
+    """The kernels' instance for a (d, C) output over ``heads`` heads on a
+    card of ``sms`` SMs: 128-wide tiles where their (T(T+1)/2 + T·Tc)·heads
+    blocks fill the card at least twice over (two such blocks fit an SM),
+    else 64-wide ones."""
+    T, Tc = -(-d // 128), -(-C // 128)
+    return 128 if (T * (T + 1) // 2 + T * Tc) * heads >= 2 * sms else 64
+
+
+def _tile_arg(tile: int, what: str) -> None:
+    if tile not in (0, 64, 128):
+        raise ValueError(f"{what}: tile must be 0, 64 or 128, got {tile!r}")
 
 
 def _check(L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor) -> None:
@@ -69,16 +87,21 @@ def _check(L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor) -> None:
         raise ValueError("chol_gram: L, Z and Y must be contiguous (row-major)")
 
 
-def _launch(L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor,
+            tile: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel; ``tile`` 64 or 128 forces an instance, 0 lets
+    :func:`pick_tile` choose."""
     d = L.shape[0]
     n, C = Y.shape
     if max(n, d + C) >= 2**31 or d == 0 or C == 0:
         raise ValueError(f"chol_gram: unsupported shape d={d}, n={n}, C={C}")
-    _build.require_hopper(L.device, "chol_gram")
+    _tile_arg(tile, "chol_gram")
+    sms = _build.require_hopper(L.device, "chol_gram")
     G = torch.empty((d, d), dtype=torch.float32, device=L.device)
     B = torch.empty((d, C), dtype=torch.float32, device=L.device)
     err = _build.launch(L.device, LIBRARY.function("chol_gram_launch"), L.data_ptr(),
-                        Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(), d, n, C)
+                        Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(), d, n, C,
+                        tile or pick_tile(d, C, sms))
     LIBRARY.check(err, "chol_gram")
     chol_gram.launches += 1
     return G, B
@@ -128,18 +151,24 @@ def _check_batched(L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor) -> None:
 
 
 def _launch_batched(
-    L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor
+    L: torch.Tensor, Z: torch.Tensor, Y: torch.Tensor, tile: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel (G0 = L Lᵀ into a scratch, then the heads);
+    ``tile`` 64 or 128 forces the instance of both launches, 0 lets
+    :func:`pick_tile` choose each."""
     d = L.shape[0]
     K, n, C = Y.shape
     if not 1 <= K < 2**16 or max(n, d + C) >= 2**31 or d == 0 or C == 0:
         raise ValueError(f"batched_chol_gram: unsupported shape K={K}, d={d}, n={n}, C={C}")
-    _build.require_hopper(L.device, "batched_chol_gram")
+    _tile_arg(tile, "batched_chol_gram")
+    sms = _build.require_hopper(L.device, "batched_chol_gram")
     G = torch.empty((K, d, d), dtype=torch.float32, device=L.device)
     B = torch.empty((K, d, C), dtype=torch.float32, device=L.device)
+    G0 = torch.empty((d, d), dtype=torch.float32, device=L.device)
     err = _build.launch(L.device, BATCHED_LIBRARY.function("batched_chol_gram_launch"),
                         L.data_ptr(), Z.data_ptr(), Y.data_ptr(), G.data_ptr(), B.data_ptr(),
-                        K, d, n, C)
+                        G0.data_ptr(), K, d, n, C, tile or pick_tile(d, 0, sms),
+                        tile or pick_tile(d, C, sms, K))
     BATCHED_LIBRARY.check(err, "batched_chol_gram")
     batched_chol_gram.launches += 1
     return G, B
@@ -153,9 +182,9 @@ def batched_chol_gram(
     Returns G (K, d, d) and B (K, d, C).  A per-head weight α_k is the
     caller's pre-scaling Z_k ← √α_k·Z_k, Y_k ← √α_k·Y_k.
 
-    A CUDA tensor launches the CUDA kernel on the current stream (one launch
-    for all K heads); a CPU tensor runs the plain version.  Any other device
-    raises.
+    A CUDA tensor launches the CUDA kernel on the current stream (L Lᵀ
+    once, then all K heads: one call, counted once in ``launches``); a CPU
+    tensor runs the plain version.  Any other device raises.
     """
     _check_batched(L, Z, Y)
     if L.device.type == "cuda":

@@ -1,40 +1,58 @@
-"""Time ``fed3r_stats`` and ``dequant_acc``: each wrapper call against its device work alone.
+"""Time ``fed3r_stats``, ``dequant_acc``, ``chol_gram`` and
+``batched_chol_gram``: each wrapper call against its device work alone.
 
     PYTHONPATH=src python -m repro_torch.launch.time_kernels
 
 On one Hopper card, at the shapes the main path gives each kernel
 (``fed3r_stats`` at the slice's, the simulator's and FED3R-RF's client
 shapes; ``dequant_acc`` at the uplink's A and b and at 5000 x 5000, tile
-128), three readings (:mod:`repro_torch.launch.timing`) of the kernel and
-of the one PyTorch call that computes the same function: ``call_ms``
-(back-to-back calls, ``chip_smoke.py``'s ``kernel_ms``), ``device_ms``
-(a CUDA graph of the calls replayed) and ``host_us`` (the host clock a
-call), which only this script reads.  Beside them the host cost of the
-torch calls a launch path may pay (the capability query, the current
-stream, the device guard, one ``torch.empty``).
+128; ``chol_gram`` at the stream's widest wave as the path packs it,
+padding rows included, at a dense wave of the same rows, and at that
+wave's design at D = 5000; ``batched_chol_gram`` at a K = 32 cohort of the
+heads path, padded to its max_n), three readings
+(:mod:`repro_torch.launch.timing`) of the kernel and of the one PyTorch
+call that computes the same function: ``call_ms`` (back-to-back calls,
+``chip_smoke.py``'s ``kernel_ms``), ``device_ms`` (a CUDA graph of the
+calls replayed) and ``host_us`` (the host clock a call), which only this
+script reads.  The Gram kernels are also read beside their plain versions,
+and each Gram line ends in a digest of the (G, B) bits, so two trees' runs
+in one call show whether their kernels agree bitwise (at the timed shapes,
+an empty wave and a ragged one).  Beside them the host cost of the torch
+calls a launch path may pay (the capability query, the current stream, the
+device guard, one ``torch.empty``).
 
-It calls the kernels only through ``repro_torch.kernels.ops``, so a copy
-of this file and ``timing.py`` in another tree's ``src/repro_torch/launch/``
-reads that tree's wrappers the same way (an A/B in one chip call).
+It calls the kernels only through ``repro_torch.kernels.ops`` (and names
+the Gram instance through ``chol_update.pick_tile`` where the tree has
+one), so a copy of this file and ``timing.py`` in another tree's
+``src/repro_torch/launch/`` reads that tree's wrappers the same way (an
+A/B in one chip call).
 
 Prints ``[time_kernels]`` lines, then the card's name and power limit
 (nvidia-smi).
 """
 from __future__ import annotations
 
+import hashlib
 import subprocess
 import sys
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import ops
-from repro_torch.launch.timing import broadcast_addcmul, cuda_ms, device_ms, host_us
+from repro_torch.kernels import chol_update, ops, ref
+from repro_torch.launch.timing import broadcast_addcmul, cuda_ms, device_ms, host_us, stacked_gram
 
 STATS_SHAPES = {"slice": (104, 1280, 100), "simulator": (512, 1280, 100), "rf": (512, 5000, 100)}
 DEQUANT_SHAPES = {"[wire] A": (1280, 1280), "[wire] b": (1280, 100), "rf width": (5000, 5000)}
 TILE = 128
+# the stream's and the heads path's runs in chip_smoke.py (serve_stream,
+# serve_heads at full width): the arrivals, their data and D of FED3R-RF
+STREAM = dict(n_waves=24, rate=4.0, skew=0.0, n_clients=100, d=1280, n_classes=100, seed=0)
+RF_D = 5000
+HEADS_K = 32
+CHOL_RAGGED = (130, 77, 7)  # (d, n, C)
 
 
 def fmt(fn: Callable[[], object]) -> str:
@@ -67,6 +85,96 @@ def host_pieces() -> str:
             fn()
         out.append(f"{name} {1e3 * (time.perf_counter() - t0):.2f} µs")
     return "  ".join(out)
+
+
+def digest(*ts: torch.Tensor) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bits."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def factor(gen: torch.Generator, d: int) -> torch.Tensor:
+    """A well-conditioned lower-triangular (d, d) factor, row-major, as
+    psd_cholesky hands the kernels one (its values do not change their time)."""
+    A = torch.randn((d, d), generator=gen, device=gen.device)
+    return torch.linalg.cholesky(A @ A.T / d + torch.eye(d, device=gen.device)).contiguous()
+
+
+def gram_cases(gen: torch.Generator, stream=STREAM, rf_d=RF_D, heads_k=HEADS_K) -> dict:
+    """The Gram kernels' inputs: label -> (L, Z, Y), Z and Y 3-D for the
+    batched kernel.  The stream wave is the widest wave of ``serve_stream``'s
+    arrivals as its engine hands it to ``chol_gram`` (the masked design of
+    every client slot, padding rows included); the dense wave the same rows
+    with every padding row replaced by a live sample; the stream-rf wave that
+    wave's design through a random-features map of width ``rf_d``; the
+    cohort the first ``heads_k`` tenants padded to the dataset's max_n, as
+    ``serve_heads`` packs a miss list (α = 1)."""
+    from repro_torch.configs.base import Fed3RConfig
+    from repro_torch.core import fed3r
+    from repro_torch.core.random_features import rff_init
+    from repro_torch.data.pipeline import pack_personal_cohort
+    from repro_torch.federated.arrivals import pack_schedule
+    from repro_torch.launch.serve_stream import stream_setup
+
+    dev = gen.device
+    d, C = stream["d"], stream["n_classes"]
+    fed, _, schedule = stream_setup(stream["n_waves"], stream["rate"], stream["skew"],
+                                    stream["n_clients"], d, C, stream["seed"], dev)
+    packed = pack_schedule(fed, schedule)
+    t = int(np.argmax(packed.mask.sum(axis=(1, 2))))
+    x = torch.as_tensor(packed.inputs[t], device=dev).reshape(-1, d)
+    y = torch.as_tensor(packed.labels[t], device=dev).reshape(-1)
+    m = torch.as_tensor(packed.mask[t], device=dev).reshape(-1)
+    z, yh, _ = fed3r.masked_design(x, y, C, m)
+    live = m > 0
+    fill = torch.nonzero(live).reshape(-1)
+    fill = fill[torch.arange(x.shape[0], device=dev) % fill.numel()]
+    zd, yd, _ = fed3r.masked_design(torch.where(live[:, None], x, x[fill]),
+                                    torch.where(live, y, y[fill]), C)
+    params = rff_init(gen, d, rf_d, Fed3RConfig().rff_sigma)
+    zr, _, _ = fed3r.masked_design(ref.rff_ref(x, params.omega, params.beta), y, C, m)
+
+    ids = list(range(heads_k))
+    cohort = pack_personal_cohort(
+        [(fed.client(k).features, fed.client(k).labels) for k in ids], client_ids=ids,
+        cohort_size=heads_k, max_n=int(fed.client_sizes().max()))
+    cm = torch.as_tensor(cohort.mask, device=dev)
+    K, n = cm.shape
+    zc, yc, _ = fed3r.masked_design(torch.as_tensor(cohort.inputs, device=dev).reshape(K * n, d),
+                                    torch.as_tensor(cohort.labels, device=dev).reshape(-1), C,
+                                    cm.reshape(-1))
+    L, Lr = factor(gen, d), factor(gen, rf_d)
+    dr, nr, cr = CHOL_RAGGED
+    Zr = torch.randn((nr, dr), generator=gen, device=dev)
+    Yr = torch.nn.functional.one_hot(
+        torch.randint(0, cr, (nr,), generator=gen, device=dev), cr).to(torch.float32)
+    c = lambda t: t.contiguous()  # noqa: E731
+    return {"stream wave": (L, c(z), c(yh)), "dense wave": (L, c(zd), c(yd)),
+            "stream-rf wave": (Lr, c(zr), c(yh)), "empty wave": (L, z[:0], yh[:0]),
+            "ragged": (factor(gen, dr), Zr, Yr),
+            f"cohort K={K}": (L, c(zc.reshape(K, n, d)), c(yc.reshape(K, n, C)))}
+
+
+def gram_lines(gen: torch.Generator) -> None:
+    sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
+    pick = getattr(chol_update, "pick_tile", None)  # absent from trees before it
+    for label, (L, Z, Y) in gram_cases(gen).items():
+        batched = Z.dim() == 3
+        kernel = ops.batched_chol_gram if batched else ops.chol_gram
+        plain = ref.batched_chol_gram_ref if batched else ref.chol_gram_ref
+        d, n, C = L.shape[0], Z.shape[-2], Y.shape[-1]
+        live = int(Z.ne(0).any(dim=-1).sum())
+        line = (f"[time_kernels] {kernel.__name__} {label} d={d} n={n} ({live} live rows) C={C}"
+                + (f" K={Z.shape[0]}" if batched else ""))
+        if pick is not None:
+            line += (f" tile {pick(d, 0, sms)}/{pick(d, C, sms, Z.shape[0])}" if batched
+                     else f" tile {pick(d, C, sms)}")
+        if label in ("stream wave", "dense wave", "stream-rf wave") or batched:
+            line += (f": kernel {fmt(lambda: kernel(L, Z, Y))} | plain {fmt(lambda: plain(L, Z, Y))}"
+                     f" | stacked torch.matmul {fmt(stacked_gram(L, Z, Y))}")
+        print(f"{line} | (G, B) digest {digest(*kernel(L, Z, Y))}", flush=True)
 
 
 def main() -> int:
@@ -104,6 +212,8 @@ def main() -> int:
                      f"{same} | torch.addcmul on a float q and pre-expanded scales "
                      f"{fmt(lambda: torch.addcmul(acc, qf, se))}")
         print(line, flush=True)
+
+    gram_lines(gen)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -1,5 +1,5 @@
-"""How the port's kernels are timed on the card, and the one-call yardstick
-``dequant_acc`` is held against.
+"""How the port's kernels are timed on the card, and the one-call
+yardsticks ``dequant_acc`` and the Gram kernels are held against.
 
 Shared by ``chip_smoke.py``'s ``[kernel]`` lines and
 :mod:`repro_torch.launch.time_kernels`, so both read a call the same way:
@@ -104,3 +104,22 @@ def broadcast_addcmul(acc: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     tn = min(tile, N)
     a4, q4, s4 = acc.view(Mt, tile, Nt, tn), q.view(Mt, tile, Nt, tn), s.view(Mt, 1, Nt, 1)
     return lambda: torch.addcmul(a4, q4, s4)
+
+
+def stacked_gram(L: torch.Tensor, Z: torch.Tensor,
+                 Y: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """The one ``torch.matmul`` that computes [G | B] = [L Lᵀ + ZᵀZ | ZᵀY]
+    from operands stacked beforehand: [Lᵀ; Z]ᵀ [[Lᵀ | 0]; [Z | Y]], batched
+    over heads where Z (K, n, d) and Y (K, n, C) are 3-D."""
+    d, C = L.shape[0], Y.shape[-1]
+    if Z.dim() == 2:
+        left = torch.cat([L.T, Z], dim=0).T.contiguous()  # (d, d + n)
+        right = torch.cat([torch.cat([L.T, L.new_zeros((d, C))], dim=1),
+                           torch.cat([Z, Y], dim=1)], dim=0)  # (d + n, d + C)
+    else:
+        K = Z.shape[0]
+        LT = L.T.expand(K, d, d)
+        left = torch.cat([LT.transpose(1, 2), Z.transpose(1, 2)], dim=2).contiguous()
+        right = torch.cat([torch.cat([LT, L.new_zeros((K, d, C))], dim=2),
+                           torch.cat([Z, Y], dim=2)], dim=1).contiguous()
+    return lambda: torch.matmul(left, right)

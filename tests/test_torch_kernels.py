@@ -23,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import chol_update as chol_update_mod  # noqa: E402
 from repro_torch.kernels import fed3r_stats as fed3r_stats_mod  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
@@ -229,6 +230,57 @@ def test_fed3r_stats_launch_refuses_a_tile_it_has_no_instance_for():
         fed3r_stats_mod._launch(torch.from_numpy(Z), torch.from_numpy(Y), tile=32)
 
 
+# (d, C, heads, tile): the stream wave at d 1280 (65 blocks of 128 for 132
+# SMs), stream-rf at d 5000, a narrow d, the refit's L Lᵀ sweep (no B
+# tiles) and its 32 heads
+@pytest.mark.parametrize("d,C,heads,tile", [(1280, 100, 1, 64), (5000, 100, 1, 128),
+                                            (64, 100, 1, 64), (1280, 0, 1, 64),
+                                            (1280, 100, 32, 128)])
+def test_chol_gram_picks_the_128_instance_only_where_it_fills_the_card(d, C, heads, tile):
+    assert chol_update_mod.pick_tile(d, C, 132, heads) == tile
+
+
+def test_chol_gram_launches_refuse_a_tile_they_have_no_instance_for():
+    L = torch.eye(8)
+    Z, Y = (torch.from_numpy(a) for a in _inputs(4, 8, 3))
+    with pytest.raises(ValueError, match="tile"):
+        chol_update_mod._launch(L, Z, Y, tile=32)
+    with pytest.raises(ValueError, match="tile"):
+        chol_update_mod._launch_batched(L, Z[None], Y[None], tile=96)
+
+
+def test_time_kernels_gram_cases_are_the_paths_inputs():
+    """The inputs the Gram kernels are timed and digested on: the stream's
+    widest wave with its padding rows, the same rows dense, that wave
+    through a random-features map (−0.0 in its masked rows), an empty
+    wave, a cohort padded to max_n; and the stacked-operand yardstick
+    computes the plain versions' function on each."""
+    from repro_torch.launch import time_kernels
+    from repro_torch.launch.timing import stacked_gram
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cases = time_kernels.gram_cases(gen, rf_d=64, heads_k=4)
+    _, Z, _ = cases["stream wave"]
+    live = Z.ne(0).any(dim=1)
+    assert 0 < int(live.sum()) < Z.shape[0]
+    _, Zd, _ = cases["dense wave"]
+    assert bool(Zd.ne(0).any(dim=1).all()) and torch.equal(Zd[live], Z[live])
+    _, Zr, _ = cases["stream-rf wave"]
+    assert Zr.shape == (Z.shape[0], 64) and torch.equal(Zr.ne(0).any(dim=1), live)
+    assert torch.signbit(Zr[~live]).any()
+    assert cases["empty wave"][1].shape[0] == 0
+    _, Zc, _ = cases["cohort K=4"]
+    assert Zc.dim() == 3 and Zc.shape[0] == 4 and not bool(Zc.ne(0).any(dim=2).all())
+    for label, (L, Z, Y) in cases.items():
+        plain = batched_chol_gram_ref if Z.dim() == 3 else chol_gram_ref
+        G, B = plain(L, Z, Y)
+        R = stacked_gram(L, Z, Y)()
+        d = L.shape[0]
+        _assert_scaled_close(R[..., :d].numpy(), G.numpy())
+        _assert_scaled_close(R[..., d:].numpy(), B.numpy())
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip where there is none (decided at run time)."""
@@ -296,8 +348,39 @@ def test_chol_gram_kernel_on_card(cuda_device, d, n, C):
     assert torch.equal(G, G2) and torch.equal(B, B2)  # no atomics: bitwise repeatable
 
 
+def _masked_runs(Z, Y, seed):
+    """Z and Y with rows masked to zero in runs, as a padded wave or cohort:
+    a negative feature times a mask of 0 leaves −0.0."""
+    r = np.random.default_rng(seed)
+    m = np.ones(Z.shape[0], np.float32)
+    k = 0
+    while k < len(m):
+        live, dead = int(r.integers(1, 24)), int(r.integers(0, 48))
+        m[k + live:k + live + dead] = 0.0
+        k += live + dead
+    return Z * m[:, None], Y * m[:, None]
+
+
+def _compacted(Z, Y):
+    """The live rows of a masked (n, d) Z and (n, C) Y, in order."""
+    live = Z.ne(0).any(dim=1) | Y.ne(0).any(dim=1)
+    return Z[live].contiguous(), Y[live].contiguous()
+
+
+def _factor(d, seed, device):
+    r = np.random.default_rng(seed)
+    A = r.normal(size=(d, d))
+    return torch.from_numpy(np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32)).to(
+        device)
+
+
+# the heads path's cohort: 32 tenants padded to the dataset's max_n of 136
+HEADS_COHORT = (32, 1280, 136, 100)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,d,n,C", [(8, 1280, 136, 100), (3, 130, 77, 7), (2, 64, 0, 5)])
+@pytest.mark.parametrize("K,d,n,C", [(8, 1280, 136, 100), (3, 130, 77, 7), (2, 64, 0, 5),
+                                     HEADS_COHORT])
 def test_batched_chol_gram_kernel_on_card(cuda_device, K, d, n, C):
     torch.backends.cuda.matmul.allow_tf32 = False
     r = np.random.default_rng(7)
@@ -305,6 +388,9 @@ def test_batched_chol_gram_kernel_on_card(cuda_device, K, d, n, C):
     L = torch.from_numpy(np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32))
     Z = np.stack([_inputs(n, d, C, seed=8 + k)[0] for k in range(K)])
     Y = np.stack([_inputs(n, d, C, seed=8 + k)[1] for k in range(K)])
+    if (K, d, n, C) == HEADS_COHORT:  # padded as a refit's cohort is
+        Z, Y = zip(*(_masked_runs(Z[k], Y[k], seed=9 + k) for k in range(K)))
+        Z, Y = np.stack(Z), np.stack(Y)
     L, Zc, Yc = L.to(cuda_device), torch.from_numpy(Z).to(cuda_device), torch.from_numpy(Y).to(cuda_device)
     before, single = batched_chol_gram.launches, chol_gram.launches
     G, B = batched_chol_gram(L, Zc, Yc)
@@ -320,6 +406,65 @@ def test_batched_chol_gram_kernel_on_card(cuda_device, K, d, n, C):
     for k in range(K):  # one tile loop: each head is the single update, bitwise
         Gk, Bk = chol_gram(L, Zc[k], Yc[k])
         assert torch.equal(G[k], Gk) and torch.equal(B[k], Bk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("d,n,C", [(1280, 1088, 100), (130, 300, 7), (63, 77, 1)])
+def test_chol_gram_padding_rows_change_no_bit_on_card(cuda_device, d, n, C, tile):
+    """Zero rows interleaved in runs (−0.0 included) give G and B bitwise
+    equal to the same live rows compacted: skipped all-zero panels and
+    multiplied zero rows both leave every fmaf chain as it was."""
+    Z, Y = _masked_runs(*_inputs(n, d, C, seed=15), seed=16)
+    assert np.signbit(Z[~Z.any(axis=1)]).any()
+    L = _factor(d, 17, cuda_device)
+    Zc, Yc = torch.from_numpy(Z).to(cuda_device), torch.from_numpy(Y).to(cuda_device)
+    G, B = chol_update_mod._launch(L, Zc, Yc, tile=tile)
+    Gc, Bc = chol_update_mod._launch(L, *_compacted(Zc, Yc), tile=tile)
+    assert torch.equal(G, Gc) and torch.equal(B, Bc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("K,d,n,C", [HEADS_COHORT, (3, 130, 150, 7)])
+def test_batched_chol_gram_padding_rows_change_no_bit_on_card(cuda_device, K, d, n, C, tile):
+    """Each head's masked rows (−0.0 included) against its live rows moved
+    to the front, the cohort cut to the widest head's live rows."""
+    Z, Y = zip(*(_masked_runs(*_inputs(n, d, C, seed=18 + k), seed=40 + k) for k in range(K)))
+    Zc = torch.from_numpy(np.stack(Z)).to(cuda_device)
+    Yc = torch.from_numpy(np.stack(Y)).to(cuda_device)
+    L = _factor(d, 19, cuda_device)
+    live = [_compacted(Zc[k], Yc[k]) for k in range(K)]
+    w = max(z.shape[0] for z, _ in live)
+    Zp, Yp = Zc.new_zeros((K, w, d)), Yc.new_zeros((K, w, C))
+    for k, (z, y) in enumerate(live):
+        Zp[k, :z.shape[0]], Yp[k, :y.shape[0]] = z, y
+    G, B = chol_update_mod._launch_batched(L, Zc, Yc, tile=tile)
+    Gp, Bp = chol_update_mod._launch_batched(L, Zp, Yp, tile=tile)
+    assert w < n and torch.equal(G, Gp) and torch.equal(B, Bp)
+
+
+# the edges of both Gram instances: d below, at and across a tile, d % 4 != 0
+# (the 4-byte copies), the path's width; an empty wave, one row, n not a
+# multiple of the 16-row panel; C = 1, C % 4 != 0, the path's classes
+GRAM_EDGES = [(d, n, C) for d in (1, 63, 130, 1280) for n in (0, 1, 77) for C in (1, 7, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n,C", GRAM_EDGES)
+def test_chol_gram_instances_agree_bitwise_on_card(cuda_device, d, n, C):
+    Z, Y = _inputs(n, d, C, seed=20)
+    Zc, Yc = torch.from_numpy(Z).to(cuda_device), torch.from_numpy(Y).to(cuda_device)
+    L = _factor(d, 21, cuda_device)
+    G, B = chol_update_mod._launch(L, Zc, Yc, tile=64)
+    G2, B2 = chol_update_mod._launch(L, Zc, Yc, tile=128)
+    assert torch.equal(G, G2) and torch.equal(B, B2) and torch.equal(G, G.T)
+    if n == 0:
+        assert not B.any()
+    Gb, Bb = chol_update_mod._launch_batched(L, Zc[None], Yc[None], tile=128)
+    Gb2, Bb2 = chol_update_mod._launch_batched(L, Zc[None], Yc[None], tile=64)
+    assert torch.equal(Gb[0], G) and torch.equal(Bb[0], B)
+    assert torch.equal(Gb2[0], G) and torch.equal(Bb2[0], B)
 
 
 @pytest.mark.gpu

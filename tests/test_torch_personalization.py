@@ -136,6 +136,29 @@ def test_batched_chol_gram_ref_and_cpu_path_match_reference_kernel(K, n, d, c):
     assert batched_chol_gram.launches == before  # the CPU runs the plain version
 
 
+@pytest.mark.parametrize("K,n,d,c", [(3, 136, 24, 5), (2, 129, 65, 7)])
+def test_batched_chol_gram_plain_version_matches_reference_kernel_on_masked_heads(K, n, d, c):
+    """A refit's heads as the engine hands them over: padding rows zero in
+    runs, −0.0 where a negative feature met a mask of 0."""
+    L, Z, Y = _batched_inputs(K, n, d, c, seed=5)
+    r = np.random.default_rng(6)
+    m = np.ones((K, n), np.float32)
+    for k in range(K):
+        i = 0
+        while i < n:
+            live, dead = int(r.integers(1, 12)), int(r.integers(0, 40))
+            m[k, i + live:i + live + dead] = 0.0
+            i += live + dead
+    Z, Y = Z * m[..., None], Y * m[..., None]
+    assert np.signbit(Z[m == 0]).any()
+    Gp, Bp = batched_chol_gram_pallas(jnp.asarray(L), jnp.asarray(Z), jnp.asarray(Y),
+                                      interpret=True)
+    for fn in (batched_chol_gram_ref, batched_chol_gram):
+        G, B = fn(_t(L), _t(Z), _t(Y))
+        _close(G.numpy(), Gp, STATS_REL)
+        _close(B.numpy(), Bp, STATS_REL)
+
+
 def test_batched_chol_gram_validates_inputs():
     L, Z, Y = (_t(a) for a in _batched_inputs(2, 5, 8, 3))
     with pytest.raises(TypeError):

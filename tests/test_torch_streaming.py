@@ -136,6 +136,35 @@ def test_chol_gram_ref_and_cpu_path_match_reference_kernel(d, n, c):
         _close(B.numpy(), Br, STATS_REL)
 
 
+def _masked_wave(d, n, c, seed):
+    """A wave as the engine hands it over: padding rows zero in runs, the
+    negative features of a masked row -0.0 (a feature times a mask of 0)."""
+    L, X, Y = _chol_inputs(d, n, c, seed)
+    r = np.random.default_rng(seed + 1)
+    m = np.ones(n, np.float32)
+    k = 0
+    while k < n:
+        live, dead = int(r.integers(1, 12)), int(r.integers(0, 40))
+        m[k + live:k + live + dead] = 0.0
+        k += live + dead
+    return L, X * m[:, None], Y * m[:, None], m
+
+
+@pytest.mark.parametrize("d,n,c", [(24, 150, 5), (65, 129, 7)])
+def test_chol_gram_plain_version_matches_reference_kernel_on_a_masked_wave(d, n, c):
+    L, Z, Y, m = _masked_wave(d, n, c, seed=3)
+    assert np.signbit(Z[m == 0]).any() and (m == 0).sum() >= 32  # −0.0 rows, runs of padding
+    Gr, Br = chol_gram_pallas(jnp.asarray(L), jnp.asarray(Z), jnp.asarray(Y), interpret=True)
+    live = m > 0
+    Gc, Bc = chol_gram_ref(_t(L), _t(Z[live]), _t(Y[live]))  # the live rows alone
+    for fn in (chol_gram_ref, chol_gram):
+        G, B = fn(_t(L), _t(Z), _t(Y))
+        _close(G.numpy(), Gr, STATS_REL)
+        _close(B.numpy(), Br, STATS_REL)
+        _close(G.numpy(), Gc.numpy(), STATS_REL)
+        _close(B.numpy(), Bc.numpy(), STATS_REL)
+
+
 def test_chol_gram_empty_batch_is_the_pure_reconstruction():
     L, _, _ = _chol_inputs(16, 0, 4, seed=1)
     before = chol_gram.launches
