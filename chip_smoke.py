@@ -88,7 +88,12 @@ counts just after.
                 row's log-sum-exp, written by the kernel, within 1e-5 of an
                 fp32 logsumexp, a limit that an emulated early rounding of
                 p must exceed; fed3r_stats also exactly symmetric at every
-                shape and bitwise repeatable at the rf shape; chol_gram's
+                shape and bitwise repeatable at the rf shape; rff bitwise
+                repeatable, its two instances bitwise each other at the
+                paths' and edge shapes, and psi(Z[perm]) == psi(Z)[perm],
+                psi(Z[:k]) == psi(Z)[:k] at the rf shard and the stream
+                wave; quantize_tiles bitwise at edge shapes under every
+                cluster size, x aligned or not; chol_gram's
                 stream and stream-rf waves and batched_chol_gram's widest
                 cohort also bitwise equal to their live rows compacted, with
                 the instance that ran), and at each
@@ -96,8 +101,8 @@ counts just after.
                 call, and the device time alone of kernel and library call
                 (a CUDA graph of the calls replayed) beside the call time
                 (flash attention at the serve, long and hd-256 shapes;
-                dequant_acc also at 5000 x 5000, where no one PyTorch call
-                computes it).
+                quantize_tiles and dequant_acc also at 5000 x 5000, where
+                no one PyTorch call computes them).
 
 The device-time breakdown of the slice is a separate command,
 ``python -m repro_torch.launch.profile_slice``.
@@ -142,6 +147,19 @@ KERNEL_SHAPES_RAGGED = [(513, 1281, 37), (64, 32, 5)]
 # its plain version within 1e-5 of that bound
 RFF_REL = 1e-5
 RFF_SHAPES_RAGGED = [(37, 100, 130)]
+# both rff instances give the same bits (one fmaf chain an element in k
+# order, whichever thread runs it), each within RFF_REL of the plain
+# version: one sample, d % 4 != 0, D % 4 != 0, d < 16 (the paths' shapes:
+# rff_placement)
+RFF_EDGES = [(1, 37, 130), (37, 130, 130), (130, 37, 4999), (5, 7, 64), (300, 12, 4999)]
+# quantize_tiles against its plain version, bitwise, at every cluster size,
+# with x aligned and 4 bytes past a 16-byte boundary, the first and last
+# tile all zero: tile 1 (single elements), 16 (runs of 16), 64 with
+# N % 16 != 0 (runs of 4), the wire's A and b at tile 128 (runs of 16 and
+# of 4), tile 200 (runs of 4, ragged both ways), N % 4 != 0 with a ragged
+# last tile (single elements)
+QUANT_EDGES = [(7, 5, 1), (100, 96, 16), (130, 100, 64), (1280, 1280, 128), (1280, 100, 128),
+               (450, 600, 200), (33, 190, 128), (129, 77, 16)]
 CHOL_SHAPES_RAGGED = [(130, 77, 7)]
 BATCHED_SHAPES_RAGGED = [(3, 130, 77, 7)]  # (K, d, n, C)
 # the streaming path: the reference driver's own dataset at full width
@@ -491,28 +509,62 @@ def rff_check(torch, ops, ref, Z, omega, beta, label) -> float:
     torch.cuda.synchronize()
     err = float((out - ref.rff_ref(Z, omega, beta)).abs().max())
     limit = RFF_REL * math.sqrt(2.0 / D)
+    repeatable = bool(torch.equal(out, ops.rff_transform(Z, omega, beta)))
     log(f"[kernel] rff {label} n={Z.shape[0]} d={Z.shape[1]} D={D}: max|dpsi| {err:.3e} "
-        f"(limit {RFF_REL:g}*sqrt(2/D) = {limit:.3e})  repeatable "
-        f"{bool(torch.equal(out, ops.rff_transform(Z, omega, beta)))}")
+        f"(limit {RFF_REL:g}*sqrt(2/D) = {limit:.3e})  repeatable {repeatable}")
     if not err <= limit:
         raise AssertionError(f"rff disagrees with its plain version at {tuple(Z.shape)}, D={D}")
+    if not repeatable:  # no atomics, no split-K: a second launch gives the same bits
+        raise AssertionError(f"rff is not bitwise repeatable at {tuple(Z.shape)}, D={D}")
     return err
+
+
+def rff_placement(torch, ops, rff_mod, Z, omega, beta, label) -> None:
+    """psi of a sample row is the same bits wherever the row sits in Z and
+    whatever n is (Z permuted, Z cut to a prefix), and both instances give
+    the same bits: the chain the rf and streaming engines' invariance to
+    the order of clients and arrivals rests on."""
+    n, D = Z.shape[0], omega.shape[1]
+    psi = ops.rff_transform(Z, omega, beta)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    permuted = bool(torch.equal(ops.rff_transform(Z[perm].contiguous(), omega, beta), psi[perm]))
+    prefixes = [k for k in (1, 77, n // 2 + 3) if k <= n]
+    prefix = all(bool(torch.equal(ops.rff_transform(Z[:k].contiguous(), omega, beta), psi[:k]))
+                 for k in prefixes)
+    both = all(bool(torch.equal(rff_mod._launch(Z, omega, beta, tile=t), psi)) for t in (64, 128))
+    sms = sm_count(torch)
+    log(f"[kernel] rff {label} n={n} D={D} (instance {rff_mod.pick_tile(n, D, sms)}): "
+        f"psi(Z[perm]) == psi(Z)[perm] {permuted}, psi(Z[:k]) == psi(Z)[:k] at k {prefixes} "
+        f"{prefix}, both instances bitwise {both}")
+    if not (permuted and prefix and both):
+        raise AssertionError(f"rff's rows depend on their place or instance at {label}")
 
 
 def phase_kernel_rff(torch, ops, ref, rf_shard, stream_wave, omega, beta) -> dict:
     """rff at the RF path's shard, the stream's wave and a ragged shape;
     times at the shard shape (no single PyTorch call computes psi: the
     GEMM alone, torch.addmm, is printed beside it)."""
+    from repro_torch.kernels import rff as rff_mod
+
     abs_err = max(rff_check(torch, ops, ref, rf_shard, omega, beta, "rf shard"),
                   rff_check(torch, ops, ref, stream_wave, omega, beta, "stream wave"))
+    rff_placement(torch, ops, rff_mod, rf_shard, omega, beta, "rf shard")
+    rff_placement(torch, ops, rff_mod, stream_wave, omega, beta, "stream wave")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(30)
-    for n, d, D in RFF_SHAPES_RAGGED:
+    for n, d, D in RFF_SHAPES_RAGGED + RFF_EDGES:
         # arguments over about [-3, 2*pi + 3]: the product's error matters
         Z = torch.randn((n, d), generator=gen, device="cuda")
         om = torch.randn((d, D), generator=gen, device="cuda") / math.sqrt(d)
         be = torch.rand((D,), generator=gen, device="cuda") * (2.0 * math.pi)
         abs_err = max(abs_err, rff_check(torch, ops, ref, Z, om, be, "ragged"))
+        psi = {t: rff_mod._launch(Z, om, be, tile=t) for t in (64, 128)}
+        same = bool(torch.equal(psi[64], psi[128]))
+        log(f"[kernel] rff n={n} d={d} D={D}: both instances bitwise {same}")
+        if not same:
+            raise AssertionError(f"rff's instances disagree at n={n}, d={d}, D={D}")
     out = {}
     for label, Z in (("rf shard", rf_shard), ("stream wave", stream_wave)):
         n, d = Z.shape
@@ -1470,6 +1522,32 @@ def quant_check(torch, ops, ref, x, acc, tile, label) -> float:
     return float((out - outr).abs().max())
 
 
+def quant_edges(torch, ref, gen) -> None:
+    """quantize_tiles at QUANT_EDGES, every cluster size, x aligned and not:
+    q and the scales bitwise the plain version's."""
+    from repro_torch.kernels import quant as quant_mod
+
+    for M, N, tile in QUANT_EDGES:
+        x0 = torch.randn((M, N), generator=gen, device="cuda") * 10.0
+        x0[:tile, :tile] = 0.0
+        x0[(-(-M // tile) - 1) * tile:, (-(-N // tile) - 1) * tile:] = 0.0
+        for offset in (0, 1):
+            flat = torch.zeros(M * N + offset, device="cuda")
+            flat[offset:] = x0.reshape(-1)
+            x = flat[offset:].view(M, N)
+            qr, sr = ref.quantize_tiles_ref(x, tile)
+            same = []
+            for cluster in quant_mod.CLUSTERS:
+                q, s = quant_mod._quantize(x, tile, cluster=cluster)
+                same.append(bool(torch.equal(q, qr) and torch.equal(s, sr)))
+            log(f"[kernel] quantize_tiles ({M}, {N}) tile {tile}, x {4 * offset} bytes past a "
+                f"16-byte boundary: bitwise the plain version at clusters "
+                f"{quant_mod.CLUSTERS}: {same}")
+            if not all(same):
+                raise AssertionError(f"quantize_tiles disagrees with its plain version at "
+                                     f"({M}, {N}) tile {tile}")
+
+
 def phase_kernel_quant(torch, ops, ref, case) -> dict:
     """quantize_tiles and dequant_acc at the uplink's shapes (A 1280 x 1280
     and b 1280 x 100 at tile 128, from the [wire] path), at the RF width
@@ -1499,6 +1577,12 @@ def phase_kernel_quant(torch, ops, ref, case) -> dict:
     if not even or int(tie.sum()) != hx.numel() - 6:
         raise AssertionError("quantize_tiles does not round half to even")
     err = max(err, quant_check(torch, ops, ref, hx, torch.zeros_like(hx), 128, "half-way"))
+    for ulps in (-2, -1, 1, 2):  # near-ties: the kernel's product by fl(1/s) must defer
+        hn = hx
+        for _ in range(abs(ulps)):
+            hn = torch.nextafter(hn, torch.full_like(hn, math.copysign(math.inf, ulps)))
+        quant_check(torch, ops, ref, hn, torch.zeros_like(hn), 128, f"half-way {ulps:+d} ulp")
+    quant_edges(torch, ref, gen)
 
     out = {}
     for name in ("A", "b"):
@@ -1537,8 +1621,12 @@ def phase_kernel_quant(torch, ops, ref, case) -> dict:
     x = torch.randn((M, N), generator=gen, device="cuda")
     acc = torch.randn((M, N), generator=gen, device="cuda")
     q, s = ops.quantize_tiles(x)
-    log(f"[kernel] at ({M}, {N}) tile 128: quantize_tiles {cuda_ms(lambda: ops.quantize_tiles(x)):.4f} "
-        f"ms (bound {bound(6.0 * M * N, 5.0 * M * N)['bound_ms']:.4f})")
+    b5 = bound(6.0 * M * N, 5.0 * M * N + 4.0 * 40 * 40)
+    dev_q5 = device_ms(lambda: ops.quantize_tiles(x))
+    log(f"[kernel] quantize_tiles ({M}, {N}) tile 128: kernel_ms "
+        f"{cuda_ms(lambda: ops.quantize_tiles(x)):.4f}  device_ms {dev_q5:.4f}  bound_ms "
+        f"{b5['bound_ms']:.4f} by {b5['bound_by']} = {100 * b5['bound_ms'] / dev_q5:.1f}% of the "
+        f"bound in device_ms")
     timed("dequant_acc", f"({M}, {N}) tile 128", lambda: ops.dequant_accumulate(acc, q, s),
           lambda: ref.dequant_acc_ref(acc, q, s, 128), broadcast_addcmul(acc, q, s, 128),
           "library_ms none (tile 128 does not divide 5000: no one PyTorch call computes it at "

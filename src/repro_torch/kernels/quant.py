@@ -6,11 +6,16 @@ package, the two ends of the compressed uplink
 (:mod:`repro_torch.federated.compress`):
 
 * the CUDA C++ kernels, ``csrc/quant.cu`` (design notes there), both
-  bound by bytes (5 and 9 bytes an element).  ``quantize_tiles``, one
-  block per tile, takes the tile's absmax, writes its scale
-  s = max|x|·fl(1/127) (1 for an all-zero tile) and the payload
-  q = clip(rne(x / s), ±127).  ``dequant_accumulate`` writes
-  fma(q, s, acc) over runs of 16 (or 4) consecutive elements of a row, one
+  bound by bytes (5 and 9 bytes an element).  ``quantize_tiles`` takes
+  each tile's absmax, writes its scale s = max|x|·fl(1/127) (1 for an
+  all-zero tile) and the payload q = clip(rne(x / s), ±127), reading x
+  once: a thread-block cluster a tile (:func:`pick_cluster`), each block a
+  slab of the tile's rows held in registers, the blocks' maxima exchanged
+  through distributed shared memory, 16-byte loads and stores where the
+  shape and pointers allow; the payload rounds x·fl(1/s) where that
+  provably gives the integer of x / s, and divides where it might not.
+  ``dequant_accumulate`` writes fma(q, s, acc) over runs of 16 (or 4)
+  consecutive elements of a row, one
   wide load of q and float4 loads and stores, each run's scale read once;
   a scalar path takes rows whose width is not a multiple of 4 and
   pointers not aligned to 16 bytes (the launch function picks the path
@@ -42,9 +47,12 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import dequant_acc_ref, quantize_tiles_ref
 
 TILE = 128  # absmax granularity: one fp32 scale per (TILE, TILE) block
+CLUSTERS = (1, 2, 4, 8)  # quantize_tiles' blocks a tile: the portable cluster sizes
+QUANT_THREADS = 128  # quantize_tiles' block
+HELD = 64  # floats of x a quantize_tiles thread can keep in registers
 
 LIBRARY = _build.CudaLibrary("quant", {
-    "quantize_tiles_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "quantize_tiles_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                               ctypes.c_int),
     "dequant_acc_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                            ctypes.c_int),
@@ -106,6 +114,37 @@ def _launch_ready(x: torch.Tensor, tile: int, what: str) -> int:
     return _build.require_hopper(x.device, what)
 
 
+def pick_cluster(tiles: int, tile: int, sms: int) -> int:
+    """``quantize_tiles``' blocks a tile for ``tiles`` tiles of ``tile`` × ``tile``
+    on a card of ``sms`` SMs: the smallest of :data:`CLUSTERS` whose blocks
+    fill the card four times over and whose slabs fit what the blocks hold
+    (:data:`HELD` floats a thread), but no more blocks than a tile has rows."""
+    for c in CLUSTERS:
+        if 2 * c > tile or (tiles * c >= 4 * sms and tile * tile <= c * QUANT_THREADS * HELD):
+            return c
+    return CLUSTERS[-1]
+
+
+def _quantize(x: torch.Tensor, tile: int, cluster: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the quantize kernel; ``cluster`` 1, 2, 4 or 8 forces the blocks
+    a tile, 0 lets :func:`pick_cluster` choose."""
+    if cluster != 0 and cluster not in CLUSTERS:
+        raise ValueError(f"quantize_tiles: cluster must be 0 or one of {CLUSTERS}, got {cluster!r}")
+    M, N = x.shape
+    sms = _launch_ready(x, tile, "quantize_tiles")
+    grid = _grid(M, N, tile)
+    q = torch.empty((M, N), dtype=torch.int8, device=x.device)
+    scales = torch.empty(grid, dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return q, scales
+    err = _build.launch(x.device, LIBRARY.function("quantize_tiles_launch"), x.data_ptr(),
+                        q.data_ptr(), scales.data_ptr(), M, N, tile,
+                        cluster or pick_cluster(grid[0] * grid[1], tile, sms))
+    LIBRARY.check(err, "quantize_tiles")
+    quantize_tiles.launches += 1
+    return q, scales
+
+
 def quantize_tiles(x: torch.Tensor, tile: int = TILE) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tile absmax int8 quantization of x (M, N) fp32: ``(q, scales)``.
 
@@ -119,17 +158,7 @@ def quantize_tiles(x: torch.Tensor, tile: int = TILE) -> Tuple[torch.Tensor, tor
         return quantize_tiles_ref(x, tile)
     if x.device.type != "cuda":
         raise RuntimeError(f"quantize_tiles: no kernel for device {x.device}")
-    M, N = x.shape
-    _launch_ready(x, tile, "quantize_tiles")
-    q = torch.empty((M, N), dtype=torch.int8, device=x.device)
-    scales = torch.empty(_grid(M, N, tile), dtype=torch.float32, device=x.device)
-    if M == 0 or N == 0:
-        return q, scales
-    err = _build.launch(x.device, LIBRARY.function("quantize_tiles_launch"), x.data_ptr(),
-                        q.data_ptr(), scales.data_ptr(), M, N, tile)
-    LIBRARY.check(err, "quantize_tiles")
-    quantize_tiles.launches += 1
-    return q, scales
+    return _quantize(x, tile)
 
 
 def dequant_accumulate(

@@ -1,5 +1,6 @@
-"""Time ``fed3r_stats``, ``dequant_acc``, ``chol_gram`` and
-``batched_chol_gram``: each wrapper call against its device work alone.
+"""Time ``fed3r_stats``, ``dequant_acc``, ``chol_gram``,
+``batched_chol_gram``, ``rff`` and ``quantize_tiles``: each wrapper call
+against its device work alone.
 
     PYTHONPATH=src python -m repro_torch.launch.time_kernels
 
@@ -9,21 +10,26 @@ shapes; ``dequant_acc`` at the uplink's A and b and at 5000 x 5000, tile
 128; ``chol_gram`` at the stream's widest wave as the path packs it,
 padding rows included, at a dense wave of the same rows, and at that
 wave's design at D = 5000; ``batched_chol_gram`` at a K = 32 cohort of the
-heads path, padded to its max_n), three readings
+heads path, padded to its max_n; ``rff`` at FED3R-RF's shard and at the
+stream's widest wave, D = 5000, beside ``torch.addmm``'s GEMM alone, which
+computes no cos; ``quantize_tiles`` at the uplink's A and b and at
+5000 x 5000), three readings
 (:mod:`repro_torch.launch.timing`) of the kernel and of the one PyTorch
 call that computes the same function: ``call_ms`` (back-to-back calls,
 ``chip_smoke.py``'s ``kernel_ms``), ``device_ms`` (a CUDA graph of the
 calls replayed) and ``host_us`` (the host clock a call), which only this
-script reads.  The Gram kernels are also read beside their plain versions,
-and each Gram line ends in a digest of the (G, B) bits, so two trees' runs
-in one call show whether their kernels agree bitwise (at the timed shapes,
-an empty wave and a ragged one).  Beside them the host cost of the torch
+script reads.  The Gram kernels, ``rff`` and ``quantize_tiles`` are also
+read beside their plain versions, and each of their lines ends in a digest
+of the output's bits ((G, B), ψ, (q, s)), so two trees' runs in one call
+show whether their kernels agree bitwise (at the timed shapes and at
+ragged ones).  Beside them the host cost of the torch
 calls a launch path may pay (the capability query, the current stream, the
 device guard, one ``torch.empty``).
 
 It calls the kernels only through ``repro_torch.kernels.ops`` (and names
-the Gram instance through ``chol_update.pick_tile`` where the tree has
-one), so a copy of this file and ``timing.py`` in another tree's
+the Gram, ``rff`` and ``quantize_tiles`` instances through
+``chol_update.pick_tile``, ``rff.pick_tile`` and ``quant.pick_cluster``
+where the tree has them, timing ``rff``'s other instance too), so a copy of this file and ``timing.py`` in another tree's
 ``src/repro_torch/launch/`` reads that tree's wrappers the same way (an
 A/B in one chip call).
 
@@ -41,7 +47,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.kernels import chol_update, ops, ref
+from repro_torch.kernels import chol_update, ops, quant, ref
+from repro_torch.kernels import rff as rff_mod
 from repro_torch.launch.timing import broadcast_addcmul, cuda_ms, device_ms, host_us, stacked_gram
 
 STATS_SHAPES = {"slice": (104, 1280, 100), "simulator": (512, 1280, 100), "rf": (512, 5000, 100)}
@@ -53,6 +60,9 @@ STREAM = dict(n_waves=24, rate=4.0, skew=0.0, n_clients=100, d=1280, n_classes=1
 RF_D = 5000
 HEADS_K = 32
 CHOL_RAGGED = (130, 77, 7)  # (d, n, C)
+RFF_SHARD = (5120, 1280)  # FED3R-RF's shard: 10 clients of capacity 512, d = 1280
+RFF_RAGGED = [(37, 130, 130), (1, 37, 4999)]  # (n, d, D), digests only
+QUANT_RAGGED = [(33, 190, 128), (129, 77, 16), (450, 600, 200)]  # (M, N, tile), digests only
 
 
 def fmt(fn: Callable[[], object]) -> str:
@@ -157,10 +167,11 @@ def gram_cases(gen: torch.Generator, stream=STREAM, rf_d=RF_D, heads_k=HEADS_K) 
             f"cohort K={K}": (L, c(zc.reshape(K, n, d)), c(yc.reshape(K, n, C)))}
 
 
-def gram_lines(gen: torch.Generator) -> None:
+def gram_lines(gen: torch.Generator) -> dict:
     sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
     pick = getattr(chol_update, "pick_tile", None)  # absent from trees before it
-    for label, (L, Z, Y) in gram_cases(gen).items():
+    cases = gram_cases(gen)
+    for label, (L, Z, Y) in cases.items():
         batched = Z.dim() == 3
         kernel = ops.batched_chol_gram if batched else ops.chol_gram
         plain = ref.batched_chol_gram_ref if batched else ref.chol_gram_ref
@@ -175,6 +186,60 @@ def gram_lines(gen: torch.Generator) -> None:
             line += (f": kernel {fmt(lambda: kernel(L, Z, Y))} | plain {fmt(lambda: plain(L, Z, Y))}"
                      f" | stacked torch.matmul {fmt(stacked_gram(L, Z, Y))}")
         print(f"{line} | (G, B) digest {digest(*kernel(L, Z, Y))}", flush=True)
+    return cases
+
+
+def rff_lines(gen: torch.Generator, stream_wave: torch.Tensor) -> None:
+    """``rff`` at the rf shard and the stream wave (each instance where the
+    tree can force one), then digests at ragged shapes."""
+    from repro_torch.configs.base import Fed3RConfig
+    from repro_torch.core.random_features import rff_init
+
+    sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
+    pick = getattr(rff_mod, "pick_tile", None)  # absent from trees before it
+    d = RFF_SHARD[1]
+    params = rff_init(gen, d, RF_D, Fed3RConfig().rff_sigma)
+    om, be = params.omega, params.beta
+    shard = torch.randn(RFF_SHARD, generator=gen, device=gen.device)
+    for label, Z in (("rf shard", shard), ("stream wave", stream_wave)):
+        n = Z.shape[0]
+        base = f"[time_kernels] rff {label} n={n} d={d} D={RF_D}"
+        line = base if pick is None else f"{base} tile {pick(n, RF_D, sms)}"
+        print(f"{line}: kernel {fmt(lambda: ops.rff_transform(Z, om, be))} | plain "
+              f"{fmt(lambda: ref.rff_ref(Z, om, be))} | torch.addmm (the GEMM alone, no cos) "
+              f"{fmt(lambda: torch.addmm(be, Z, om))} | psi digest "
+              f"{digest(ops.rff_transform(Z, om, be))}", flush=True)
+        if pick is not None:
+            other = 192 - pick(n, RF_D, sms)
+            print(f"{base} tile {other} (forced): kernel "
+                  f"{fmt(lambda: rff_mod._launch(Z, om, be, tile=other))} | psi digest "
+                  f"{digest(rff_mod._launch(Z, om, be, tile=other))}", flush=True)
+    for n, d, D in RFF_RAGGED:
+        Z = torch.randn((n, d), generator=gen, device=gen.device)
+        om = torch.randn((d, D), generator=gen, device=gen.device) / d ** 0.5
+        be = torch.rand((D,), generator=gen, device=gen.device) * 6.283185307179586
+        print(f"[time_kernels] rff ragged n={n} d={d} D={D}: psi digest "
+              f"{digest(ops.rff_transform(Z, om, be))}", flush=True)
+
+
+def quant_lines(gen: torch.Generator) -> None:
+    """``quantize_tiles`` at the uplink's shapes and 5000 x 5000, then
+    digests at ragged shapes; a zero tile in each."""
+    sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
+    pick = getattr(quant, "pick_cluster", None)  # absent from trees before it
+    shapes = [(label, M, N, TILE) for label, (M, N) in DEQUANT_SHAPES.items()]
+    shapes += [("ragged", M, N, tile) for M, N, tile in QUANT_RAGGED]
+    for label, M, N, tile in shapes:
+        x = torch.randn((M, N), generator=gen, device=gen.device) * 10.0
+        x[:tile, :tile] = 0.0
+        line = f"[time_kernels] quantize_tiles {label} ({M}, {N}) tile {tile}"
+        if pick is not None:
+            line += f" cluster {pick(-(-M // tile) * -(-N // tile), tile, sms)}"
+        if label != "ragged":
+            # the plain version copies fl(1/127) to the card: no CUDA graph, call_ms only
+            line += (f": kernel {fmt(lambda: ops.quantize_tiles(x, tile=tile))} | plain call_ms "
+                     f"{cuda_ms(lambda: ref.quantize_tiles_ref(x, tile)):.4f}")
+        print(f"{line} | (q, s) digest {digest(*ops.quantize_tiles(x, tile=tile))}", flush=True)
 
 
 def main() -> int:
@@ -213,7 +278,13 @@ def main() -> int:
                      f"{fmt(lambda: torch.addcmul(acc, qf, se))}")
         print(line, flush=True)
 
-    gram_lines(gen)
+    cases = gram_lines(gen)
+    # after the Gram lines, on a generator of their own: the lines above keep
+    # their inputs and digests
+    gen2 = torch.Generator(device="cuda")
+    gen2.manual_seed(1)
+    rff_lines(gen2, cases["stream wave"][1])
+    quant_lines(gen2)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

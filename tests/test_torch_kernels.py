@@ -26,6 +26,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import chol_update as chol_update_mod  # noqa: E402
 from repro_torch.kernels import fed3r_stats as fed3r_stats_mod  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
+from repro_torch.kernels import quant as quant_mod  # noqa: E402
+from repro_torch.kernels import rff as rff_mod  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     batched_chol_gram,
     chol_gram,
@@ -247,6 +249,41 @@ def test_chol_gram_launches_refuse_a_tile_they_have_no_instance_for():
         chol_update_mod._launch(L, Z, Y, tile=32)
     with pytest.raises(ValueError, match="tile"):
         chol_update_mod._launch_batched(L, Z[None], Y[None], tile=96)
+
+
+# (n, D, sms, tile): the rf shard (1600 blocks of 128 for 132 SMs), the
+# stream wave (360), a narrow ψ, one sample, the stream wave on a card of
+# many SMs, a small ψ on a card of two
+@pytest.mark.parametrize("n,D,sms,tile", [(5120, 5000, 132, 128), (1088, 5000, 132, 128),
+                                          (37, 130, 132, 64), (1, 4999, 132, 64),
+                                          (1088, 5000, 400, 64), (256, 256, 2, 128)])
+def test_rff_picks_the_128_instance_only_where_it_fills_the_card(n, D, sms, tile):
+    assert rff_mod.pick_tile(n, D, sms) == tile
+
+
+def test_rff_launch_refuses_a_tile_it_has_no_instance_for():
+    Z, omega, beta = torch.zeros((4, 8)), torch.zeros((8, 5)), torch.zeros(5)
+    with pytest.raises(ValueError, match="tile"):
+        rff_mod._launch(Z, omega, beta, tile=32)
+
+
+# (tiles, tile, sms, cluster): the wire's A (1280², 100 tiles) and b
+# (1280 × 100, 10 tiles), the rf width (5000², 1600 tiles: two blocks a
+# tile so a slab fits what a block holds), many small tiles, tile 1 and 2 (no
+# more blocks than rows), the wire's A on a card of 16 SMs, a tile wider
+# than eight blocks hold
+@pytest.mark.parametrize("tiles,tile,sms,cluster", [(100, 128, 132, 8), (10, 128, 132, 8),
+                                                    (1600, 128, 132, 2), (6400, 16, 132, 1),
+                                                    (1, 1, 132, 1), (4, 2, 132, 2),
+                                                    (100, 128, 16, 2), (16, 512, 132, 8)])
+def test_quantize_tiles_picks_the_smallest_cluster_that_fills_the_card(tiles, tile, sms, cluster):
+    assert quant_mod.pick_cluster(tiles, tile, sms) == cluster
+
+
+@pytest.mark.parametrize("cluster", [3, 16, -1])
+def test_quantize_tiles_launch_refuses_a_cluster_it_has_no_instance_for(cluster):
+    with pytest.raises(ValueError, match="cluster"):
+        quant_mod._quantize(torch.zeros((8, 8)), 4, cluster=cluster)
 
 
 def test_time_kernels_gram_cases_are_the_paths_inputs():
@@ -522,6 +559,134 @@ def test_quant_kernels_on_card_equal_their_plain_versions_bitwise(cuda_device, M
     assert torch.equal(q, qr) and torch.equal(s, sr)
     assert float(s[0, 0]) == 1.0 and not q[:tile, :tile].any()
     assert torch.equal(out, dequant_acc_ref(acc, q, s, tile))  # one FMA on both sides
+
+
+# the edges of both rff instances: one sample, d % 4 != 0 (Z's 4-byte
+# copies), D % 4 != 0 (Omega's 4-byte copies and psi's scalar stores),
+# d < 16 (one masked panel), n and D not multiples of 128, and the paths'
+# shapes (the stream wave, the rf shard)
+RFF_EDGES = [(1, 37, 130), (37, 130, 130), (130, 37, 4999), (5, 7, 64), (129, 100, 130),
+             (300, 12, 4999), (1088, 1280, 5000), (5120, 1280, 5000)]
+
+
+def _rff_inputs(n, d, D, device, seed=15):
+    r = np.random.default_rng(seed)
+    Z = torch.from_numpy(r.normal(size=(n, d)).astype(np.float32)).to(device)
+    omega = torch.from_numpy((r.normal(size=(d, D)) / np.sqrt(d)).astype(np.float32)).to(device)
+    beta = torch.from_numpy(r.uniform(0, 2 * np.pi, size=D).astype(np.float32)).to(device)
+    return Z, omega, beta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,D", RFF_EDGES)
+def test_rff_instances_agree_bitwise_on_card(cuda_device, n, d, D):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Z, omega, beta = _rff_inputs(n, d, D, cuda_device)
+    psi = {tile: rff_mod._launch(Z, omega, beta, tile=tile) for tile in (64, 128)}
+    torch.cuda.synchronize()
+    err = float((psi[128] - rff_ref(Z, omega, beta)).abs().max())
+    assert err <= 1e-5 * math.sqrt(2.0 / D)
+    # one fmaf chain an element, in k order, whichever thread runs it
+    assert torch.equal(psi[64], psi[128])
+    assert torch.equal(psi[128], rff_mod._launch(Z, omega, beta, tile=128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,D", [(37, 130, 130), (300, 128, 4999), (1088, 1280, 5000)])
+def test_rff_on_card_takes_inputs_not_aligned_to_16_bytes(cuda_device, n, d, D):
+    """Z and Omega 4 bytes past a 16-byte boundary take the 4-byte copies
+    and give the same bits as aligned copies of them."""
+    Z, omega, beta = _rff_inputs(n, d, D, cuda_device)
+    want = rff_transform(Z, omega, beta)
+
+    def shifted(t):
+        flat = torch.zeros(t.numel() + 1, device=cuda_device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    Zs, omegas = shifted(Z), shifted(omega)
+    assert Zs.data_ptr() % 16 == 4 and omegas.data_ptr() % 16 == 4
+    assert torch.equal(rff_transform(Zs, omega, beta), want)
+    assert torch.equal(rff_transform(Z, omegas, beta), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1088, 5120])
+def test_rff_rows_do_not_depend_on_their_place_on_card(cuda_device, n):
+    """ψ(Z[perm]) == ψ(Z)[perm] and ψ(Z[:k]) == ψ(Z)[:k] bitwise, at the
+    stream wave's and the rf shard's n."""
+    Z, omega, beta = _rff_inputs(n, 1280, 5000, cuda_device, seed=16)
+    psi = rff_transform(Z, omega, beta)
+    perm = torch.from_numpy(np.random.default_rng(17).permutation(n)).to(cuda_device)
+    assert torch.equal(rff_transform(Z[perm].contiguous(), omega, beta), psi[perm])
+    for k in (1, 77, n // 2 + 3):
+        assert torch.equal(rff_transform(Z[:k].contiguous(), omega, beta), psi[:k])
+
+
+# quantize_tiles' edges, each at every cluster size and with x aligned or 4
+# bytes past a 16-byte boundary: tile 1 (single elements), 16 (runs of 16),
+# 64 with N % 16 != 0 (runs of 4), the wire's two shapes, tile 200 (runs of
+# 4, ragged both ways), N % 4 != 0 and a ragged last tile (single
+# elements); the first and the last tile all zero
+QUANT_EDGES = [(7, 5, 1), (100, 96, 16), (130, 100, 64), (1280, 1280, 128), (1280, 100, 128),
+               (450, 600, 200), (33, 190, 128), (129, 77, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_offset", [0, 1])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("M,N,tile", QUANT_EDGES)
+def test_quantize_tiles_edges_on_card_bitwise(cuda_device, M, N, tile, cluster, x_offset):
+    r = np.random.default_rng(18)
+    x0 = (10.0 * r.normal(size=(M, N))).astype(np.float32)
+    x0[:tile, :tile] = 0.0
+    x0[(-(-M // tile) - 1) * tile:, (-(-N // tile) - 1) * tile:] = 0.0
+    flat = torch.zeros(M * N + x_offset, device=cuda_device)
+    flat[x_offset:] = torch.from_numpy(x0).reshape(-1).to(cuda_device)
+    x = flat[x_offset:].view(M, N)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * x_offset
+    before = quantize_tiles.launches
+    q, s = quant_mod._quantize(x, tile, cluster=cluster)
+    torch.cuda.synchronize()
+    assert quantize_tiles.launches == before + 1
+    qr, sr = quantize_tiles_ref(x, tile)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert float(s[0, 0]) == 1.0 and float(s[-1, -1]) == 1.0
+
+
+def _half_way(tiles_down, tiles_across, tile, seed):
+    """x whose every entry but one a tile sits exactly half-way between two
+    integers of its tile's quantization grid (x / s = k + 1/2 exactly)."""
+    r = np.random.default_rng(seed)
+    inv = np.float32(1.0 / 127.0)
+    x = np.empty((tiles_down * tile, tiles_across * tile), np.float32)
+    for i in range(tiles_down):
+        for j in range(tiles_across):
+            while True:  # an absmax whose scale has <= 15 significant bits
+                a = np.float32(r.uniform(1.0, 100.0))
+                s = np.float32(a * inv)
+                if int(s.view(np.uint32)) & 0x1FF == 0:
+                    break
+            k = r.integers(-127, 127, size=(tile, tile))
+            blk = ((k + 0.5) * np.float64(s)).astype(np.float32)
+            blk[0, 0] = a
+            x[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = blk
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ulps", [-2, -1, 0, 1, 2])
+def test_quantize_tiles_on_card_near_half_way_inputs_bitwise(cuda_device, ulps):
+    """Exact ties and inputs 1 or 2 ulps off them: where the kernel's
+    product by fl(1/s) cannot decide the rounding and the division must."""
+    x = torch.from_numpy(_half_way(2, 3, 128, seed=19))
+    toward = torch.full_like(x, math.copysign(math.inf, ulps))
+    for _ in range(abs(ulps)):
+        x = torch.nextafter(x, toward)
+    xc = x.to(cuda_device)
+    q, s = quantize_tiles(xc)
+    qr, sr = quantize_tiles_ref(xc, 128)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
 # the edges of both fed3r_stats instances: d < 64, d not a multiple of 128,
