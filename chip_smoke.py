@@ -20,6 +20,19 @@ counts just after.
 3. simulator -- ``run_fed3r`` / ``run_fedncm`` over 1280-dim features:
                 convergence in ceil(K/kappa) rounds and the federated W
                 against a centralized solve of the pooled statistics.
+   ft        -- FED3R+FT: ``train.run`` on ``fed3r-mnv2-proxy`` with 3
+                fine-tuning rounds (FT-FEAT, FedAvg, 10 clients x 64
+                sequences a local step): fed3r_stats launches equal phase
+                1's client slots, the head stays bitwise the calibrated
+                W_head, the backbone moves, all finite; ms a round, tok/s,
+                peak memory.  Then one full-width round under
+                ``set_sync_debug_mode("error")``, repeated, against
+                ``ReferenceLoop`` within a bf16 bound (a dropped client
+                outside it), no fed3r_stats launch; the smoke width in
+                fp32 card vs CPU; and ``run_fed3r_ft`` on the simulator's
+                set-up for all six algorithms: W bitwise its init under
+                FT-FEAT, a round bitwise under a reversed cohort, stage 2
+                stopped after 2 rounds and resumed bitwise.
 4. rf        -- FED3R-RF: ``run_fed3r`` with D = 5000 random features
                 (sigma = 1000) on the simulator's set-up: rff launches equal
                 the shards folded plus the test-set map, and the federated
@@ -244,6 +257,27 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet, 700 
 # the main path: launch/train.py phase 1 at full width
 SLICE_ARCH = "fed3r-mnv2-proxy"
 SLICE = dict(n_samples=8192, seq_len=128, n_classes=100, n_clients=100, clients_per_round=10)
+# [ft]: phase 2 of launch/train.py on the slice, 3 rounds of FT-FEAT FedAvg,
+# local batches of 64 sequences (10 clients x 2 steps x 64 x 128 tokens)
+FT_ROUNDS = 3
+FT_LOCAL_BATCH = 64
+# one full-width round, RoundEngine (the cohort's local steps vmapped) vs
+# ReferenceLoop (a client at a time): the same math in bf16 activations on
+# other kernels (batched vs single GEMMs), so each client's two SGD steps
+# round apart.  The first card run read 1.68e-4 of max|dtheta| (NVIDIA H100
+# 80GB HBM3); the bound is 12 times that, half a bf16 ulp.  A client's
+# batches dropped from the engine's cohort read 0.676: outside it.
+FT_ROUND_REL = 2e-3
+# the smoke width in fp32, card vs CPU (fp32 reassociation over 2 rounds)
+FT_SMOKE_REL = 1e-4
+FT_SMOKE = dict(n_samples=512, seq_len=32, n_classes=16, n_clients=16, clients_per_round=4,
+                rounds=2, local_batch_size=16)
+# run_fed3r_ft on configs/simulator.py's set-up: 5 rounds of FT-FEAT for
+# each algorithm (the adaptive servers at the reference tests' lr), stopped
+# after 2 and resumed for 3 in a second run
+FT_SIM_ROUNDS, FT_SIM_STOP = 5, 2
+FT_ALGOS = (("fedavg", {}), ("fedavgm", {"server_momentum": 0.9}), ("fedprox", {}),
+            ("scaffold", {}), ("fedadam", {"server_lr": 0.01}), ("fedyogi", {"server_lr": 0.01}))
 
 
 def log(msg: str) -> None:
@@ -401,6 +435,221 @@ def phase_simulator(torch, ops) -> dict:
     max_n = -(-largest // PACK_ROUND_TO) * PACK_ROUND_TO
     return {"launches": launches, "wall_s": wall, "max_n": max_n, "d": d, "C": C,
             "fed": fed, "test": test, "f3": f3, "fc": fc}
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+
+    return list(tree_leaves(tree))
+
+
+def _bitwise(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(x.shape == y.shape and bool((x == y).all())
+                                      for x, y in zip(la, lb))
+
+
+def _dtheta_rel(got, want, start) -> tuple:
+    """(max|(got - start) - (want - start)|, max|want - start|) over all leaves."""
+    err = scale = 0.0
+    for g, w, s0 in zip(_leaves(got), _leaves(want), _leaves(start)):
+        dw = w.float() - s0.float()
+        err = max(err, float(((g.float() - s0.float()) - dw).abs().max()))
+        scale = max(scale, float(dw.abs().max()))
+    return err, scale
+
+
+def phase_ft(torch, ops, sim) -> dict:
+    """Phase 2 (FED3R+FT) of launch/train.py at full width, its round at full
+    width (no host sync; engine vs the per-client loop), the smoke width in
+    fp32 card vs CPU, and run_fed3r_ft for six algorithms at simulator scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.federated.round_engine import ReferenceLoop
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+
+    cfg = get_config(SLICE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    out = train.run(SLICE_ARCH, rounds=FT_ROUNDS, ft_strategy="feat", algorithm="fedavg",
+                    local_batch_size=FT_LOCAL_BATCH, device="cuda", verbose=False, **SLICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts(ops)
+    ft, state = out["ft"], out["ft"]["state"]
+    ms, toks = ft["round_ms"], ft["round_tokens"]
+    log(f"[ft] train.run({SLICE_ARCH!r}, rounds={FT_ROUNDS}, ft_strategy='feat', "
+        f"algorithm='fedavg', local_batch_size={FT_LOCAL_BATCH}): wall {wall:.3f}s  phase 1 "
+        f"acc {out['fed3r_acc']:.4f} T={out['temperature']:g}; FT acc {ft['ft_acc']} at rounds "
+        f"{ft['rounds']}  peak memory {peak / 2**30:.3f} GiB  fed3r_stats launches "
+        f"{counts['fed3r_stats']} for {out['n_slots']} phase-1 client slots")
+    for i, (m, n) in enumerate(zip(ms, toks)):
+        log(f"[ft]   round {i + 1}: {m:.1f} ms (host clock around RoundEngine.step, ending in "
+            f"torch.cuda.synchronize())  {n} real tokens of local training: "
+            f"{n / m * 1e3:,.0f} tok/s")
+    if counts["fed3r_stats"] != out["n_slots"]:
+        raise AssertionError(f"fed3r_stats launched {counts['fed3r_stats']} times for "
+                             f"{out['n_slots']} phase-1 slots")
+    if not torch.equal(state.params["head"]["W"], out["W_head"]):
+        raise AssertionError("FT-FEAT moved the head: it must stay bitwise the calibrated W_head")
+    if _bitwise(state.params["backbone"], out["params0"]):
+        raise AssertionError("the backbone did not move in FT-FEAT's rounds")
+    if not all(bool(torch.isfinite(t).all()) for t in _leaves(state.params)):
+        raise AssertionError("FT params are not finite")
+
+    # One full-width round (FT, FedAvg): under sync-debug "error", repeated,
+    # against ReferenceLoop, and with a client's batches dropped.  The head
+    # is drawn 0.01 N(0, 1): the calibrated one fits the training clients
+    # so closely that the round's gradients nearly vanish.
+    params0, n_classes = out["params0"], SLICE["n_classes"]
+    del out, ft, state
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    ds = make_token_dataset(gen, SLICE["n_samples"], SLICE["seq_len"], cfg.vocab_size, n_classes)
+    clients = train.FtClients(ds, SLICE["n_clients"], SLICE["clients_per_round"], FT_LOCAL_BATCH)
+    engine = train.ft_engine(cfg, params0, n_clients=SLICE["n_clients"], ft_strategy="full")
+    gen.manual_seed(2)
+    head = {"W": 0.01 * torch.randn((cfg.d_feat, n_classes), generator=gen, device="cuda"),
+            "b": torch.zeros((n_classes,), device="cuda")}
+    s0 = engine.init({"backbone": params0, "head": head})
+    cohort = clients.cohort(0).to("cuda")
+    reset_counts(ops)
+    s1 = engine.step(s0, cohort)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s1b = engine.step(s0, cohort)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    round_ms = 1e3 * (time.perf_counter() - t0)
+    round_peak = torch.cuda.max_memory_allocated()
+    repeat = _bitwise(s1b.params, s1.params)
+    rep_err, _ = _dtheta_rel(s1b.params, s1.params, s0.params)
+    loop = ReferenceLoop(engine.cfg, steps.make_cls_per_example_loss(cfg), engine.freeze)
+    sl = loop.step(s0, cohort)
+    err, scale = _dtheta_rel(s1.params, sl.params, s0.params)
+    dropped = cohort._replace(mask=cohort.mask.clone())
+    dropped.mask[0].zero_()
+    sf = engine.step(s0, dropped)
+    ferr, _ = _dtheta_rel(sf.params, sl.params, s0.params)
+    counts = read_counts(ops)
+    log(f"[ft] full-width round (FT, FedAvg, {cohort.cohort} clients x {cohort.mask.shape[1]} "
+        f"steps x {FT_LOCAL_BATCH} x {SLICE['seq_len']} tokens) under set_sync_debug_mode('error'): "
+        f"{round_ms:.1f} ms, peak memory {round_peak / 2**30:.3f} GiB; repeated: "
+        f"{'bitwise' if repeat else f'max|d dtheta| {rep_err:.3e}'}; RoundEngine vs "
+        f"ReferenceLoop max|d dtheta|/max|dtheta| {err / scale:.4e} (limit {FT_ROUND_REL:.4e}; "
+        f"max|dtheta| {scale:.4e}); client slot 0 dropped {ferr / scale:.4e}; fed3r_stats "
+        f"launches in these rounds {counts['fed3r_stats']}")
+    if counts["fed3r_stats"] != 0:
+        raise AssertionError("a fine-tuning round launched fed3r_stats")
+    if not (scale > 0 and err <= FT_ROUND_REL * scale and rep_err <= FT_ROUND_REL * scale):
+        raise AssertionError("the full-width round disagrees with the per-client loop")
+    if ferr <= FT_ROUND_REL * scale:
+        raise AssertionError("a dropped client reads inside the engine-vs-loop bound")
+    del s0, s1, s1b, sl, sf, engine, loop, params0
+    torch.cuda.empty_cache()
+
+    # The smoke width in fp32, card vs the CPU's plain path.
+    smoke = get_config(SLICE_ARCH + "-smoke").replace(dtype="float32")
+    params_cpu = build_model(smoke).init(seed=0, device="cpu")
+    gen_cpu = torch.Generator(device="cpu")
+    gen_cpu.manual_seed(1)
+    kw = dict(FT_SMOKE)
+    ds_cpu = make_token_dataset(gen_cpu, kw.pop("n_samples"), kw.pop("seq_len"),
+                                smoke.vocab_size, kw.pop("n_classes"))
+    ds_gpu = type(ds_cpu)(*(_to(t, "cuda") for t in ds_cpu[:3]), ds_cpu.n_classes)
+    W_cpu = 0.01 * torch.randn((smoke.d_feat, ds_cpu.n_classes), generator=gen_cpu)
+    kw.update(ft_strategy="full", algorithm="fedavg", verbose=False)
+    got = train.ft_phase(smoke, _to(params_cpu, "cuda"), ds_gpu, W_cpu.cuda(), device="cuda", **kw)
+    want = train.ft_phase(smoke, params_cpu, ds_cpu, W_cpu, device="cpu", **kw)
+    start = {"backbone": params_cpu, "head": {"W": W_cpu, "b": torch.zeros(ds_cpu.n_classes)}}
+    serr, sscale = _dtheta_rel(_to(got["state"].params, "cpu"), want["state"].params, start)
+    log(f"[ft] smoke width, fp32, {FT_SMOKE['rounds']} rounds, card vs CPU: max|d dtheta|/"
+        f"max|dtheta| {serr / sscale:.3e} (limit {FT_SMOKE_REL:g})  acc {got['ft_acc']} vs "
+        f"{want['ft_acc']}")
+    if not (sscale > 0 and serr <= FT_SMOKE_REL * sscale):
+        raise AssertionError("smoke-width FT on the card disagrees with the CPU")
+
+    sim_out = phase_ft_sim(torch, sim)
+    return {"round_ms": ms, "round_tokens": toks, "peak_bytes": peak, "round_peak": round_peak,
+            "engine_vs_loop": err / scale, "repeat_bitwise": repeat, **sim_out}
+
+
+def phase_ft_sim(torch, sim) -> dict:
+    """run_fed3r_ft on the simulator's set-up for every algorithm: FT-FEAT
+    keeps W bitwise, a round is bitwise invariant to the cohort's order, and
+    stage 2 stopped after FT_SIM_STOP rounds and resumed is bitwise the
+    uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import pack_cohort_batches
+    from repro_torch.federated.fed3r_driver import feature_finetune_task, run_fed3r_ft
+    from repro_torch.federated.simulator import make_round_engine, pack_round, run_federated
+
+    fed, test, f3, fc = sim["fed"], sim["test"], sim["f3"], sim["fc"]
+    d, C = fed.features.shape[1], fed.n_classes
+    n_batches = -(-int(fed.client_sizes().max()) // fc.local_batch_size)
+    ck_root = os.path.join(ROOT, "build")
+    os.makedirs(ck_root, exist_ok=True)
+    out = {}
+    for algo, extra in FT_ALGOS:
+        fca = dataclasses.replace(fc, n_rounds=FT_SIM_ROUNDS, algorithm=algo, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, info = run_fed3r_ft(fed, test.features, test.labels, f3, fca, strategy="feat",
+                                    device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not torch.equal(params["W"], info["W_init"]):
+            raise AssertionError(f"{algo}: FT-FEAT moved W off its FED3R init")
+
+        task = feature_finetune_task(d, C, info["W_init"], test.features, test.labels,
+                                     strategy="feat", device="cuda")
+        engine = make_round_engine(task, fed, fca)
+        s0 = engine.init(task.params0)
+        chosen, cohort = pack_round(fed, fca, 0, n_batches)
+        rev = [int(k) for k in chosen][::-1]
+        perm = pack_cohort_batches(
+            [(fed.client(k).features, fed.client(k).labels) for k in rev],
+            fca.local_batch_size, n_batches, fca.local_epochs, client_ids=rev,
+            seed=(fca.seed + 7, 0))
+        if not all(np.array_equal(a, b) for a, b in zip(cohort, perm)):
+            raise AssertionError(f"{algo}: the reversed cohort packed other arrays")
+        perm_bitwise = _bitwise(engine.step(s0, cohort.to("cuda")),
+                                engine.step(s0, perm.to("cuda")))
+
+        ck = tempfile.mkdtemp(prefix="ft_ckpt_", dir=ck_root)
+        try:
+            run_federated(task, fed, dataclasses.replace(fca, n_rounds=FT_SIM_STOP),
+                          ckpt_dir=ck, ckpt_every=FT_SIM_STOP)
+            resumed, rinfo = run_fed3r_ft(fed, test.features, test.labels, f3, fca,
+                                          strategy="feat", ckpt_dir=ck, resume=True,
+                                          device="cuda")
+        finally:
+            shutil.rmtree(ck)
+        resume_bitwise = _bitwise(resumed, params)
+        acc = info["ft_history"].accuracy[-1]
+        log(f"[ft-sim] run_fed3r_ft {algo} {extra or ''}: {FT_SIM_ROUNDS} FT-FEAT rounds on "
+            f"{fed.n_clients} clients x d={d}, {fca.clients_per_round}/round, after stage 1 "
+            f"({info['fed3r_rounds']} rounds, FED3R acc {info['fed3r_history'].accuracy[-1]:.4f}, "
+            f"T={info['temperature']:g}): acc {acc:.4f}, wall {wall:.3f}s; W bitwise the init; "
+            f"a round under the reversed cohort {'bitwise' if perm_bitwise else 'DIFFERS'}; "
+            f"stopped after {FT_SIM_STOP} and resumed for {FT_SIM_ROUNDS - FT_SIM_STOP} "
+            f"({rinfo['ft_history'].rounds}): {'bitwise' if resume_bitwise else 'DIFFERS'}")
+        if not (perm_bitwise and resume_bitwise):
+            raise AssertionError(f"{algo}: a round is not bitwise invariant to the cohort's "
+                                 "order, or the resumed run is not bitwise the uninterrupted one")
+        out[algo] = {"acc": acc, "wall_s": wall}
+    return {"sim": out}
 
 
 def _kernel_inputs(torch, n, d, C, seed):
@@ -2080,6 +2329,7 @@ def main() -> int:
     phase_build(build, ops)
     sl = phase_slice(torch, ops)
     sim = phase_simulator(torch, ops)
+    phase_ft(torch, ops, sim)
     rf = phase_rf(torch, ops, ref, sim)
     stream = phase_stream(torch, ops)
     packed = stream["arrival"]["packed"]

@@ -1,0 +1,114 @@
+"""Dependency-free pytree checkpointing (npz + key-path manifest).
+
+The port of the reference's ``checkpoint/checkpoint.py``, in the same file
+format, so a file written by either package loads in the other.  Trees of
+nested dicts / lists / tuples with tensor, array or scalar leaves are
+flattened to ``/``-joined key paths and stored in a single compressed npz.
+NamedTuples are stored as dicts tagged with their field order, restored as
+plain dicts (callers rewrap, e.g. ``server_state_from_tree``); ``None``
+subtrees are tagged ``"none"``.  Tensors are written through
+``.detach().cpu()``; :func:`load_pytree` returns numpy leaves.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+_LIST_TAG = "__list__"
+_TUPLE_TAG = "__tuple__"
+
+
+def _leaf(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray], meta: Dict[str, str]):
+    if isinstance(tree, dict):
+        meta[prefix or "."] = "dict"
+        for k in sorted(tree):
+            _flatten(tree[k], f"{prefix}/{k}" if prefix else str(k), out, meta)
+    elif isinstance(tree, (list, tuple)):
+        is_nt = hasattr(tree, "_fields")
+        meta[prefix or "."] = (
+            "dict" if is_nt else (_LIST_TAG if isinstance(tree, list) else _TUPLE_TAG)
+        )
+        if is_nt:
+            for k, v in zip(tree._fields, tree):
+                _flatten(v, f"{prefix}/{k}" if prefix else k, out, meta)
+        else:
+            for i, v in enumerate(tree):
+                _flatten(v, f"{prefix}/{i}" if prefix else str(i), out, meta)
+    elif tree is None:
+        meta[prefix or "."] = "none"
+    else:
+        out[prefix] = _leaf(tree)
+
+
+def _unflatten(store: Dict[str, np.ndarray], meta: Dict[str, str]) -> Any:
+    root: Dict[str, Any] = {}
+    for path, arr in store.items():
+        parts = path.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def fix(node: Any, prefix: str) -> Any:
+        kind = meta.get(prefix or ".", None)
+        if kind == "none":
+            return None
+        if isinstance(node, dict):
+            fixed = {
+                k: fix(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()
+            }
+            # re-insert explicit Nones recorded in meta
+            for mpath, mkind in meta.items():
+                if mkind == "none" and mpath.startswith(prefix) and mpath != prefix:
+                    rel = mpath[len(prefix) + 1 :] if prefix else mpath
+                    if "/" not in rel and rel not in fixed:
+                        fixed[rel] = None
+            if kind in (_LIST_TAG, _TUPLE_TAG):
+                seq = [fixed[str(i)] for i in range(len(fixed))]
+                return seq if kind == _LIST_TAG else tuple(seq)
+            return fixed
+        return node
+
+    return fix(root, "")
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """Write ``tree`` to ``path`` atomically (a temporary file, then a rename)."""
+    out: Dict[str, np.ndarray] = {}
+    meta: Dict[str, str] = {}
+    _flatten(tree, "", out, meta)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    np.savez_compressed(tmp, __meta__=json.dumps(meta), **out)
+    os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
+
+
+def load_pytree(path: str) -> Any:
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["__meta__"]))
+        store = {k: z[k] for k in z.files if k != "__meta__"}
+    return _unflatten(store, meta)
+
+
+def latest_checkpoint(directory: str, pattern: str = r"ckpt_(\d+)\.npz") -> Optional[str]:
+    if not os.path.isdir(directory):
+        return None
+    best: Optional[str] = None
+    best_step = -1
+    for f in os.listdir(directory):
+        m = re.fullmatch(pattern, f)
+        if m and int(m.group(1)) > best_step:
+            best_step = int(m.group(1))
+            best = os.path.join(directory, f)
+    return best

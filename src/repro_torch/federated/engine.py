@@ -30,13 +30,19 @@ shards — so A and b are bit-identical under client reordering AND
 re-sharding (different ``clients_per_shard``), the paper's §4.3 invariance
 made exact rather than approximate.
 
+* :func:`shard_stats` — the masked (A, b, n) of one padded sample block
+  through ONE ``fed3r_stats`` launch, and :func:`aggregate`, the server
+  backend behind one interface (``"merge"``: the identity); the datacenter
+  statistics step (:func:`repro_torch.launch.steps.make_fed3r_stats_step`)
+  is built on the two.
+
 Not ported yet: the psum/mesh/tree backends (ROADMAP Queue 1 item 8), and
 with them the compressed wire's psum form.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -54,6 +60,40 @@ from repro_torch.federated.dist import (
 )
 from repro_torch.federated.telemetry import Telemetry
 from repro_torch.kernels.ops import fed3r_stats
+
+
+def shard_stats(
+    features: torch.Tensor,  # (n, d) φ(x), any float dtype
+    labels: torch.Tensor,  # (n,) int
+    n_classes: int,
+    mask: Optional[torch.Tensor] = None,  # (n,) 1.0 real / 0.0 padding
+) -> Fed3RStats:
+    """Fused masked statistics of one padded sample block (Eq. 5/6): the
+    masked design, then one ``fed3r_stats`` launch (its plain version on
+    the CPU)."""
+    z, y, n = fed3r.masked_design(features, labels, n_classes, mask)
+    A, b = fed3r_stats(z, y)
+    return Fed3RStats(A=A, b=b, n=n)
+
+
+def aggregate(
+    stats: Fed3RStats,
+    backend: str = "merge",
+    axis_names: Sequence[str] = (),
+) -> Fed3RStats:
+    """Server-aggregation backends behind one interface.
+
+    ``"merge"``: the left fold already produced the global statistics —
+    identity.  ``"psum"`` (an all-reduce over mesh axes) is the
+    distributed layer and raises.
+    """
+    if backend == "merge":
+        return stats
+    if backend == "psum":
+        raise NotImplementedError(
+            f"aggregate(backend='psum', axis_names={tuple(axis_names)}): the distributed "
+            "layer is ROADMAP Queue 1 item 8")
+    raise ValueError(f"unknown aggregation backend: {backend!r}")
 
 
 class EngineStats(NamedTuple):

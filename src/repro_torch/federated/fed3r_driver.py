@@ -1,4 +1,4 @@
-"""FED3R / FedNCM round drivers (Algorithm 1), in PyTorch.
+"""FED3R / FED3R-RF / FedNCM / FED3R+FT round drivers (Algorithm 1, §4.4), in PyTorch.
 
 The port of the reference's ``federated/fed3r_driver.py``: the simulator
 level, over a :class:`FederatedDataset` of precomputed features (or an
@@ -8,20 +8,22 @@ through the same accumulation engine.
 
 With ``n_random_features > 0`` :func:`run_fed3r` is FED3R-RF (paper §4.2):
 every client's features go through one shared random-features map before
-the statistics pass.  Not ported yet: FED3R+FT (``run_fed3r_ft``, ROADMAP
-Queue 1 item 7).
+the statistics pass.  :func:`run_fed3r_ft` is FED3R+FT (paper §4.4): the
+calibrated FED3R classifier initialises a softmax head, then the model is
+fine-tuned with any gradient FL algorithm on the cohort round engine.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import latest_checkpoint
 from repro_torch.configs.base import Fed3RConfig, FederatedConfig
-from repro_torch.core import fed3r, ncm
+from repro_torch.core import calibration, fed3r, ncm
 from repro_torch.core.random_features import RFFParams, rff_init, rff_map
 from repro_torch.data.pipeline import FederatedDataset, pack_client_shards
 from repro_torch.federated.dist import resolve_device
@@ -32,6 +34,7 @@ from repro_torch.federated.engine import (
     to_ncm_stats,
 )
 from repro_torch.federated.sampling import ClientSampler
+from repro_torch.federated.simulator import FLTask, as_f32, as_labels, run_federated, softmax_ce
 
 Extractor = Callable[[np.ndarray], torch.Tensor]
 
@@ -54,11 +57,6 @@ def _default_extractor(device: torch.device) -> Extractor:
 def _host(x) -> np.ndarray:
     """Test inputs as host numpy, whether given as an array or a tensor."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _on(x, device: torch.device) -> torch.Tensor:
-    """Test labels on ``device`` (a copy of a host array: it may be read-only)."""
-    return x.to(device) if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x), device=device)
 
 
 def _fresh_clients(sampled, seen: set) -> List[int]:
@@ -132,7 +130,7 @@ def run_fed3r(
     test_phi = extractor(_host(test_features))
     if use_rf:
         test_phi = rff_map(rff_params, test_phi)
-    test_y = _on(test_labels, dev)
+    test_y = as_labels(test_labels, dev)
 
     sampler = ClientSampler(
         dataset.n_clients, fed_cfg.clients_per_round,
@@ -204,7 +202,130 @@ def run_fedncm(
             )
     W = ncm.solve(to_ncm_stats(acc))
     test_phi = extractor(_host(test_features))
-    test_acc = float(ncm.accuracy(W, test_phi, _on(test_labels, dev)))
+    test_acc = float(ncm.accuracy(W, test_phi, as_labels(test_labels, dev)))
     hist.rounds.append(sampler.rounds_to_full_coverage())
     hist.accuracy.append(test_acc)
     return W, hist
+
+
+# ---------------------------------------------------------------------------
+# FED3R + FT (paper §4.4): calibrated softmax init + gradient fine-tuning
+# ---------------------------------------------------------------------------
+
+# the parameters each FT strategy trains (1.0) or freezes (0.0)
+FT_FREEZE = {
+    "full": {"M": 1.0, "W": 1.0, "bias": 1.0},
+    "lp": {"M": 0.0, "W": 1.0, "bias": 1.0},
+    "feat": {"M": 1.0, "W": 0.0, "bias": 0.0},
+}
+
+
+def feature_finetune_task(
+    d: int,
+    n_classes: int,
+    W_init,
+    test_features,
+    test_labels,
+    *,
+    strategy: str = "feat",  # full | lp | feat
+    device: Union[str, torch.device] = "cuda",
+) -> FLTask:
+    """FT task with a trainable feature map M (init = I) + softmax head.
+
+    logits = (x·M)·W + bias — the simulator-scale analogue of fine-tuning
+    the extractor: FT trains (M, W), FT-LP trains W only, FT-FEAT trains M
+    only with the FED3R classifier W kept fixed (the paper's most robust
+    variant in cross-device settings).
+    """
+    if strategy not in FT_FREEZE:
+        raise ValueError(strategy)
+    dev = resolve_device(device)
+    params0 = {
+        "M": torch.eye(d, dtype=torch.float32, device=dev),
+        "W": as_f32(W_init, dev),
+        "bias": torch.zeros((n_classes,), dtype=torch.float32, device=dev),
+    }
+
+    def logits_fn(params, x):
+        h = x.to(torch.float32) @ params["M"]
+        return h @ params["W"] + params["bias"]
+
+    def per_example_loss(params, batch):
+        return softmax_ce(logits_fn(params, batch["x"]), batch["y"])
+
+    tf, tl = as_f32(test_features, dev), as_labels(test_labels, dev)
+
+    @torch.no_grad()
+    def eval_fn(params):
+        return (logits_fn(params, tf).argmax(-1) == tl).to(torch.float32).mean()
+
+    return FLTask(params0=params0, per_example_loss=per_example_loss,
+                  freeze=dict(FT_FREEZE[strategy]), eval_fn=eval_fn)
+
+
+def run_fed3r_ft(
+    dataset: FederatedDataset,
+    test_features,
+    test_labels,
+    f3_cfg: Fed3RConfig,
+    fed_cfg: FederatedConfig,
+    *,
+    strategy: Optional[str] = None,
+    use_fed3r_init: bool = True,
+    eval_every: int = 10,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[Any, Dict[str, Any]]:
+    """Two-stage FED3R+FT (paper §4.4 / Table 2).
+
+    Stage 1: FED3R classifier (skipped if ``use_fed3r_init=False`` — the
+    paper's "✗ init" ablation rows, whose head is drawn 0.01·N(0, 1) from a
+    ``torch.Generator`` seeded ``fed_cfg.seed``).  Temperature-calibrate
+    the init on up to 4096 training features.  Stage 2: federated
+    fine-tuning with the configured algorithm and the requested freeze
+    strategy, one ``round_step`` a round on the cohort round engine;
+    ``ckpt_dir``/``resume`` snapshot and restore the FT phase's full
+    ServerState at round granularity.
+    """
+    dev = resolve_device(device)
+    strategy = strategy or f3_cfg.ft_strategy
+    C = dataset.n_classes
+    d = dataset.features.shape[-1]
+
+    # Resuming from a full FT-state snapshot makes stage 1 dead work: the
+    # loaded ServerState overwrites whatever init it would produce.
+    resuming = bool(ckpt_dir and resume and latest_checkpoint(ckpt_dir))
+
+    info: Dict[str, Any] = {}
+    if use_fed3r_init and not resuming:
+        W, stats, hist1 = run_fed3r(
+            dataset, test_features, test_labels, f3_cfg, fed_cfg,
+            eval_every=max(1, dataset.n_clients // fed_cfg.clients_per_round), device=dev,
+        )
+        # calibrate on a subsample of training features (paper App. C)
+        n_cal = min(4096, len(dataset.labels))
+        sample = as_f32(dataset.features[:n_cal], dev)
+        temp, _ = calibration.calibrate_temperature(
+            fed3r.predict(W, sample), as_labels(dataset.labels[:n_cal], dev))
+        W_init = calibration.fold_temperature(W, temp)
+        info["fed3r_history"] = hist1
+        info["temperature"] = float(temp)
+        info["fed3r_rounds"] = hist1.rounds[-1] if hist1.rounds else 0
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(fed_cfg.seed)
+        W_init = 0.01 * torch.randn((d, C), generator=gen, device=dev)
+        info["fed3r_rounds"] = 0
+
+    task = feature_finetune_task(
+        d, C, W_init, test_features, test_labels, strategy=strategy, device=dev
+    )
+    params, hist2 = run_federated(
+        task, dataset, fed_cfg, eval_every=eval_every,
+        ckpt_dir=ckpt_dir, resume=resume,
+    )
+    if not resuming:
+        info["W_init"] = task.params0["W"]  # the head stage 2 starts from
+    info["ft_history"] = hist2
+    return params, info

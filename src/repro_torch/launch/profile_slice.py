@@ -10,7 +10,11 @@
   at D = 5000 on the simulator's 50,000 features, 100 clients, 10 a
   round; both build it with :mod:`repro_torch.configs.simulator`), run
   once to warm up, then ``RF_WALLS`` times on the host clock
-  (the spread of its wall on one card), then once profiled.
+  (the spread of its wall on one card), then once profiled;
+* ``--cell ft``: one round of ``launch/train.py`` phase 2 at full width
+  (``chip_smoke.py``'s ``[ft]``: FT-FEAT FedAvg, 10 clients × 2 steps × 64
+  × 128 tokens, the cohort on the card), run ``FT_WARM`` times to warm up,
+  then once profiled: the round's device time by kernel group.
 
 Each prints the device's busy share of the wall time, device time by
 kernel group, and the ten aten ops that launched the most device time.
@@ -19,7 +23,7 @@ reads idler here than it runs.  A measurement tool, not a check:
 ``chip_smoke.py`` holds the checks.
 
 Usage (on the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|rf]
+  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|rf|ft]
 """
 from __future__ import annotations
 
@@ -41,6 +45,10 @@ SERVE = dict(batch=8, prompt_len=2048, gen=64)
 DECODE_STEPS = 16
 
 RF_WALLS = 3
+
+# chip_smoke.py's [ft] round
+FT_LOCAL_BATCH = 64
+FT_WARM = 2
 
 # (group, substrings of the kernel's name), first match wins
 KERNEL_GROUPS = (
@@ -178,15 +186,50 @@ def profile_rf(device="cuda") -> dict:
     return _report(*_profiled(run), f"rf D={RF_D}")
 
 
+def profile_ft(device="cuda") -> dict:
+    """One full-width FT round warm (``FT_WARM`` times), then one profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.models import build_model
+
+    dev = _card(device)
+    cfg = get_config(SLICE_ARCH)
+    params = build_model(cfg).init(seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ds = make_token_dataset(gen, SLICE["n_samples"], SLICE["seq_len"], cfg.vocab_size,
+                            SLICE["n_classes"])
+    gen.manual_seed(0)
+    head = {"W": 0.01 * torch.randn((cfg.d_feat, SLICE["n_classes"]), generator=gen, device=dev),
+            "b": torch.zeros((SLICE["n_classes"],), device=dev)}
+    clients = train.FtClients(ds, SLICE["n_clients"], SLICE["clients_per_round"], FT_LOCAL_BATCH)
+    engine = train.ft_engine(cfg, params, n_clients=SLICE["n_clients"])
+    state = engine.init({"backbone": params, "head": head})
+    cohort = clients.cohort(0).to(dev)
+    walls = []
+    for _ in range(FT_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step(state, cohort)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"[profile] ft {SLICE_ARCH}: {cohort.cohort} clients x {cohort.mask.shape[1]} steps x "
+          f"{FT_LOCAL_BATCH} x {SLICE['seq_len']} tokens; warm-up rounds "
+          + ", ".join(f"{w:.3f}s" for w in walls), flush=True)
+    return _report(*_profiled(lambda: engine.step(state, cohort)), f"ft {SLICE_ARCH} round")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--cell", choices=("slice", "serve", "rf"), default="slice")
+    ap.add_argument("--cell", choices=("slice", "serve", "rf", "ft"), default="slice")
     args = ap.parse_args()
     if args.cell == "serve":
         profile_serve(SERVE_ARCH, device=args.device, **SERVE)
     elif args.cell == "rf":
         profile_rf(device=args.device)
+    elif args.cell == "ft":
+        profile_ft(device=args.device)
     else:
         profile_phase1(SLICE_ARCH, device=args.device, **SLICE)
 

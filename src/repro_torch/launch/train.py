@@ -1,37 +1,65 @@
-"""Federated training driver, phase 1 (FED3R, Algorithm 1), in PyTorch.
+"""Federated training driver: FED3R (phase 1) then FED3R+FT (phase 2), in PyTorch.
 
-The port of the reference's ``launch/train.py`` phase 1: a statistics pass
-over packed client shards through the accumulation engine, backbone
-features extracted per shard and each client's statistics computed by the
-``fed3r_stats`` kernel; then the ridge solve, test accuracy and softmax
-temperature calibration of the classifier.
+The port of the reference's ``launch/train.py``.
 
-Phase 2 (federated fine-tuning, ``rounds > 0``) is ROADMAP Queue 1 item 7.
+Phase 1 (FED3R, Algorithm 1): a statistics pass over packed client shards
+through the accumulation engine, backbone features extracted per shard and
+each client's statistics computed by the ``fed3r_stats`` kernel; then the
+ridge solve, test accuracy and softmax temperature calibration of the
+classifier (:func:`fed3r_phase`).
+
+Phase 2 (FED3R+FT, §4.4, ``rounds > 0``): federated fine-tuning through the
+cohort round engine (:mod:`repro_torch.federated.round_engine`) — each
+round's sampled cohort is packed into stacked ``(cohort, n_steps, batch)``
+token arrays, moved to the device, and the round (local updates vmapped
+over the cohort, on-device weighted aggregation, server optimizer step)
+runs as one ``round_step`` (:func:`ft_phase`).  The head starts from the
+calibrated classifier; ``--ft-strategy`` picks what trains (full, lp:
+head only, feat: backbone only).  The full :class:`ServerState` —
+backbone+head params, optimizer buffers, round index — checkpoints every
+5 rounds and after the last; ``--resume`` continues from the latest
+snapshot and reproduces the uninterrupted run (cohorts and shuffles are
+pure functions of the round index).
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch fed3r-mnv2-proxy \\
-      --clients 100 --per-round 10 --seq-len 128 --device cuda
+      --clients 100 --per-round 10 --seq-len 128 --rounds 3 --device cuda \\
+      [--algorithm fedavg] [--ft-strategy feat] [--ckpt-dir DIR [--resume]]
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import latest_checkpoint, load_pytree, save_pytree
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import calibration, fed3r
 from repro_torch.data.partition import dirichlet_partition
-from repro_torch.data.pipeline import pack_client_shards
+from repro_torch.data.pipeline import PackedCohort, pack_client_shards, pack_cohort_batches
 from repro_torch.data.synthetic import TokenDataset, make_token_dataset
+from repro_torch.federated.algorithms import make_algorithm, server_state_from_tree
 from repro_torch.federated.dist import resolve_device
 from repro_torch.federated.engine import AccumulationEngine, EngineConfig
+from repro_torch.federated.round_engine import RoundConfig, RoundEngine
+from repro_torch.federated.sampling import sample_round
+from repro_torch.launch.steps import make_cls_per_example_loss
 from repro_torch.models import build_model
+from repro_torch.tree import tree_map
 
 RIDGE_LAMBDA = 0.01
+_FT_SEED = 3  # phase-2 sampling/shuffle seed (pure function of the round)
+CKPT_EVERY = 5  # phase 2 evaluates and checkpoints every this many rounds
+
+
+def _partition(labels_np: np.ndarray, n_clients: int):
+    """The one-class-per-client split both phases use."""
+    return dirichlet_partition(np.random.default_rng(2), labels_np, n_clients, alpha=0.0)
 
 
 def fed3r_phase(
@@ -56,7 +84,7 @@ def fed3r_phase(
     model = build_model(cfg)
     tokens_np = ds.tokens.cpu().numpy()
     labels_np = ds.labels.cpu().numpy()
-    parts = dirichlet_partition(np.random.default_rng(2), labels_np, n_clients, alpha=0.0)
+    parts = _partition(labels_np, n_clients)
     n_test = len(labels_np) // 5
     tokens, labels = ds.tokens.to(dev), ds.labels.to(dev)
 
@@ -90,6 +118,136 @@ def fed3r_phase(
     }
 
 
+def ft_engine(
+    cfg: ModelConfig,
+    params: dict,
+    *,
+    n_clients: int,
+    lr: float = 0.05,
+    algorithm: str = "fedavg",
+    ft_strategy: str = "feat",
+) -> RoundEngine:
+    """Phase 2's round engine over ``{"backbone": params, "head": {"W", "b"}}``:
+    the classification loss, and the freeze mask of ``ft_strategy`` (full:
+    everything trains; lp: the head only; feat: the backbone only)."""
+    if ft_strategy not in ("full", "lp", "feat"):
+        raise ValueError(f"unknown ft_strategy {ft_strategy!r}")
+    head = 0.0 if ft_strategy == "feat" else 1.0
+    freeze = {
+        "backbone": tree_map(lambda _: 0.0 if ft_strategy == "lp" else 1.0, params),
+        "head": {"W": head, "b": head},
+    }
+    return RoundEngine(
+        RoundConfig(algo=make_algorithm(algorithm), client_lr=lr, n_total_clients=n_clients),
+        make_cls_per_example_loss(cfg),
+        freeze,
+    )
+
+
+class FtClients:
+    """The one-class split of a token dataset, as both phases see it, and
+    phase 2's cohort of a round: ``clients_per_round`` clients from
+    ``sample_round`` (seed ``_FT_SEED``), each padded to the largest
+    client's ``local_batch_size`` batches and shuffled from
+    ``(_FT_SEED, round, client id)`` — a pure function of the round."""
+
+    def __init__(self, ds: TokenDataset, n_clients: int, clients_per_round: int,
+                 local_batch_size: int):
+        self.tokens = ds.tokens.cpu().numpy()
+        self.labels = ds.labels.cpu().numpy()
+        self.parts = _partition(self.labels, n_clients)
+        self.n_clients, self.clients_per_round = n_clients, clients_per_round
+        self.local_batch_size = local_batch_size
+        self.n_batches = -(-max(len(p) for p in self.parts) // local_batch_size)
+
+    def cohort(self, rnd: int) -> PackedCohort:
+        chosen = sample_round(self.n_clients, self.clients_per_round, rnd, seed=_FT_SEED)
+        return pack_cohort_batches(
+            [(self.tokens[self.parts[int(k)]], self.labels[self.parts[int(k)]]) for k in chosen],
+            self.local_batch_size, self.n_batches, client_ids=chosen, seed=(_FT_SEED, rnd),
+        )
+
+
+def ft_phase(
+    cfg: ModelConfig,
+    params: dict,
+    ds: TokenDataset,
+    W_head: torch.Tensor,
+    *,
+    n_clients: int,
+    clients_per_round: int,
+    rounds: int,
+    lr: float = 0.05,
+    local_batch_size: int = 64,
+    algorithm: str = "fedavg",
+    ft_strategy: str = "feat",
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    device: Union[str, torch.device] = "cuda",
+    verbose: bool = True,
+) -> dict:
+    """Phase 2 on given backbone params, token dataset and head init.
+
+    Fine-tunes ``{"backbone": params, "head": {"W": W_head, "b": 0}}`` for
+    ``rounds`` rounds (from the latest checkpoint's round with ``resume``)
+    over :class:`FtClients`' cohorts.  Returns the final ``ServerState``,
+    the test accuracies at every checkpoint round, and each round's
+    host-clock ms around ``RoundEngine.step`` (ending in a device
+    synchronize) with the real tokens its local training read.
+    """
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    clients = FtClients(ds, n_clients, clients_per_round, local_batch_size)
+    n_test = len(clients.labels) // 5
+    test_tokens, test_labels = ds.tokens[:n_test].to(dev), ds.labels[:n_test].to(dev)
+
+    engine = ft_engine(cfg, params, n_clients=n_clients, lr=lr, algorithm=algorithm,
+                       ft_strategy=ft_strategy)
+    resume_path = latest_checkpoint(ckpt_dir) if (resume and ckpt_dir) else None
+    if resume_path is not None:
+        state = server_state_from_tree(load_pytree(resume_path), dev)
+        start_round = int(state.round)
+        if verbose:
+            print(f"[ft:{ft_strategy}] resuming from {resume_path} (round {start_round})")
+    else:
+        head = {"W": W_head, "b": torch.zeros((ds.n_classes,), dtype=torch.float32, device=dev)}
+        state = engine.init({"backbone": params, "head": head})
+        start_round = 0
+
+    @torch.no_grad()
+    def evaluate(p) -> float:
+        feats = model.extract_features(p["backbone"], {"tokens": test_tokens})
+        logits = feats @ p["head"]["W"] + p["head"]["b"]
+        return float((logits.argmax(-1) == test_labels).to(torch.float32).mean())
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    log = {"rounds": [], "ft_acc": [], "round_ms": [], "round_tokens": []}
+    for rnd in range(start_round, rounds):
+        cohort = clients.cohort(rnd)
+        log["round_tokens"].append(cohort.n_samples * clients.tokens.shape[1])
+        cohort = cohort.to(dev)
+        sync()
+        t0 = time.perf_counter()
+        state = engine.step(state, cohort)
+        sync()
+        log["round_ms"].append(1e3 * (time.perf_counter() - t0))
+        if (rnd + 1) % CKPT_EVERY == 0 or rnd == rounds - 1:
+            acc = evaluate(state.params)
+            log["rounds"].append(rnd + 1)
+            log["ft_acc"].append(acc)
+            if verbose:
+                print(f"[ft:{ft_strategy}] round {rnd + 1:4d}  acc={acc:.4f}  "
+                      f"({log['round_ms'][-1]:.1f} ms the last round)")
+            if ckpt_dir:
+                # round-resumable: the FULL server state, not just the head
+                save_pytree(os.path.join(ckpt_dir, f"ckpt_{rnd + 1}.npz"), state)
+    log["state"] = state
+    return log
+
+
 def run(
     arch: str,
     *,
@@ -99,25 +257,49 @@ def run(
     rounds: int = 0,
     seq_len: int = 32,
     n_samples: int = 2048,
+    lr: float = 0.05,
+    local_batch_size: int = 64,
+    algorithm: str = "fedavg",
+    ft_strategy: str = "feat",
+    use_fed3r_init: bool = True,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
     device: Union[str, torch.device] = "cuda",
     verbose: bool = True,
 ) -> dict:
-    """Random backbone params (seed 0) and a synthetic token dataset (seed 1),
-    then phase 1.  ``rounds > 0`` (fine-tuning) is not ported yet."""
-    if rounds > 0:
-        raise NotImplementedError(
-            "phase 2 (federated fine-tuning, rounds > 0) is ROADMAP Queue 1 item 7"
-        )
+    """Random backbone params (seed 0) and a synthetic token dataset (seed
+    1), then phase 1 and, with ``rounds > 0``, phase 2 (under ``"ft"``).
+
+    Phase 1 is skipped without ``use_fed3r_init`` (the head is then drawn
+    0.01·N(0, 1) from a ``torch.Generator`` seeded 0) and when phase 2
+    resumes from a checkpoint, whose state overwrites any head it would
+    produce.
+    """
     dev = resolve_device(device)
     cfg = get_config(arch)
     params = build_model(cfg).init(seed=0, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     ds = make_token_dataset(gen, n_samples, seq_len, cfg.vocab_size, n_classes)
-    return fed3r_phase(
-        cfg, params, ds, n_clients=n_clients, clients_per_round=clients_per_round,
-        device=dev, verbose=verbose,
-    )
+    resuming = rounds > 0 and resume and ckpt_dir and latest_checkpoint(ckpt_dir)
+    out: dict = {"params0": params}
+    if use_fed3r_init and not resuming:
+        out.update(fed3r_phase(
+            cfg, params, ds, n_clients=n_clients, clients_per_round=clients_per_round,
+            device=dev, verbose=verbose,
+        ))
+    if rounds > 0:
+        W_head = out.get("W_head")
+        if W_head is None:
+            gen.manual_seed(0)
+            W_head = 0.01 * torch.randn((cfg.d_feat, n_classes), generator=gen, device=dev)
+        out["ft"] = ft_phase(
+            cfg, params, ds, W_head, n_clients=n_clients, clients_per_round=clients_per_round,
+            rounds=rounds, lr=lr, local_batch_size=local_batch_size, algorithm=algorithm,
+            ft_strategy=ft_strategy, ckpt_dir=ckpt_dir, resume=resume, device=dev,
+            verbose=verbose,
+        )
+    return out
 
 
 def main() -> None:
@@ -127,11 +309,21 @@ def main() -> None:
     ap.add_argument("--clients", type=int, default=40)
     ap.add_argument("--per-round", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=32)
+    ap.add_argument("--local-batch", type=int, default=64)
+    ap.add_argument("--algorithm", default="fedavg",
+                    choices=["fedavg", "fedavgm", "fedprox", "scaffold", "fedadam", "fedyogi"])
+    ap.add_argument("--ft-strategy", default="feat", choices=["full", "lp", "feat"])
+    ap.add_argument("--no-fed3r-init", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     run(
         args.arch, rounds=args.rounds, n_clients=args.clients,
-        clients_per_round=args.per_round, seq_len=args.seq_len, device=args.device,
+        clients_per_round=args.per_round, seq_len=args.seq_len,
+        local_batch_size=args.local_batch, algorithm=args.algorithm,
+        ft_strategy=args.ft_strategy, use_fed3r_init=not args.no_fed3r_init,
+        ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device,
     )
 
 

@@ -135,7 +135,10 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 def embed_apply(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p["embedding"][tokens.long()].to(dtype)
+    # F.embedding, not table[tokens]: the same gather, but its backward sums
+    # each row's gradients in a fixed order, where indexing's backward
+    # (index_put_ with accumulate) is not repeatable across runs
+    return F.embedding(tokens.long(), p["embedding"]).to(dtype)
 
 
 def unembed_apply(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -153,7 +156,6 @@ def unembed_apply(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tens
         logits = cap * torch.tanh(logits / cap)
     if cfg.padded_vocab > cfg.vocab_size:
         col = torch.arange(logits.shape[-1], device=logits.device)
-        logits = torch.where(
-            col < cfg.vocab_size, logits, torch.tensor(-1e30, dtype=logits.dtype, device=logits.device)
-        )
+        # a Python scalar: a tensor built here would be a blocking host-to-device copy
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
     return logits

@@ -1,4 +1,4 @@
-"""Model facade of the dense path: init / forward / prefill / decode / features.
+"""Model facade of the dense path: init / forward / loss / prefill / decode / features.
 
 The port of the reference's ``models/model.py`` for ``arch_type ==
 "dense"``.  ``build_model(cfg)`` returns a :class:`Model` of plain functions
@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.dist import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_apply, norm_apply, norm_init, rope_angles, unembed_apply
+from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 _FAMILIES_LATER = "MoE, SSM, hybrid, VLM and audio models are ROADMAP Queue 1 item 11"
@@ -146,6 +147,15 @@ def decode_step(
     return out.logits[:, 0, :], out.cache
 
 
+def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy, fp32 log-softmax (``batch["labels"]``
+    (B, S) int)."""
+    logits = forward(cfg, params, batch, mode="train").logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    return (lse - picked).mean()
+
+
 def extract_features(
     cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor]
 ) -> torch.Tensor:
@@ -164,6 +174,7 @@ class Model:
         cfg.validate()
         self.cfg = cfg
         self.forward = functools.partial(forward, cfg)
+        self.loss = functools.partial(lm_loss, cfg)
         self.extract_features = functools.partial(extract_features, cfg)
         self.prefill = functools.partial(prefill, cfg)
         self.decode_step = functools.partial(decode_step, cfg)
@@ -177,18 +188,7 @@ class Model:
 
     @staticmethod
     def param_count(params) -> int:
-        return sum(t.numel() for t in _leaves(params))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+        return sum(t.numel() for t in tree_leaves(params))
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -95,6 +95,10 @@ def apply_stack(
     """
     if mode == "decode" and (cache is None or len(cache) != len(layers)):
         raise ValueError("decode needs one cache a layer")
+    if mode == "train" and torch.is_grad_enabled():
+        for p in layers:
+            x = _recomputed_block(cfg, kind, p, x, angles, window)
+        return x, None
     caches = []
     for i, p in enumerate(layers):
         x, c = block_apply(
@@ -104,3 +108,57 @@ def apply_stack(
         )
         caches.append(c)
     return x, (caches if mode != "train" else None)
+
+
+class _Recompute(torch.autograd.Function):
+    """``fn(x, const, *params)`` that keeps only its inputs for the backward,
+    which runs ``fn`` again and takes its vector-Jacobian product in ``x``
+    and ``params`` (``const`` gets no gradient).
+
+    Activation checkpointing for ``torch.func`` (``torch.utils.checkpoint``
+    relies on saved-tensor hooks, which ``torch.func.grad`` refuses): the
+    forward and the gradients are bitwise those of ``fn`` under plain
+    autograd, for one more forward of ``fn`` a backward.  Every tensor
+    ``fn`` reads is an input: a function under ``torch.func`` transforms
+    must not capture tensors of an outer level.
+    """
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, x, const, *params):
+        return fn(x, const, *params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, *tensors = inputs
+        ctx.fn = fn
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, const, *params = ctx.saved_tensors
+        # torch.func.grad runs its backward with create_graph=True, which
+        # would keep every block's recomputed activations alive until the
+        # gradients die; no_grad keeps them to this block (the vjp inside
+        # still differentiates: a transform ignores an outer no_grad)
+        with torch.no_grad():
+            _, vjp = torch.func.vjp(lambda h, *ps: ctx.fn(h, const, *ps), x, *params)
+            grad_x, *grad_params = vjp(grad_out)
+        return (None, grad_x, None, *grad_params)
+
+
+def _recomputed_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, angles, window):
+    """One train-mode block whose activations are recomputed in the backward:
+    a gradient step keeps each block's input, not its internals (a
+    fine-tuning round at full width holds 10 clients × 64 × 128 tokens of
+    them at once)."""
+    paths = [(group, name) for group in p for name in p[group]]
+
+    def fn(h, angles_, *leaves):
+        params: dict = {}
+        for (group, name), leaf in zip(paths, leaves):
+            params.setdefault(group, {})[name] = leaf
+        return block_apply(cfg, kind, params, h, angles=angles_, window=window)[0]
+
+    return _Recompute.apply(fn, x, angles, *(p[group][name] for group, name in paths))

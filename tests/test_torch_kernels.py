@@ -5,8 +5,9 @@
 ``test_torch_streaming.py``, ``test_torch_personalization.py`` and
 ``test_torch_compress.py``, ``flash_attention`` in ``test_torch_flash.py``.
 The tests marked ``gpu`` (all seven kernels, the int8 engine's launches,
-the streaming engine's sync-free absorb, and the smoke-width fp32 serving
-path against the CPU) run on the card; this file imports JAX only inside
+the streaming engine's sync-free absorb, the smoke-width fp32 serving
+path against the CPU, the FL round engine's sync-free step and the
+full-width fine-tuning round's peak memory) run on the card; this file imports JAX only inside
 the reference comparisons, so they run where JAX is not installed.
 
 On the CPU the port's wrapper runs its plain version; the reference's Pallas
@@ -870,3 +871,59 @@ def test_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_device):
     card = serve("qwen2-7b-smoke", device=cuda_device, params=to_card(params), **kw)
     assert card.prefill_launches == cfg.n_layers and card.decode_launches == 0
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["fedavg", "scaffold", "fedyogi"])
+def test_round_step_makes_no_host_sync_on_card(cuda_device, algo):
+    """The cohort round engine's step, its cohort already on the card, syncs
+    nothing: vmapped local updates, the on-device weighted delta, the server
+    step and (Scaffold) the cvar gather and scatter."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.data.pipeline import FederatedDataset
+    from repro_torch.federated.algorithms import make_algorithm
+    from repro_torch.federated.round_engine import RoundConfig, RoundEngine
+    from repro_torch.federated.simulator import linear_head_task, pack_round
+
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(600, 8)).astype(np.float32)
+    labels = rng.integers(0, 4, 600).astype(np.int32)
+    fed = FederatedDataset(feats, labels, np.array_split(np.arange(600), 12), 4)
+    task = linear_head_task(8, 4, feats[:50], labels[:50],
+                            W_init=0.01 * rng.normal(size=(8, 4)), device=cuda_device)
+    rc = RoundConfig(algo=make_algorithm(algo), client_lr=0.1, n_total_clients=12,
+                     server_lr=0.01 if algo == "fedyogi" else 1.0)
+    eng = RoundEngine(rc, task.per_example_loss, task.freeze)
+    fc = FederatedConfig(n_clients=12, clients_per_round=4, local_batch_size=16)
+    cohort = pack_round(fed, fc, 0, n_batches=4)[1].to(cuda_device)
+    state = eng.step(eng.init(task.params0), cohort)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = eng.step(state, cohort)
+        state = eng.step(state, cohort)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state.round) == 3
+
+
+# the full-width FT round (10 clients x 64 sequences x 128 tokens) must fit
+# in half the card's 80 GB: the vmapped cohort holds a copy of the params,
+# their gradients and bf16 casts a client, plus the activations
+FULL_WIDTH_PEAK_LIMIT = 40 * 2**30
+
+
+@pytest.mark.gpu
+def test_full_width_ft_round_memory_on_card(cuda_device):
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    out = train.run("fed3r-mnv2-proxy", rounds=1, n_samples=8192, seq_len=128,
+                    n_classes=100, n_clients=100, clients_per_round=10,
+                    local_batch_size=64, use_fed3r_init=False, verbose=False)
+    peak = torch.cuda.max_memory_allocated()
+    state = out["ft"]["state"]
+    assert int(state.round) == 1
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params))
+    assert peak <= FULL_WIDTH_PEAK_LIMIT, peak / 2**30

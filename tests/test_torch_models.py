@@ -124,3 +124,57 @@ def test_extract_features(dtype, rel):
     assert feats.dtype == torch.float32 and feats.shape == (3, cfg.d_feat)
     _close(feats, want, rel)
     assert model.param_count(params) == jmodel.param_count(jparams)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unembed_masks_padded_vocab_with_a_scalar(dtype):
+    """vocab 500 padded to 512: the padded columns are −1e30 (a Python
+    scalar in ``torch.where``), bitwise the logits of the former host-built
+    ``torch.tensor(-1e30)``, and the reference's."""
+    jcfg, cfg = _cfgs(dtype, vocab_size=500)
+    assert cfg.padded_vocab == 512 > cfg.vocab_size
+    r = np.random.default_rng(3)
+    emb = r.normal(size=(cfg.padded_vocab, 128)).astype(np.float32)
+    x, jx = _x((2, 3, 128), dtype, seed=4)
+    got = layers.unembed_apply(cfg, {"embed": {"embedding": torch.from_numpy(emb)}}, x)
+    raw = x @ torch.from_numpy(emb).to(x.dtype).T
+    col = torch.arange(raw.shape[-1])
+    before = torch.where(col < cfg.vocab_size, raw, torch.tensor(-1e30, dtype=raw.dtype))
+    assert got.dtype == x.dtype and torch.equal(got, before)
+    want = jlayers.unembed_apply(jcfg, {"embed": {"embedding": jnp.asarray(emb)}}, jx)
+    _close(got, want, dict(DTYPES)[dtype])
+    assert np.array_equal(np.asarray(got[..., 500:].float()),
+                          np.asarray(jnp.asarray(want[..., 500:], jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_blocks_recompute_bitwise_the_plain_gradients(dtype):
+    """Under grad, train mode recomputes each block's activations in the
+    backward: the loss and the gradients are bitwise those of the plain
+    block loop, one client or vmapped over a cohort."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import embed_apply, norm_apply, rope_angles
+    from repro_torch.tree import tree_leaves
+
+    _, cfg = _cfgs(dtype)
+    params = build_model(cfg).init(seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 2, 8)))
+
+    def plain(p, t):
+        x = embed_apply(p["embed"], t, getattr(torch, dtype))
+        angles = rope_angles(torch.arange(t.shape[1]), cfg.hd, cfg.rope_theta)
+        for layer in p["layers"]:
+            x = transformer.block_apply(cfg, "attn", layer, x, angles=angles, window=None)[0]
+        return norm_apply(cfg, p["final_norm"], x).float().square().mean()
+
+    def recomputed(p, t):
+        h = build_model(cfg).forward(p, {"tokens": t}, return_logits=False).hidden
+        return h.float().square().mean()
+
+    g1, l1 = torch.func.grad_and_value(plain)(params, toks[0])
+    g2, l2 = torch.func.grad_and_value(recomputed)(params, toks[0])
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+    v1 = torch.func.vmap(torch.func.grad(plain), in_dims=(None, 0))(params, toks)
+    v2 = torch.func.vmap(torch.func.grad(recomputed), in_dims=(None, 0))(params, toks)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(v1), tree_leaves(v2)))

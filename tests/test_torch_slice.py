@@ -155,15 +155,17 @@ def test_client_sampler_draws_the_reference_clients(replacement, n_clients, per_
 
 
 def test_fed3r_rf_and_finetuning_are_not_ported_yet(fed_data):
-    # FED3R-RF is ported now (tests/test_torch_rff.py holds it against the
-    # reference); fine-tuning is not
+    # both are ported now: FED3R-RF (tests/test_torch_rff.py holds it against
+    # the reference) and fine-tuning (tests/test_torch_ft.py); train.run
+    # takes rounds > 0 and runs phase 2 after phase 1
     _, test, pfed = fed_data
     W, stats, _ = fed3r_driver.run_fed3r(pfed, np.asarray(test.features), np.asarray(test.labels),
                                          Fed3RConfig(n_classes=6, n_random_features=64),
                                          _fc(FederatedConfig), device="cpu")
     assert W.shape == (64, 6) and stats.A.shape == (64, 64)
-    with pytest.raises(NotImplementedError):
-        train.run(ARCH, rounds=1, device="cpu")
+    out = train.run(ARCH, rounds=1, n_clients=8, clients_per_round=4, n_samples=160,
+                    seq_len=16, n_classes=8, local_batch_size=8, device="cpu", verbose=False)
+    assert int(out["ft"]["state"].round) == 1 and out["ft"]["rounds"] == [1]
 
 
 def test_profile_slice_measures_the_card_only():
@@ -171,6 +173,8 @@ def test_profile_slice_measures_the_card_only():
         profile_slice.profile_phase1(ARCH, device="cpu")
     with pytest.raises(RuntimeError, match="card only"):
         profile_slice.profile_serve("qwen2-7b-smoke", batch=1, prompt_len=4, gen=2, device="cpu")
+    with pytest.raises(RuntimeError, match="card only"):
+        profile_slice.profile_ft(device="cpu")
     assert profile_slice.kernel_group(
         "void (anonymous namespace)::flash_bf16_kernel<128>(Args)").startswith("flash_attention")
     assert profile_slice.kernel_group("fed3r_stats_kernel") == "fed3r_stats (the port's CUDA kernel)"
@@ -235,5 +239,9 @@ def test_port_imports_without_jax_or_the_reference_package():
                  "launch.serving_engine", "launch.serve_stream", "kernels.chol_update",
                  "federated.compress", "federated.secure_agg", "federated.costs",
                  "kernels.quant", "kernels.flash_attention", "launch.serve", "launch.steps",
-                 "configs.qwen2_7b"):
+                 "configs.qwen2_7b", "checkpoint", "checkpoint.checkpoint", "optim",
+                 "optim.optim", "optim.schedules", "federated.algorithms",
+                 "federated.round_engine", "federated.simulator", "federated.fed3r_driver",
+                 "core.probe", "federated.engine", "models.model", "launch.train",
+                 "models.convert", "tree"):
         assert "repro_torch." + name in names
