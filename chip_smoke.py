@@ -71,12 +71,32 @@ counts just after.
 12. secure   -- a 10-client cohort quantized against shared scales and
                 masked mod 2^32 on the card: the masked sum and the
                 survivors' sum after 2 drop out, bitwise; an int32 wrap probe.
-13. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
+13. async    -- ``serve_stream(engine="async")`` at the stream's set-up: 24
+                chaos rounds of ~4 clients (fed3r_stats launches = the 100
+                client payloads), live accuracy a segment, the chaos
+                counters, the drained W against a float64 closed form over
+                the uploads that folded; ``run_chaos_timeline`` at d = 1280
+                under the five fault types of ``tests/test_async.py``, async W
+                and L bitwise the synchronous barrier's, with every host sync
+                an error in the async runs; the same under the int8 wire
+                (quantize_tiles and dequant_acc 2 an upload folded); the fp8
+                and int8 client folds and streams under sync-debug "error";
+                secure mode with 2 of 10 clients dropped, bitwise the
+                survivor-only unmasked round.
+14. tiers    -- ``StreamingEngine.tiered_absorber`` over an edge 4 / region 2
+                / cloud 2 tree (16 leaves at d = 1280, 4 segments of
+                grid-exact features), fp32 and with an int8 cloud tier:
+                blocking and overlapped bitwise, the fp32 tree bitwise the
+                flat ``absorb_stats`` of ``shard_stats``; fed3r_stats 16, chol_gram
+                1 and (int8) quantize_tiles and dequant_acc 4 a segment; no
+                host sync in an overlapped ``absorb_segment``,
+                ``tier_overlap_efficiency`` 1.0.
+15. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
                 layers, d_model 3584, GQA 28/4, vocab 152,064), bf16, random
                 weights: batch 8, 2048-token prompts, 64 tokens; flash_attention
                 launches 28 in the prefill and 0 in the decode steps.  Then a
                 ragged 1000-token prompt at batch 1.
-14. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
+16. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
                 decode steps against one train-mode forward over the 2048
                 tokens (the plain attention), the logits' gap and the share
                 of equal argmaxes within the bounds measured once, and
@@ -91,7 +111,7 @@ counts just after.
                 across KV heads); then ``qwen2-7b-smoke`` in fp32, card
                 against CPU: the same greedy tokens, logits within 2e-4 of
                 the largest.
-15. kernel    -- each kernel against its plain PyTorch version at the shapes
+17. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
                 bitwise, on all-zero tiles and exact half-way inputs too;
                 flash attention in bf16 and fp32, with and without a
@@ -193,6 +213,21 @@ SCORE_REL = 1e-5
 WIRES = (("fp32", {}), ("int8", {"tile": 128}), ("fp8", {"tile": 128}), ("sketch", {"rank": 16}))
 UPLINK_ROUNDS = 12
 SECURE_CLIENTS, SECURE_DROPPED = 10, (3, 7)
+# the async engine at the stream's set-up: serve_stream's cohort (~rate),
+# and the chaos replay of tests/test_async.py at d 1280 (5 rounds of 4 of
+# 10 clients, staleness 3) under each of its five fault types
+ASYNC_COHORT = 4
+ASYNC_CHAOS_CLIENTS, ASYNC_CHAOS_ROUNDS = 10, 5
+ASYNC_FAULTS = {
+    "drop": dict(drop=0.5, rto=0.1, max_attempts=6, seed=3),
+    "duplicate": dict(duplicate=0.6, seed=3),
+    "reorder": dict(reorder=0.9, rto=0.2, seed=3),
+    "delay": dict(delay=0.5, delay_factor=2.0, seed=3),
+    "all": dict(drop=0.3, duplicate=0.3, reorder=0.5, delay=0.2, delay_factor=2.0, rto=0.1,
+                max_attempts=6, seed=3),
+}
+# the host-tier tree: 16 leaves of up to 128 grid-exact rows, 4 segments
+TIERS = dict(rows=128, segments=4, seed=21)
 QUANT_SHAPES = [(1280, 1280, 128), (1280, 100, 128), (5000, 5000, 128), (200, 150, 64),
                 (33, 190, 128), (1281, 77, 16)]
 # the dense serving path (launch/serve.py) at Qwen2-7B's full width, bf16
@@ -1732,6 +1767,339 @@ def phase_secure(torch, ops, sim) -> dict:
     return {"wall_s": wall, "rel": rel}
 
 
+_CARD = []
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi reports them (read once)."""
+    if not _CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        )
+        _CARD.append(smi.stdout.strip().splitlines()[0])
+    return _CARD[0]
+
+
+def no_sync(torch, fn, *args, **kw):
+    """Run fn with every host sync an error (the card idle first)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _async_engine(torch, **kw):
+    from repro_torch.federated.async_engine import AsyncConfig, AsyncRoundEngine
+
+    base = dict(n_classes=STREAM["n_classes"], ridge_lambda=STREAM["ridge_lambda"],
+                cohort=ASYNC_COHORT, deadline=1.0, staleness_rounds=3, early_close=False,
+                demote_after=10_000)
+    base.update(kw)
+    return AsyncRoundEngine(AsyncConfig(**base), device="cuda")
+
+
+def phase_async(torch, ops) -> dict:
+    """serve_stream(engine="async") at the stream's set-up, the chaos replay
+    at d 1280 under every fault type, the wires' folds under sync-debug
+    "error", and secure dropout recovery."""
+    from repro_torch.core import fed3r
+    from repro_torch.data.pipeline import PackedClients, pack_client_shards
+    from repro_torch.federated import compress, secure_agg
+    from repro_torch.federated.arrivals import (
+        ChaosSpec, UploadEvent, chaos_timeline, latency_profile, pack_schedule)
+    from repro_torch.federated.async_engine import run_chaos_timeline
+    from repro_torch.federated.compress import WireFormat
+    from repro_torch.federated.engine import AccumulationEngine, EngineConfig, shard_stats
+    from repro_torch.federated.fed3r_driver import PACK_ROUND_TO
+    from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
+    from repro_torch.launch.serve_stream import serve_stream, stream_setup
+
+    d, C, lam = STREAM["d"], STREAM["n_classes"], STREAM["ridge_lambda"]
+    totals = {k: 0 for k in read_counts(ops)}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    # serve_stream(engine="async"): 24 chaos rounds of ~4 clients, live bursts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    res = serve_stream(engine="async", verbose=False, device="cuda", **STREAM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(ops)
+    add(counts)
+    peak = torch.cuda.max_memory_allocated()
+    rep = res["chaos"]
+    log(f"[async] serve_stream engine=async: {STREAM['n_waves']} rounds of ~{ASYNC_COHORT} "
+        f"clients, live acc per segment {[round(a, 4) for a in res['acc_served']]}, final "
+        f"{res['acc_final']:.4f}; folded {rep['folded']}, late {rep['late_folds']}, duplicates "
+        f"{rep['duplicates']}, stale {rep['stale_rejected']}, dropped {rep['dropped_uploads']}, "
+        f"demoted {rep['demoted']}; {res['dispatches']} dispatches; wall {wall:.3f}s, peak memory "
+        f"{peak / 2**30:.3f} GiB ({card()}); launches {counts}")
+    if counts["fed3r_stats"] != STREAM["n_clients"] or sum(counts.values()) != STREAM["n_clients"]:
+        raise AssertionError(f"[async] serve_stream launched {counts}")
+    if rep["dropped_uploads"] or rep["stale_rejected"] or len(res["folded"]) != (
+            rep["folded"] + rep["late_folds"]) or rep["duplicates"] == 0:
+        raise AssertionError(f"[async] the chaos counters are off: {rep}")
+    # the drained W against a float64 closed form over the uploads that folded
+    fed, _, _ = stream_setup(STREAM["n_waves"], STREAM["rate"], 0.0, STREAM["n_clients"], d, C,
+                             STREAM["seed"], torch.device("cuda"))
+    mult = {}
+    for _, c in res["folded"]:
+        mult[c] = mult.get(c, 0) + 1
+    A64 = lam * torch.eye(d, dtype=torch.float64, device="cuda")
+    b64 = torch.zeros((d, C), dtype=torch.float64, device="cuda")
+    parts = []
+    for c, m in sorted(mult.items()):
+        cd = fed.client(c)
+        z = torch.as_tensor(cd.features, device="cuda").double()
+        y = torch.nn.functional.one_hot(torch.as_tensor(cd.labels, device="cuda").long(), C)
+        A64 += m * (z.T @ z)
+        b64 += m * (z.T @ y.double())
+        for _ in range(m):
+            parts.append(fed3r.client_stats(z.float(), y.argmax(1), C))
+    W64 = torch.linalg.solve(A64, b64)
+    W64 = W64 / W64.norm(dim=0, keepdim=True).clamp_min(1e-12)
+    W32 = fed3r.solve(fed3r.merge(*parts), lam)
+    e_async = float((res["W"].double() - W64).abs().max())
+    e_batch = float((W32.double() - W64).abs().max())
+    log(f"[async] {len(res['folded'])} uploads folded ({len(mult)} clients): max|W_async - W_f64| "
+        f"{e_async:.3e}  max|W_batch32 - W_f64| {e_batch:.3e}  (limit 2 x batch + 1e-5 = "
+        f"{2 * e_batch + 1e-5:.3e})")
+    if not e_async <= 2 * e_batch + 1e-5:
+        raise AssertionError("[async] the async W is further from float64 than the fp32 batch W")
+
+    # the chaos replay at d 1280: the first clients' uploads, computed once
+    payloads = {k: shard_stats(torch.as_tensor(fed.client(k).features, device="cuda"),
+                               torch.as_tensor(fed.client(k).labels, device="cuda"), C)
+                for k in range(ASYNC_CHAOS_CLIENTS)}
+    cohorts = [sorted(np.random.default_rng((0, r)).choice(
+        ASYNC_CHAOS_CLIENTS, size=ASYNC_COHORT, replace=False).tolist())
+        for r in range(ASYNC_CHAOS_ROUNDS)]
+    latency = latency_profile(ASYNC_CHAOS_CLIENTS, 0.2, straggler_factor=3.0, base=0.3,
+                              jitter=0.5, seed=1)
+
+    def replay(fault, wire, synchronous):
+        eng = _async_engine(torch, synchronous=synchronous, wire=wire)
+        events = chaos_timeline(cohorts, latency, ChaosSpec(**ASYNC_FAULTS[fault]))
+        state = eng.init(d)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        if synchronous:
+            state, rep = run_chaos_timeline(eng, state, cohorts, events,
+                                            lambda c, r: payloads[c])
+        else:  # deliver, close_round and drain never wait for the card
+            state, rep = no_sync(torch, run_chaos_timeline, eng, state, cohorts, events,
+                                 lambda c, r: payloads[c])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        add(counts)
+        return state, rep, counts, wall
+
+    chaos, W_all = {}, None
+    for fault in sorted(ASYNC_FAULTS):
+        sa, ra, ca, wa = replay(fault, WireFormat(), False)
+        ss, rs, cs, ws = replay(fault, WireFormat(), True)
+        same = bool(torch.equal(sa.W, ss.W) and torch.equal(sa.L, ss.L))
+        log(f"[async] chaos {fault}: {ASYNC_CHAOS_ROUNDS} rounds x {ASYNC_COHORT} of "
+            f"{ASYNC_CHAOS_CLIENTS} clients, d {d}: async (no host sync) folded {ra['folded']} late "
+            f"{ra['late_folds']} duplicates {ra['duplicates']} dropped {ra['dropped_uploads']}, "
+            f"makespan {ra['makespan']:.3f} vs sync {rs['makespan']:.3f} (sim time); W and L "
+            f"bitwise the synchronous barrier's: {same}; wall async {wa:.3f}s, sync {ws:.3f}s")
+        if not same or ra["dropped_uploads"] or (fault in ("duplicate", "all")
+                                                 and ra["duplicates"] == 0):
+            raise AssertionError(f"[async] chaos {fault}: async is not the synchronous barrier")
+        if sum(ca.values()) or sum(cs.values()):
+            raise AssertionError(f"[async] chaos {fault}: fp32 launched {ca} / {cs}")
+        chaos[fault] = {"async_s": wa, "sync_s": ws}
+        W_all = sa.W if fault == "all" else W_all
+    wire = WireFormat(kind="int8")
+    sa, ra, ca, wa = replay("all", wire, False)
+    ss, rs, cs, ws = replay("all", wire, True)
+    same = bool(torch.equal(sa.W, ss.W) and torch.equal(sa.L, ss.L))
+    want_a = 2 * (ra["folded"] + ra["late_folds"])
+    want_s = 2 * (rs["folded"] + rs["late_folds"])
+    log(f"[async] chaos all under the int8 wire (tile {wire.tile}): async (no host sync) "
+        f"launches {ca}, sync {cs} (want quantize_tiles = dequant_acc = 2 an upload folded: "
+        f"{want_a}, {want_s}); W bitwise the synchronous barrier's: {same}; max|W_int8 - W_fp32| "
+        f"{float((sa.W - W_all).abs().max()):.3e}; wall async "
+        f"{wa:.3f}s, sync {ws:.3f}s")
+    if not same or ca["quantize_tiles"] != want_a or ca["dequant_acc"] != want_a or \
+            cs["quantize_tiles"] != want_s or cs["dequant_acc"] != want_s or ca["fed3r_stats"]:
+        raise AssertionError("[async] the int8 replay is off")
+    if not bool(torch.isfinite(sa.W).all()):
+        raise AssertionError("[async] the int8 W is not finite")
+
+    # the compressed wires' folds under sync-debug "error": the fp8 and int8
+    # client folds, the fp8 and int8 streams' absorb
+    clients = [(fed.client(k).features, fed.client(k).labels) for k in range(ASYNC_CHAOS_CLIENTS)]
+    host = pack_client_shards(clients, 5, client_ids=list(range(len(clients))),
+                              round_to=PACK_ROUND_TO)
+    packed = PackedClients(*(torch.as_tensor(np.asarray(a), device="cuda") for a in host))
+    _, _, schedule = stream_setup(STREAM["n_waves"], STREAM["rate"], 0.0, STREAM["n_clients"], d,
+                                  C, STREAM["seed"], torch.device("cuda"))
+    timeline = pack_schedule(fed, schedule).to("cuda")
+    folds = {}
+    for kind in ("fp8", "int8"):
+        eng = AccumulationEngine(EngineConfig(n_classes=C, wire=WireFormat(kind=kind)),
+                                 device="cuda")
+        acc = no_sync(torch, eng.accumulate, eng.init(d), packed)
+        seng = StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=lam,
+                                            wire=WireFormat(kind=kind)), device="cuda")
+        st, _ = no_sync(torch, seng.absorb, seng.init(d), timeline)
+        ok = all(bool(torch.isfinite(t).all()) for t in (acc.stats.A, st.L, st.W))
+        folds[kind] = ok
+        if not ok:
+            raise AssertionError(f"[async] the {kind} fold or stream is not finite")
+    log(f"[async] under sync-debug mode 'error', no host sync: AccumulationEngine fold of "
+        f"{len(clients)} clients and StreamingEngine absorb of {timeline.n_waves} waves under fp8 "
+        f"and int8 (finite: {folds})")
+
+    # secure mode: 10 clients masked mod 2^32, 2 drop out
+    cohort = list(range(SECURE_CLIENTS))
+    survivors = [c for c in cohort if c not in SECURE_DROPPED]
+    q, sA, sb = compress.cohort_quantize_int8([payloads[c] for c in cohort])
+    masked = {c: secure_agg.mask_quantized_payload(q[i], c, cohort, 2024)
+              for i, c in enumerate(cohort)}
+
+    def secure_round(ids, uploads):
+        eng = _async_engine(torch, cohort=len(ids), staleness_rounds=0, secure=True,
+                            secure_seed=2024)
+        state = eng.init(d)
+        eng.begin_round(0, ids, 0.0, scales=(sA, sb))
+        for i, c in enumerate(survivors):
+            state, status = eng.deliver(state, UploadEvent(0.1 * i, 0, c, 0), uploads[c])
+            if status != "folded":
+                raise AssertionError(f"[async] secure upload of {c}: {status}")
+        return eng.close_round(state, 0, now=1.0), eng.report()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_drop, rep_drop = secure_round(cohort, masked)
+    torch.cuda.synchronize()
+    wall_secure = time.perf_counter() - t0
+    s_base, _ = secure_round(survivors, {c: q[c] for c in survivors})
+    same = bool(torch.equal(s_drop.W, s_base.W) and torch.equal(s_drop.L, s_base.L))
+    log(f"[async] secure: {SECURE_CLIENTS} clients masked mod 2^32, {len(SECURE_DROPPED)} dropped "
+        f"{list(SECURE_DROPPED)} (dropped_uploads {rep_drop['dropped_uploads']}): retired W and L "
+        f"bitwise the survivor-only unmasked round's: {same}; W finite: "
+        f"{bool(torch.isfinite(s_drop.W).all())}; round with mask recovery {wall_secure:.3f}s")
+    if not same or rep_drop["dropped_uploads"] != len(SECURE_DROPPED) or not bool(
+            torch.isfinite(s_drop.W).all()):
+        raise AssertionError("[async] secure dropout recovery is not bitwise")
+    return {"wall_s": wall, "peak_bytes": peak, "launches": totals, "chaos": chaos}
+
+
+def phase_tiers(torch, ops) -> dict:
+    """An edge/region/cloud tree through StreamingEngine.tiered_absorber at
+    d 1280: blocking and overlapped bitwise, fp32 bitwise the flat sum."""
+    from repro_torch.federated.compress import WireFormat
+    from repro_torch.federated.engine import shard_stats
+    from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
+    from repro_torch.federated.telemetry import Telemetry
+    from repro_torch.federated.tiers import AggregationTree, TierSpec
+
+    d, C, lam = STREAM["d"], STREAM["n_classes"], STREAM["ridge_lambda"]
+    N, S = TIERS["rows"], TIERS["segments"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TIERS["seed"])
+    segs = []
+    for _ in range(S):
+        leaves = 4 * 2 * 2
+        # features on a 1/8 grid in [-2, 2]: every fp32 partial sum of A is exact
+        x = torch.randint(-16, 17, (leaves, N, d), generator=gen, device="cuda").float() / 8.0
+        y = torch.randint(0, C, (leaves, N), generator=gen, device="cuda")
+        n = torch.randint(N // 2, N + 1, (leaves, 1), generator=gen, device="cuda")
+        m = (torch.arange(N, device="cuda")[None, :] < n).float()
+        segs.append((x, y, m))
+
+    def tree(top_wire):
+        return AggregationTree((TierSpec("edge", fan_in=4), TierSpec("region", fan_in=2),
+                                TierSpec("cloud", fan_in=2, wire=top_wire, staleness=1)))
+
+    totals = {k: 0 for k in read_counts(ops)}
+    out = {}
+
+    def run(kind, overlap):
+        t = tree(WireFormat(kind=kind))
+        eng = StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=lam), device="cuda")
+        tel = Telemetry()
+        ab = eng.tiered_absorber(t, overlap=overlap, telemetry=tel)
+        ab.reset(d)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        for seg in segs:
+            if overlap:  # the overlapped absorb never waits for the card
+                no_sync(torch, ab.absorb_segment, *seg)
+            else:
+                ab.absorb_segment(*seg)
+        state = ab.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        for k, v in counts.items():
+            totals[k] += v
+        gauges = {g["name"]: g["value"] for g in tel.snapshot()["gauges"]}
+        quant = 2 * 2 * S if kind == "int8" else 0  # A and b of 2 children a segment
+        want = {k: v for k, v in (("fed3r_stats", t.leaves * S), ("chol_gram", S),
+                                  ("quantize_tiles", quant), ("dequant_acc", quant)) if v}
+        log(f"[tiers] {kind} tree edge 4 / region 2 / cloud 2 ({kind}, staleness 1), {t.leaves} "
+            f"leaves x {N} rows, d {d}, {S} segments, {'overlapped' if overlap else 'blocking'}: "
+            f"wall {wall:.3f}s ({1e3 * wall / S:.2f} ms a segment; {card()}), launches {counts}, "
+            f"tier_overlap_efficiency {gauges.get('tier_overlap_efficiency')}")
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"[tiers] {kind} launched {counts}, want {want}")
+        if gauges.get("tier_overlap_efficiency") != (1.0 if overlap else 0.0):
+            raise AssertionError(f"[tiers] overlap efficiency {gauges}")
+        if not bool(torch.isfinite(state.W).all()):
+            raise AssertionError(f"[tiers] {kind}: W is not finite")
+        out[(kind, overlap)] = {"wall_s": wall, "W": state.W, "L": state.L}
+        return state
+
+    for kind in ("fp32", "int8"):
+        blocking, overlapped = run(kind, False), run(kind, True)
+        same = bool(torch.equal(blocking.W, overlapped.W) and torch.equal(blocking.L, overlapped.L))
+        log(f"[tiers] {kind}: blocking and overlapped W and L bitwise: {same}")
+        if not same:
+            raise AssertionError(f"[tiers] {kind}: blocking and overlapped differ")
+    # the planted fault: the blocking form's one sync a segment is caught
+    ab = StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=lam), device="cuda"
+                         ).tiered_absorber(tree(WireFormat()), overlap=False)
+    ab.reset(d)
+    try:
+        no_sync(torch, ab.absorb_segment, *segs[0])
+        caught = ""
+    except RuntimeError as err:
+        caught = str(err).splitlines()[0]
+    log(f"[tiers] a blocking absorb_segment under sync-debug mode 'error' raises: {caught!r}")
+    if "synchroniz" not in caught:
+        raise AssertionError("[tiers] the sync gate did not see the blocking form's sync")
+    # the flat sum: one shard_stats of each segment's rows, absorb_stats
+    eng = StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=lam), device="cuda")
+    st = eng.init(d)
+    for x, y, m in segs:
+        s = shard_stats(x.reshape(-1, d), y.reshape(-1), C, m.reshape(-1))
+        st = eng.absorb_stats(st, s.A, s.b, s.n)
+    fp32 = out[("fp32", True)]
+    flat = bool(torch.equal(st.W, fp32["W"]) and torch.equal(st.L, fp32["L"]))
+    rel = float((out[("int8", True)]["W"] - st.W).abs().max() / st.W.abs().max())
+    log(f"[tiers] fp32 tree W and L bitwise the flat absorb_stats of shard_stats: {flat}; int8 "
+        f"cloud tier max|W - W_fp32|/max|W_fp32| {rel:.3e} (limit 0.5)")
+    if not flat or not rel < 0.5:
+        raise AssertionError("[tiers] the fp32 tree is not the flat sum, or int8 strays")
+    return {"launches": totals, "walls": {f"{k} {'overlapped' if o else 'blocking'}": v["wall_s"]
+                                          for (k, o), v in out.items()}}
+
+
 def half_way_matrix(tiles_down, tiles_across, tile, seed):
     """An fp32 matrix whose every entry but one a tile sits exactly half-way
     between two integers of its tile's quantization grid (x/s = k + 1/2, no
@@ -2340,6 +2708,8 @@ def main() -> int:
     phase_stream_int8(torch, ops, stream["arrival"]["W"])
     phase_uplink(torch, ops, sim)
     phase_secure(torch, ops, sim)
+    asy = phase_async(torch, ops)
+    tiers = phase_tiers(torch, ops)
     srv = phase_serve(torch, ops)
     phase_serve_consistency(torch, ops)
     t_phases = time.perf_counter() - t_all
@@ -2359,7 +2729,9 @@ def main() -> int:
     entries = [
         {"name": "fed3r_stats", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fed3r_stats.cu",
-         "replaces": "src/repro/kernels/fed3r_stats.py:57", "launches": sl["launches"], **kern},
+         "replaces": "src/repro/kernels/fed3r_stats.py:57",
+         "launches": sl["launches"] + asy["launches"]["fed3r_stats"]
+         + tiers["launches"]["fed3r_stats"], **kern},
         {"name": "rff", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rff.cu",
          "replaces": "src/repro/kernels/rff.py:42", "launches": rf["launches"],
          **{k: v for k, v in kern_rff.items() if k != "gemm_only_ms"}},
@@ -2373,21 +2745,19 @@ def main() -> int:
          "launches": heads["lru strict"]["launches"], **kern_batched},
         {"name": "quantize_tiles", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
          "replaces": "src/repro/kernels/quant.py:77",
-         "launches": wire["launches"]["quantize_tiles"], **kern_quant["quantize_tiles"]},
+         "launches": wire["launches"]["quantize_tiles"] + asy["launches"]["quantize_tiles"]
+         + tiers["launches"]["quantize_tiles"], **kern_quant["quantize_tiles"]},
         {"name": "dequant_acc", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
          "replaces": "src/repro/kernels/quant.py:108",
-         "launches": wire["launches"]["dequant_acc"], **kern_quant["dequant_acc"]},
+         "launches": wire["launches"]["dequant_acc"] + asy["launches"]["dequant_acc"]
+         + tiers["launches"]["dequant_acc"], **kern_quant["dequant_acc"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:85",
          "launches": srv["full"]["launches"], **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -251,7 +251,8 @@ def pack_arrival_waves(
     if mesh is not None:
         raise NotImplementedError(
             "pack_arrival_waves(mesh=...): device meshes are the distributed "
-            "layer, ROADMAP Queue 1 item 8; pass num_shards= for the padding"
+            "layer, the collective half of ROADMAP Queue 1 item 8; pass num_shards= "
+            "for the padding"
         )
     if num_shards is not None and num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
@@ -380,7 +381,8 @@ def pack_personal_cohort(
     if mesh is not None:
         raise NotImplementedError(
             "pack_personal_cohort(mesh=...): device meshes are the distributed "
-            "layer, ROADMAP Queue 1 item 8; pass num_shards= for the padding"
+            "layer, the collective half of ROADMAP Queue 1 item 8; pass num_shards= "
+            "for the padding"
         )
     if num_shards is not None and num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
@@ -519,7 +521,8 @@ def pack_cohort_batches(
     if mesh is not None:
         raise NotImplementedError(
             "pack_cohort_batches(mesh=...): device meshes are the distributed "
-            "layer, ROADMAP Queue 1 item 8; pass num_shards= for the padding"
+            "layer, the collective half of ROADMAP Queue 1 item 8; pass num_shards= "
+            "for the padding"
         )
     if num_shards is not None and num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")

@@ -25,13 +25,18 @@ driver.  Three generators:
 draws seeded, replayable tenant-attributed query traces under bounded-Zipf
 popularity skew.
 
-Not copied yet: the chaos-mode upload fault injector (``ChaosSpec`` …
-``timeline_from_json``), which waits for the asynchronous round engine
-(ROADMAP Queue 1 item 8).
+The chaos half (:class:`UploadEvent` … :func:`timeline_from_json`) is the
+upload side of the process: seeded, replayable fault schedules (drop with
+retransmit, duplicate, reorder, delay) that the asynchronous round engine
+(:mod:`repro_torch.federated.async_engine`) consumes.  It is numpy only and
+draws exactly the reference's events for the same seed; a JSON timeline
+written by either package loads in the other.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import json
+from dataclasses import asdict, dataclass
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -40,6 +45,7 @@ from repro_torch.data.pipeline import (
     PackedArrivals,
     pack_arrival_waves,
 )
+from repro_torch.federated.telemetry import get_telemetry
 
 Schedule = List[List[int]]
 
@@ -168,6 +174,188 @@ def zipf_traffic(
     if permute:
         ranks = rng.permutation(n_tenants)[ranks]
     return ranks.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Chaos-mode fault injection — the UPLOAD side of the arrival process
+# ---------------------------------------------------------------------------
+#
+# The generators above decide WHEN clients have data; the chaos injector
+# decides what the network does to the resulting statistics uploads: seeded,
+# replayable schedules that DROP uploads (forcing retransmits), DUPLICATE
+# deliveries, REORDER concurrent arrivals, and DELAY stragglers, while the
+# asynchronous engine's folded classifier stays bitwise the synchronous
+# barrier's.
+
+
+class UploadEvent(NamedTuple):
+    """One statistics-upload delivery, as the server observes it.
+
+    ``t`` is the delivery time as an OFFSET from the round's start (so the
+    same timeline replays under both the async cadence and the synchronous
+    barrier's shifted round starts).  ``attempt`` counts the retransmits
+    that preceded this copy (0 = the first send got through); duplicated
+    deliveries share the attempt number of the copy they clone.
+    """
+
+    t: float
+    round_id: int
+    client: int
+    attempt: int
+
+
+@dataclass(frozen=True)
+class ChaosSpec:
+    """Seeded fault-injection knobs of one chaos schedule.
+
+    Every probability is per-upload: ``drop`` loses the send (the client
+    retransmits after ``rto``, re-flipping the coin, with the LAST of
+    ``max_attempts`` always delivering — chaos perturbs timing, never the
+    delivered set, so exact-once final states stay comparable);
+    ``duplicate`` delivers a second identical copy within ``rto``;
+    ``reorder`` jitters the delivery by up to ±``rto`` (swapping concurrent
+    arrivals); ``delay`` multiplies the client's latency by
+    ``delay_factor`` (the transient-straggler fault, distinct from the
+    persistent per-client latency profile).
+    """
+
+    drop: float = 0.0
+    duplicate: float = 0.0
+    reorder: float = 0.0
+    delay: float = 0.0
+    delay_factor: float = 8.0
+    rto: float = 0.5
+    max_attempts: int = 8
+    seed: int = 0
+
+    def __post_init__(self):
+        for name in ("drop", "duplicate", "reorder", "delay"):
+            p = getattr(self, name)
+            if not 0.0 <= p <= 1.0:
+                raise ValueError(f"{name} must be a probability, got {p}")
+        if self.max_attempts < 1:
+            raise ValueError(f"max_attempts must be >= 1, got {self.max_attempts}")
+
+
+def latency_profile(
+    n_clients: int,
+    straggler_frac: float,
+    *,
+    straggler_factor: float = 8.0,
+    base: float = 0.3,
+    jitter: float = 0.5,
+    seed: int = 0,
+) -> np.ndarray:
+    """Per-client upload latencies with a persistent straggler tail.
+
+    A seeded ``straggler_frac`` of the federation is ``straggler_factor``×
+    slower than the ``base``-latency body (uniform ±``jitter`` spread) —
+    the population the adaptive dropout policy demotes.
+    """
+    if not 0.0 <= straggler_frac <= 1.0:
+        raise ValueError(f"straggler_frac must be in [0, 1], got {straggler_frac}")
+    rng = np.random.default_rng((seed, 0x51))
+    lat = base * (1.0 + jitter * rng.uniform(-1.0, 1.0, size=n_clients))
+    n_slow = int(round(straggler_frac * n_clients))
+    slow = rng.choice(n_clients, size=n_slow, replace=False)
+    lat[slow] *= straggler_factor
+    return lat.astype(np.float64)
+
+
+def chaos_round_events(
+    cohort: Sequence[int],
+    latency: np.ndarray,
+    spec: ChaosSpec,
+    round_id: int,
+) -> List[UploadEvent]:
+    """The fault-injected delivery events of ONE round's cohort.
+
+    Deterministic in ``(spec.seed, round_id, client)``: re-generating a
+    round replays byte-identical faults, so an offending schedule can be
+    persisted and replayed.  Each injected fault (delay, drop+retransmit,
+    reorder, duplicate) is also recorded as a ``chaos_fault`` event in the
+    telemetry flight recorder.
+    """
+    telemetry = get_telemetry()
+
+    def fault(kind: str, c: int, **fields) -> None:
+        telemetry.event(
+            "chaos_fault", fault=kind, client=int(c), round=int(round_id), **fields
+        )
+
+    events: List[UploadEvent] = []
+    for c in cohort:
+        rng = np.random.default_rng((spec.seed, round_id, int(c), 0xC4A0))
+        base = float(latency[int(c)])
+        if rng.random() < spec.delay:
+            base *= spec.delay_factor
+            fault("delay", c, factor=spec.delay_factor)
+        attempt = 0
+        while attempt < spec.max_attempts - 1 and rng.random() < spec.drop:
+            attempt += 1  # this copy was lost; retransmit after rto
+        if attempt:
+            fault("drop", c, retransmits=attempt)
+        t = base + attempt * spec.rto
+        if rng.random() < spec.reorder:
+            t = max(1e-6, t + rng.uniform(-spec.rto, spec.rto))
+            fault("reorder", c)
+        events.append(UploadEvent(t=t, round_id=round_id, client=int(c), attempt=attempt))
+        if rng.random() < spec.duplicate:
+            fault("duplicate", c)
+            events.append(
+                UploadEvent(
+                    t=t + rng.uniform(1e-6, spec.rto),
+                    round_id=round_id,
+                    client=int(c),
+                    attempt=attempt,
+                )
+            )
+    events.sort(key=lambda e: (e.t, e.client, e.attempt))
+    return events
+
+
+def chaos_timeline(
+    cohorts: Sequence[Sequence[int]],
+    latency: np.ndarray,
+    spec: ChaosSpec,
+) -> List[UploadEvent]:
+    """The full fault-injected timeline over a pre-drawn cohort sequence."""
+    out: List[UploadEvent] = []
+    for r, cohort in enumerate(cohorts):
+        out.extend(chaos_round_events(cohort, latency, spec, r))
+    return out
+
+
+def timeline_to_json(
+    cohorts: Sequence[Sequence[int]],
+    latency: np.ndarray,
+    spec: ChaosSpec,
+    events: Sequence[UploadEvent],
+) -> str:
+    """Serialize a chaos schedule for artifact upload / offline replay."""
+    return json.dumps(
+        {
+            "spec": asdict(spec),
+            "cohorts": [[int(c) for c in cohort] for cohort in cohorts],
+            "latency": [float(x) for x in np.asarray(latency)],
+            "events": [[float(e.t), e.round_id, e.client, e.attempt] for e in events],
+        },
+        indent=2,
+    )
+
+
+def timeline_from_json(blob: str) -> Dict[str, object]:
+    """Rehydrate a chaos schedule persisted by :func:`timeline_to_json`."""
+    obj = json.loads(blob)
+    return {
+        "spec": ChaosSpec(**obj["spec"]),
+        "cohorts": [[int(c) for c in cohort] for cohort in obj["cohorts"]],
+        "latency": np.asarray(obj["latency"], np.float64),
+        "events": [
+            UploadEvent(t=float(t), round_id=int(r), client=int(c), attempt=int(a))
+            for t, r, c, a in obj["events"]
+        ],
+    }
 
 
 def pack_schedule(

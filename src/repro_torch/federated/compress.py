@@ -161,8 +161,10 @@ def _fp8_roundtrip(x: torch.Tensor, tile: int) -> torch.Tensor:
     Mt, Nt = xp.shape[0] // tile, xp.shape[1] // tile
     blocks = xp.reshape(Mt, tile, Nt, tile)
     absmax = blocks.abs().amax(dim=(1, 3))
-    inv = torch.tensor(1.0 / FP8_QMAX, dtype=torch.float32, device=x.device)
-    scales = torch.where(absmax > 0.0, absmax * inv, torch.ones_like(absmax))[:, None, :, None]
+    # a Python scalar multiplies as its fp32 rounding, fl(1/448), with no
+    # host-to-device copy
+    scales = torch.where(absmax > 0.0, absmax * (1.0 / FP8_QMAX),
+                         torch.ones_like(absmax))[:, None, :, None]
     q = (blocks / scales).to(torch.float8_e4m3fn)
     back = q.to(torch.float32) * scales
     return back.reshape(xp.shape)[:M, :N]

@@ -11,22 +11,29 @@ the single-process merge backend needs:
   (:func:`repro_torch.kernels.ops.fed3r_stats`): the CUDA kernel for a CUDA
   tensor, its plain PyTorch version for a CPU tensor.
 * :class:`DistConfig` — ``aggregation="merge"`` (the engine's left fold IS
-  the global sum).  ``"psum"``, meshes and aggregation trees are the
-  distributed layer of a later slice and raise ``NotImplementedError``.
+  the global sum).  ``"psum"``, meshes and mesh-routed aggregation trees
+  are the collective half of the distributed layer, a later slice, and
+  raise ``NotImplementedError``.  The host-tier trees run on the merge
+  backend (:mod:`repro_torch.federated.tiers`).
 * :class:`DistContext` — the per-engine handle: the host dispatch counter
   (homed in the telemetry registry as ``engine_dispatches_total``) and the
   registry's spans.
+* :func:`shard_cohort` — the deterministic partition of a cohort over
+  shards (pure Python).
+
+The reference's ``donate`` has no counterpart: the port's engines update
+their carried buffers in place where the reference donates them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.federated.telemetry import Telemetry, get_telemetry
 
-_DIST_LATER = "the distributed layer is ROADMAP Queue 1 item 8"
+_DIST_LATER = "the distributed layer is the collective half of ROADMAP Queue 1 item 8"
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -53,8 +60,8 @@ class DistConfig:
 
     ``"merge"`` is the single-process backend: the engine's strict left
     fold already produced the global statistics.  ``"psum"`` (an all-reduce
-    over a device mesh), ``mesh`` and ``tree`` (the N-tier aggregation tree)
-    are not ported yet.
+    over a device mesh), ``mesh`` and ``tree`` (the N-tier tree routed over
+    mesh axes) are the collective half of ROADMAP Queue 1 item 8 and raise.
     """
 
     aggregation: str = "merge"  # "merge"; "psum" waits for the dist layer
@@ -111,3 +118,19 @@ class DistDispatchMixin:
     @property
     def dispatches(self) -> int:
         return self.dist.dispatches
+
+
+def shard_cohort(cohort: Sequence[int], shard: int, n_shards: int) -> Tuple[int, ...]:
+    """Deterministic partition of a (possibly partial) cohort across shards.
+
+    Round-robin by sorted cohort position, so the partition is independent
+    of arrival order, covers every client exactly once, and stays balanced
+    even when the cohort is PARTIAL (fewer clients than slots: late joiners,
+    demoted stragglers dropped by the health tracker).  The psum mode of the
+    merge-on-arrival engine, where each shard scatters only the clients it
+    owns, builds on it.
+    """
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} out of range for {n_shards} shards")
+    ordered = sorted(int(c) for c in cohort)
+    return tuple(c for i, c in enumerate(ordered) if i % n_shards == shard)

@@ -36,8 +36,8 @@ made exact rather than approximate.
   statistics step (:func:`repro_torch.launch.steps.make_fed3r_stats_step`)
   is built on the two.
 
-Not ported yet: the psum/mesh/tree backends (ROADMAP Queue 1 item 8), and
-with them the compressed wire's psum form.
+Not ported yet: the psum/mesh/tree backends (the collective half of ROADMAP
+Queue 1 item 8), and with them the compressed wire's psum form.
 """
 from __future__ import annotations
 
@@ -92,7 +92,7 @@ def aggregate(
     if backend == "psum":
         raise NotImplementedError(
             f"aggregate(backend='psum', axis_names={tuple(axis_names)}): the distributed "
-            "layer is ROADMAP Queue 1 item 8")
+            "layer's collective half, ROADMAP Queue 1 item 8")
     raise ValueError(f"unknown aggregation backend: {backend!r}")
 
 

@@ -107,6 +107,9 @@ class PersonalizationEngine(DistDispatchMixin):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dist = DistContext(cfg.dist, engine="personalization")
+        # the α grid on the engine's device, copied once here rather than
+        # on every sweep (a host-to-device copy blocks the host)
+        self._alpha_grid = torch.tensor(cfg.alpha_grid, dtype=torch.float32, device=self.device)
 
     # ---- pure core --------------------------------------------------------
 
@@ -151,7 +154,7 @@ class PersonalizationEngine(DistDispatchMixin):
           an ascending grid starting at 0 degrades to the global head.
         * ``"sse"`` — the raw held-out ridge residual Σ_ho ‖Wᵀφ(x) − e_y‖².
         """
-        grid = torch.tensor(self.cfg.alpha_grid, dtype=torch.float32, device=L.device)
+        grid = self._alpha_grid
         z_trT = z_tr.transpose(-1, -2)
         S = z_trT @ z_tr  # (K, d, d)
         Bt = z_trT @ yh_tr  # (K, d, C)

@@ -48,8 +48,10 @@ bitwise invariant to the presentation order of concurrent arrivals; across
 waves the stream order IS the semantics.  :class:`ReferenceArrivalLoop`
 keeps the subtractive Woodbury update as the numerical foil.
 
-Not ported yet: the ``psum`` backend (and with it the wire's psum form),
-meshes and ``tiered_absorber`` (ROADMAP Queue 1 item 8).
+:meth:`StreamingEngine.tiered_absorber` folds segments of edge payloads
+through a host-tier aggregation tree (:mod:`repro_torch.federated.tiers`).
+Not ported yet: the ``psum`` backend (and with it the wire's psum form) and
+meshes, the collective half of ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -295,10 +297,14 @@ class StreamingEngine(DistDispatchMixin):
             )
 
     def tiered_absorber(self, tree, **kwargs):
-        raise NotImplementedError(
-            "tiered_absorber: the N-tier aggregation tree is the distributed layer, "
-            "ROADMAP Queue 1 item 8"
-        )
+        """The N-tier fold entry point: an overlapped
+        :class:`repro_torch.federated.tiers.TieredAbsorber` pipeline over
+        this engine (host-level tree; upper-tier reductions of segment t
+        overlap the lower folds of segment t+1).  Lazy import — tiers
+        builds on this module."""
+        from repro_torch.federated.tiers import TieredAbsorber
+
+        return TieredAbsorber(self, tree, **kwargs)
 
     @torch.no_grad()
     def refresh(self, state: StreamState) -> StreamState:

@@ -1,7 +1,8 @@
 """Live-refresh classifier serving over a streaming FED3R arrival process.
 
-The port of the reference's ``launch/serve_stream.py`` for its synchronous
-driver (``engine="lru"``) and its slot-engine driver (``engine="slots"``).
+The port of the reference's ``launch/serve_stream.py``: its synchronous
+driver (``engine="lru"``), its slot-engine driver (``engine="slots"``) and
+its asynchronous driver (``engine="async"``).
 Clients arrive over time (Poisson or
 label-skewed schedule), the server folds each arrival SEGMENT through the
 streaming engine (:mod:`repro_torch.federated.streaming_engine`), and
@@ -21,13 +22,24 @@ its absorb stage, query bursts are admitted to its queue and answered by
 the one-dispatch serve stage against the pinned global slot (refreshed at
 tick time whenever the stream advanced — the slot engine's solve stage owns
 the refresh, so the ``--policy`` staleness knobs report the stream state's
-lag while queries see a tick-fresh head).  The asynchronous chaos rounds
-(``--engine async``, ROADMAP Queue 1 item 8) are not ported yet.
+lag while queries see a tick-fresh head).
+
+``--engine async`` serves over ASYNCHRONOUS merge-on-arrival rounds
+(:mod:`repro_torch.federated.async_engine`): per round a cohort (~``--rate``
+clients, sampled from the health tracker's currently-eligible set) uploads
+through a seeded chaos schedule (duplicates deduped, reordered and delayed
+arrivals folding late under the staleness bound), rounds close at their
+deadline instead of waiting for stragglers, and query bursts are answered
+by the LIVE classifier — retired state plus every open partial cohort.
+The staleness columns report open (unretired) rounds and the samples
+sitting in their slots; the final report carries the chaos counters.
 Everything runs on ``--device`` (the card by default).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cuda \\
       --waves 24 --rate 4 --policy every-k --k 4 --segment 6 --engine slots
+  PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
+      --waves 12 --segment 3 --engine async
 """
 from __future__ import annotations
 
@@ -95,19 +107,29 @@ def serve_stream(
 
     ``engine="lru"`` is the synchronous driver; ``engine="slots"`` rides the
     continuous-batching slot engine (absorb/serve stages, one dispatch each)
-    behind the same log shape.  The log has the reference's keys, plus ``W``
-    (the final served classifier), ``trace`` (the :class:`WaveTrace` of the
-    whole stream) and ``packed`` (the host timeline that was absorbed).
+    behind the same log shape; ``engine="async"`` serves the live
+    classifier of the merge-on-arrival round engine under a seeded chaos
+    arrival schedule.  The log has the reference's keys, plus ``W`` (the
+    final served classifier); the synchronous engines add ``trace`` (the
+    :class:`WaveTrace` of the whole stream) and ``packed`` (the host
+    timeline that was absorbed), the async engine ``folded`` (the
+    (round, client) uploads that folded).
     """
-    if engine == "async":
-        raise NotImplementedError(
-            "engine='async': asynchronous merge-on-arrival rounds are ROADMAP Queue 1 item 8"
-        )
-    if engine not in ("lru", "slots"):
+    if engine not in ("lru", "slots", "async"):
         raise ValueError(f"unknown serving engine: {engine!r}")
     if policy not in ("arrival", "every-k"):
         raise ValueError(f"unknown refresh policy: {policy!r}")
     dev = resolve_device(device)
+    if engine == "async":
+        fed, test = make_federated_features(
+            seed=seed, n=N_SAMPLES, d=d, n_classes=n_classes, n_clients=n_clients,
+            alpha=ALPHA, noise=NOISE, device=dev,
+        )
+        return _serve_async(
+            fed, test, n_rounds=n_waves, rate=rate, segment=segment, d=d,
+            n_classes=n_classes, ridge_lambda=ridge_lambda, seed=seed, verbose=verbose,
+            device=dev,
+        )
     fed, test, schedule = stream_setup(n_waves, rate, skew, n_clients, d, n_classes, seed, dev)
     packed = pack_schedule(fed, schedule)
     timeline = packed.to(dev)  # one copy to the device; segments are views
@@ -208,6 +230,96 @@ def serve_stream(
     return log
 
 
+def _serve_async(
+    fed, test, *, n_rounds, rate, segment, d, n_classes, ridge_lambda, seed, verbose, device,
+) -> dict:
+    """The ``engine="async"`` loop: chaos-injected merge-on-arrival rounds
+    with query bursts served from the LIVE classifier between segments."""
+    from repro_torch.federated.arrivals import ChaosSpec, chaos_round_events, latency_profile
+    from repro_torch.federated.async_engine import (
+        AsyncConfig,
+        AsyncRoundEngine,
+        client_payloads,
+    )
+
+    t0 = time.perf_counter()
+    per_round = max(1, int(round(rate)))
+    eng = AsyncRoundEngine(AsyncConfig(
+        n_classes=n_classes, ridge_lambda=ridge_lambda, cohort=per_round,
+        deadline=1.0, staleness_rounds=1,
+    ), device=device)
+    state = eng.init(d)
+    payloads = client_payloads(fed, n_classes, device)
+    latency = latency_profile(fed.n_clients, 0.2, seed=seed)
+    spec = ChaosSpec(duplicate=0.05, reorder=0.2, delay=0.1, seed=seed)
+    log: dict = {
+        "wave": [], "clients_seen": [], "samples_seen": [],
+        "stale_waves": [], "stale_samples": [], "acc_served": [],
+        "served_head": "global", "engine": "async", "folded": [],
+    }
+    seen = 0
+    if verbose:
+        print(f"engine=async rounds={n_rounds} cohort~{per_round} "
+              f"deadline={eng.cfg.deadline} staleness={eng.cfg.staleness_rounds} "
+              f"device={device}")
+        print("round | arrived | samples retired | open (rounds/samples) | acc(live W)")
+
+    def deliver(state, ev, r):
+        state, status = eng.deliver(state, ev, payloads[ev.client], now=float(r) + ev.t)
+        if status in ("folded", "late"):
+            log["folded"].append((ev.round_id, ev.client))
+        return state
+
+    for lo in range(0, n_rounds, segment):
+        for r in range(lo, min(lo + segment, n_rounds)):
+            eligible = [c for c in range(fed.n_clients) if eng.health.is_eligible(c, r)]
+            rng = np.random.default_rng((seed, r, 0xA51))
+            take = min(per_round, len(eligible))
+            cohort = sorted(
+                int(eligible[i]) for i in rng.choice(len(eligible), size=take, replace=False)
+            )
+            eng.begin_round(r, cohort, float(r))
+            events = chaos_round_events(cohort, latency, spec, r)
+            on_time = [e for e in events if e.t <= eng.cfg.deadline]
+            late = [e for e in events if e.t > eng.cfg.deadline]
+            for ev in sorted(on_time):
+                state = deliver(state, ev, r)
+            state = eng.close_round(state, r, now=float(r) + eng.cfg.deadline)
+            # stragglers past the deadline keep merging (staleness bound)
+            for ev in sorted(late):
+                state = deliver(state, ev, r)
+            seen += len(cohort)
+        acc = float(fed3r.accuracy(eng.live_classifier(state), test.features, test.labels))
+        open_rounds = eng._next_begin - eng._next_retire
+        open_samples = float(state.n_slots.sum())
+        log["wave"].append(eng._next_begin)
+        log["clients_seen"].append(seen)
+        log["samples_seen"].append(float(state.n))
+        log["stale_waves"].append(open_rounds)
+        log["stale_samples"].append(open_samples)
+        log["acc_served"].append(acc)
+        if verbose:
+            print(f"{eng._next_begin:5d} | {seen:7d} | {float(state.n):15.0f} | "
+                  f"{open_rounds:5d} /{open_samples:8.0f} | {acc:.4f}")
+    state = eng.drain(state)
+    acc = float(fed3r.accuracy(eng.classifier(state), test.features, test.labels))
+    log["acc_final"] = acc
+    log["dispatches"] = eng.dispatches
+    log["chaos"] = eng.report()
+    log["wall_s"] = time.perf_counter() - t0
+    log["W"] = eng.classifier(state)
+    get_telemetry().gauge(
+        "driver_wall_seconds", driver="serve_stream", engine="async"
+    ).set(log["wall_s"])
+    if verbose:
+        rep = log["chaos"]
+        print(f"final drain: acc={acc:.4f}  ({eng.dispatches} dispatches; "
+              f"folded={rep['folded']} late={rep['late_folds']} "
+              f"dup={rep['duplicates']} stale={rep['stale_rejected']} "
+              f"dropped={rep['dropped_uploads']}, {log['wall_s']:.2f}s)")
+    return log
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--waves", type=int, default=24)
@@ -223,8 +335,8 @@ def main() -> None:
     ap.add_argument("--classes", type=int, default=10)
     ap.add_argument("--ridge-lambda", type=float, default=1e-2)
     ap.add_argument("--engine", choices=("lru", "slots", "async"), default="lru",
-                    help="the synchronous driver or the slot-serving engine "
-                         "(async is not ported yet)")
+                    help="the synchronous driver, the slot-serving engine, or "
+                         "chaos-injected async merge-on-arrival rounds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()

@@ -49,7 +49,12 @@ from repro_torch.federated.engine import AccumulationEngine, EngineConfig  # noq
 from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine  # noqa: E402
 from repro_torch.federated.telemetry import Telemetry  # noqa: E402
 from repro_torch.kernels.ops import chol_gram, dequant_accumulate, quantize_tiles  # noqa: E402
-from repro_torch.kernels.ref import dequant_acc_ref, expand_tiles, quantize_tiles_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    dequant_acc_ref,
+    expand_tiles,
+    pad_to_tiles,
+    quantize_tiles_ref,
+)
 
 D, C = 48, 7
 STATS_REL = 1e-5  # fp32 sums of ≤ 100 products in two orders, relative to max|A|
@@ -274,6 +279,43 @@ def test_fp8_roundtrip_equals_reference_bitwise(shape, tile):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # e4m3 carries a 3-bit mantissa: relative error ≤ 2⁻⁴ of the tile's scale range
     assert float((got - _t(x)).abs().max()) <= float(np.abs(x).max()) / 8
+
+
+def _fp8_roundtrip_tensor_reciprocal(x, tile):
+    """``_fp8_roundtrip`` as it was before the reciprocal became a Python
+    scalar (a host-to-device copy on the card): fl(1/448) as a tensor."""
+    M, N = x.shape
+    xp = pad_to_tiles(x.to(torch.float32), tile)
+    blocks = xp.reshape(xp.shape[0] // tile, tile, xp.shape[1] // tile, tile)
+    absmax = blocks.abs().amax(dim=(1, 3))
+    inv = torch.tensor(1.0 / compress.FP8_QMAX, dtype=torch.float32, device=x.device)
+    scales = torch.where(absmax > 0.0, absmax * inv, torch.ones_like(absmax))[:, None, :, None]
+    back = (blocks / scales).to(torch.float8_e4m3fn).to(torch.float32) * scales
+    return back.reshape(xp.shape)[:M, :N]
+
+
+@pytest.mark.parametrize("tile", [1, 4, 16])
+def test_fp8_roundtrip_bits_unchanged_by_the_scalar_reciprocal(tile):
+    """Magnitudes from 1e-30 to 1e30, zeros, fp32 subnormals and all-zero,
+    all-subnormal and mixed tiles: the output bits (NaN and inf included)
+    are those of the tensor-reciprocal form."""
+    rng = np.random.default_rng(21)
+    mags = 10.0 ** rng.uniform(-30, 30, size=(64, 48))
+    x = (np.where(rng.random((64, 48)) < 0.5, -1.0, 1.0) * mags).astype(np.float32)
+    x[0, :] = [1e-30, 1e30, 0.0, -0.0, 1e-40, -1e-45, 1.4e-45, 1.17e-38] * 6
+    x[16:32, 16:32] = 0.0  # an all-zero tile
+    x[32:48, :16] = (rng.integers(1, 2**23, size=(16, 16)) * 1.4e-45).astype(np.float32)
+    x[48:, 32:] = rng.choice([0.0, 1e-30, 1e30, 3e-39], size=(16, 16)).astype(np.float32)
+    assert (np.abs(x[32:48, :16]) < np.finfo(np.float32).tiny).all()  # subnormal tile
+    xt = _t(x)
+    got = compress._fp8_roundtrip(xt, tile)
+    want = _fp8_roundtrip_tensor_reciprocal(xt, tile)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    fl = torch.tensor(1.0 / compress.FP8_QMAX, dtype=torch.float32)
+    for v in (1e-30, 1e30, 0.0, 1e-40, 1.4e-45, 3.4e38):  # the scale step on its own
+        t = torch.tensor([v], dtype=torch.float32)
+        assert torch.equal((t * (1.0 / compress.FP8_QMAX)).view(torch.int32),
+                           (t * fl).view(torch.int32))
 
 
 @pytest.mark.parametrize("rank", [8, 16, 48])

@@ -408,6 +408,37 @@ def test_ties_select_the_first_grid_entry():
     assert torch.argmin(scores, dim=0).tolist() == [0, 0, 0]  # first occurrence, per column
 
 
+def test_alpha_grid_is_built_once_and_heads_are_unchanged():
+    """The α grid lives on the engine's device from construction (no copy a
+    sweep); the heads are bitwise those of a grid built anew at the sweep,
+    as before.  Half the tenants have two classes swapped, so the sweep
+    picks personalized heads."""
+    fed, _ = jmake_federated_features(seed=11, n=2000, d=D, n_classes=C, n_clients=6,
+                                      alpha=0.3, noise=2.0)
+    clients = []
+    for k in range(fed.n_clients):
+        cd = fed.client(k)
+        labels = np.asarray(cd.labels)
+        if k % 2 == 1:
+            labels = np.where(labels == 0, 1, np.where(labels == 1, 0, labels))
+        clients.append((cd.features, labels))
+    packed = pack_personal_cohort(clients, client_ids=list(range(fed.n_clients)), cohort_size=8)
+    _, state = _states(packed)
+    grid = (0.0, 1.0, 4.0, 16.0, 64.0)
+    eng = _engine(alpha_grid=grid)
+    built = eng._alpha_grid
+    assert built.dtype == torch.float32 and built.device == eng.device
+    assert built.tolist() == list(grid)
+    heads = eng.solve_heads(state, packed)
+    assert eng._alpha_grid is built  # the sweep made no grid of its own
+    fresh = _engine(alpha_grid=grid)
+    fresh._alpha_grid = torch.tensor(grid, dtype=torch.float32)  # the pre-repair construction
+    want = fresh.solve_heads(state, packed)
+    assert torch.equal(heads.alpha, want.alpha) and torch.equal(heads.W, want.W)
+    assert torch.equal(heads.score, want.score)
+    assert bool((heads.alpha > 0).any())  # the sweep picked personalized heads
+
+
 def test_heads_are_bit_invariant_to_request_order():
     clients = _make_clients(9, 7)
     ids = list(range(7))

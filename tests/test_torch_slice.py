@@ -243,5 +243,6 @@ def test_port_imports_without_jax_or_the_reference_package():
                  "optim.optim", "optim.schedules", "federated.algorithms",
                  "federated.round_engine", "federated.simulator", "federated.fed3r_driver",
                  "core.probe", "federated.engine", "models.model", "launch.train",
-                 "models.convert", "tree"):
+                 "models.convert", "tree", "federated.async_engine", "federated.tiers",
+                 "launch.mesh", "launch.obs_report"):
         assert "repro_torch." + name in names

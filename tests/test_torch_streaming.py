@@ -51,6 +51,7 @@ from repro_torch.federated.streaming_engine import (  # noqa: E402
     batch_equivalent,
     stream_state_from_jax,
 )
+from repro_torch.federated.tiers import AggregationTree, TierSpec  # noqa: E402
 from repro_torch.kernels import chol_update as chol_update_mod  # noqa: E402
 from repro_torch.kernels.ops import chol_gram  # noqa: E402
 from repro_torch.kernels.ref import chol_gram_ref  # noqa: E402
@@ -534,8 +535,11 @@ def test_streaming_rejects_unported_options():
         _cfg(wire=WireFormat(kind="int4"))
     with pytest.raises(NotImplementedError, match="item 8"):
         _cfg(dist=DistConfig(aggregation="psum"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _engine().tiered_absorber(tree=None)
+    # host-tier trees are ported (tests/test_torch_tiers.py); a mesh-routed
+    # tree waits for the collective half
+    mesh_routed = AggregationTree((TierSpec("data", fan_in=1, axis="data"),))
+    with pytest.raises(ValueError, match="collective half of ROADMAP Queue 1 item 8"):
+        _engine().tiered_absorber(mesh_routed)
     with pytest.raises(TypeError):
         StreamingEngine(_cfg(), rff_params=object(), device="cpu")
 
@@ -563,11 +567,14 @@ def test_serve_stream_on_the_cpu(policy, k):
 
 
 def test_serve_stream_refuses_unported_engines():
-    # engine="slots" is ported (tests/test_torch_serving.py); async is not
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve_stream_mod.serve_stream(engine="async", device="cpu")
-    with pytest.raises(ValueError):
+    # engine="slots" (tests/test_torch_serving.py) and engine="async"
+    # (tests/test_torch_async.py) are ported; an unknown engine is refused
+    with pytest.raises(ValueError, match="unknown serving engine"):
         serve_stream_mod.serve_stream(engine="fifo", device="cpu")
+    log = serve_stream_mod.serve_stream(engine="async", device="cpu", n_waves=2, rate=2.0,
+                                        segment=2, n_clients=8, d=8, n_classes=3,
+                                        verbose=False)
+    assert log["engine"] == "async" and log["wave"] == [2]
 
 
 def test_streaming_modules_import_without_jax():
