@@ -91,12 +91,29 @@ counts just after.
                 1 and (int8) quantize_tiles and dequant_acc 4 a segment; no
                 host sync in an overlapped ``absorb_segment``,
                 ``tier_overlap_efficiency`` 1.0.
-15. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
+15. dist     -- the psum backend (``DistConfig(aggregation="psum", mesh=
+                make_host_mesh())``), first at world 1 under NCCL in this
+                process: ``launch/train.py`` phase 1 (A, b bitwise [slice]'s)
+                and [ft]'s full-width round (bitwise) under psum, the stream
+                at d 1280 (fp32 and int8 wires), ``AccumulationEngine`` on the
+                simulator's clients, a 32-tenant head solve and the async ring
+                under a ``mesh_tree`` (each bitwise its merge engine, the same
+                launches), accumulate / absorb / ``RoundEngine.step`` /
+                ``deliver`` / ``close_round`` under sync-debug "error"; then
+                the same paths on 4 gloo ranks sharing the card
+                (``launch/world.py::run_world``): equal bits on every rank,
+                phase 1's fed3r_stats launches summing to the client slots,
+                A and b within 1e-5 of [slice]'s, equal accuracy, the FT round
+                (12 slots, 3 a rank) within 2e-3 of [ft]'s max|dtheta|, the
+                stream's W in its float64 gate (quant pair 2 a wave a rank
+                under int8), the async ring under a 2-tier mesh tree bitwise
+                merge; walls of each path at world 1 and 4, peak memory a rank.
+16. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
                 layers, d_model 3584, GQA 28/4, vocab 152,064), bf16, random
                 weights: batch 8, 2048-token prompts, 64 tokens; flash_attention
                 launches 28 in the prefill and 0 in the decode steps.  Then a
                 ragged 1000-token prompt at batch 1.
-16. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
+17. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
                 decode steps against one train-mode forward over the 2048
                 tokens (the plain attention), the logits' gap and the share
                 of equal argmaxes within the bounds measured once, and
@@ -111,7 +128,7 @@ counts just after.
                 across KV heads); then ``qwen2-7b-smoke`` in fp32, card
                 against CPU: the same greedy tokens, logits within 2e-4 of
                 the largest.
-17. kernel    -- each kernel against its plain PyTorch version at the shapes
+18. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
                 bitwise, on all-zero tiles and exact half-way inputs too;
                 flash attention in bf16 and fp32, with and without a
@@ -230,6 +247,19 @@ ASYNC_FAULTS = {
 TIERS = dict(rows=128, segments=4, seed=21)
 QUANT_SHAPES = [(1280, 1280, 128), (1280, 100, 128), (5000, 5000, 128), (200, 150, 64),
                 (33, 190, 128), (1281, 77, 16)]
+# [dist]: the psum backend at world 1 under NCCL (this process) and on
+# DIST_WORLD gloo ranks sharing the card (NCCL takes one card a rank), each
+# a deadline; the 32 tenants of the [heads] refit's cohort; the async ring's
+# clients of 64 grid-exact rows at d 1280 (every fp32 partial sum exact)
+DIST_WORLD = 4
+DIST_TIMEOUT_S = 420
+DIST_HEADS = 32
+DIST_ASYNC_ROWS = 64
+# phase 1's A and b over 4 ranks against one process: each rank folds its 30
+# of the 100 client slots in order and the ring sums 4 partials, a
+# reassociation of 100 fp32 terms, at most 100 x 2^-24 (6e-6) of the largest
+# partial sum: STATS_REL (1e-5) of max|A| bounds it
+DIST_STATS_REL = STATS_REL
 # the dense serving path (launch/serve.py) at Qwen2-7B's full width, bf16
 SERVE_ARCH = "qwen2-7b"
 SERVE_FULL = dict(batch=8, prompt_len=2048, gen=64)
@@ -411,7 +441,8 @@ def phase_slice(torch, ops) -> dict:
     if errs["A"] > STATS_REL or errs["b"] > STATS_REL or errs["W"] > SMOKE_W_ATOL:
         raise AssertionError(f"smoke-width phase 1 on the card disagrees with the CPU: {errs}")
     return {"launches": launches, "max_n": out["max_n"], "d": cfg.d_feat, "C": n_classes,
-            "wall_s": wall, "peak_bytes": peak, "acc": out["fed3r_acc"]}
+            "wall_s": wall, "peak_bytes": peak, "acc": out["fed3r_acc"],
+            "A": out["stats"].A.cpu(), "b": out["stats"].b.cpu()}
 
 
 def _to(tree, device):
@@ -589,6 +620,7 @@ def phase_ft(torch, ops, sim) -> dict:
         raise AssertionError("the full-width round disagrees with the per-client loop")
     if ferr <= FT_ROUND_REL * scale:
         raise AssertionError("a dropped client reads inside the engine-vs-loop bound")
+    theta0, theta1 = _to(s0.params, "cpu"), _to(s1.params, "cpu")  # [dist]'s yardstick
     del s0, s1, s1b, sl, sf, engine, loop, params0
     torch.cuda.empty_cache()
 
@@ -615,7 +647,8 @@ def phase_ft(torch, ops, sim) -> dict:
 
     sim_out = phase_ft_sim(torch, sim)
     return {"round_ms": ms, "round_tokens": toks, "peak_bytes": peak, "round_peak": round_peak,
-            "engine_vs_loop": err / scale, "repeat_bitwise": repeat, **sim_out}
+            "engine_vs_loop": err / scale, "repeat_bitwise": repeat, "theta0": theta0,
+            "theta1": theta1, **sim_out}
 
 
 def phase_ft_sim(torch, sim) -> dict:
@@ -1093,7 +1126,7 @@ def phase_stream(torch, ops) -> dict:
             wave_breakdown(torch, ops, "stream", state.L, *wave_inputs(torch, packed, widest_wave(
                 packed)), cfg.n_classes)
         out[policy] = {"launches": counts["chol_gram"], "wall_s": wall, "peak_bytes": peak,
-                       "packed": packed, "L": state.L, "W": W}
+                       "packed": packed, "L": state.L, "W": W, "W64": W64, "e_batch": e_batch}
     return out
 
 
@@ -2100,6 +2133,323 @@ def phase_tiers(torch, ops) -> dict:
                                           for (k, o), v in out.items()}}
 
 
+# ---------------------------------------------------------------------------
+# [dist]: the psum backend on the one card
+# ---------------------------------------------------------------------------
+
+
+def _digest(*tensors) -> str:
+    """sha256 of the tensors' bits (equal bits across ranks: equal digests)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gated(torch, gate, fn, *args, **kw):
+    """fn with every host sync an error when gate (the NCCL run), else plain."""
+    return no_sync(torch, fn, *args, **kw) if gate else fn(*args, **kw)
+
+
+def _timed(torch, ops, fn):
+    """(result, wall seconds, launch counts) of fn, the card idle around it."""
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts(ops)
+
+
+def dist_paths(rank: int, world: int, dev, sync_gate: bool = False) -> dict:
+    """[dist]'s paths on one rank of an initialized world, every engine under
+    DistConfig(aggregation="psum", mesh=make_host_mesh()): launch/train.py
+    phase 1 at full width; one full-width FT round; the stream at d 1280 under
+    the fp32 and int8 wires; the statistics engine on the simulator's 100
+    clients; a sharded 32-tenant head solve; the async ring under a mesh
+    tree.  The last three are held against their merge engines here.  With
+    sync_gate (the NCCL run) accumulate, absorb, RoundEngine.step, deliver and
+    close_round run with every host sync an error, after one run that warms
+    the communicators.  Returns walls, launch counts, digests, and on rank 0
+    the tensors the parent compares (on the CPU)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.simulator import simulator_setup
+    from repro_torch.core.fed3r import Fed3RFactored
+    from repro_torch.data.pipeline import PackedClients, pack_client_shards, pack_personal_cohort
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.federated.arrivals import UploadEvent, pack_schedule
+    from repro_torch.federated.async_engine import AsyncConfig, AsyncRoundEngine
+    from repro_torch.federated.compress import WireFormat
+    from repro_torch.federated.dist import DistConfig
+    from repro_torch.federated.engine import AccumulationEngine, EngineConfig, shard_stats
+    from repro_torch.federated.fed3r_driver import PACK_ROUND_TO
+    from repro_torch.federated.personalization import PersonalizationEngine, PersonalizeConfig
+    from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
+    from repro_torch.federated.tiers import mesh_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import data_parallel_size, make_host_mesh, make_tier_host_mesh
+    from repro_torch.launch.serve_stream import stream_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(device_type="cuda")
+    psum = DistConfig(aggregation="psum", mesh=mesh)
+    dp = data_parallel_size(mesh)
+    lead = rank == 0
+    out = {"walls": {}, "launches": {}, "digests": {}}
+
+    def keep(name, wall, counts, **digests):
+        out["walls"][name] = wall
+        out["launches"][name] = counts
+        out["digests"].update({f"{name} {k}": v for k, v in digests.items()})
+
+    # launch/train.py phase 1 at the slice's full width
+    torch.cuda.reset_peak_memory_stats()
+    p1, wall, counts = _timed(torch, ops, lambda: train.run(
+        SLICE_ARCH, device=dev, mesh=mesh, verbose=False, **SLICE))
+    keep("phase 1", wall, counts, A=_digest(p1["stats"].A), b=_digest(p1["stats"].b),
+         W=_digest(p1["W"]))
+    out["phase 1"] = {"acc": p1["fed3r_acc"], "n_slots": p1["n_slots"],
+                      **({"A": p1["stats"].A.cpu(), "b": p1["stats"].b.cpu(), "W": p1["W"].cpu()}
+                         if lead else {})}
+    params0 = p1["params0"]
+    del p1
+
+    # one full-width FT round (FT, FedAvg), [ft]'s round: the cohort's 10
+    # clients padded to a multiple of the ranks, each rank its block
+    cfg = get_config(SLICE_ARCH)
+    n_classes = SLICE["n_classes"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ds = make_token_dataset(gen, SLICE["n_samples"], SLICE["seq_len"], cfg.vocab_size, n_classes)
+    clients = train.FtClients(ds, SLICE["n_clients"], SLICE["clients_per_round"], FT_LOCAL_BATCH)
+    engine = train.ft_engine(cfg, params0, n_clients=SLICE["n_clients"], ft_strategy="full",
+                             mesh=mesh)
+    gen.manual_seed(2)
+    head = {"W": 0.01 * torch.randn((cfg.d_feat, n_classes), generator=gen, device=dev),
+            "b": torch.zeros((n_classes,), device=dev)}
+    s0 = engine.init({"backbone": params0, "head": head})
+    cohort = clients.cohort(0, mesh).to(dev)
+    s1 = engine.step(s0, cohort)  # warm: the first backward's set-up, the communicators
+    torch.cuda.reset_peak_memory_stats()
+    s1b, wall, counts = _timed(torch, ops, lambda: _gated(torch, sync_gate, engine.step, s0, cohort))
+    keep("ft round", wall, counts, theta=_digest(*_leaves(s1b.params)))
+    out["ft round"] = {"cohort": cohort.cohort, "repeat_bitwise": _bitwise(s1b.params, s1.params),
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       **({"theta": _to(s1b.params, "cpu")} if lead else {})}
+    del engine, s0, s1, s1b, cohort, clients, ds, params0
+    torch.cuda.empty_cache()
+
+    # the stream at d 1280, fp32 and int8 wires; the wave width padded to
+    # a multiple of the ranks, each rank its block of every wave
+    d, C, lam = STREAM["d"], STREAM["n_classes"], STREAM["ridge_lambda"]
+    fed, test, schedule = stream_setup(STREAM["n_waves"], STREAM["rate"], 0.0,
+                                       STREAM["n_clients"], d, C, STREAM["seed"], dev)
+    width = -(-max(len(w) for w in schedule) // dp) * dp
+    timeline = pack_schedule(fed, schedule, clients_per_wave=width).to(dev)
+    out["stream"] = {"waves": timeline.n_waves, "width": width}
+    for kind in ("fp32", "int8"):
+        eng = StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=lam, dist=psum,
+                                           wire=WireFormat(kind=kind)), device=dev)
+        if sync_gate:
+            eng.absorb(eng.init(d), timeline)
+        (st, _), wall, counts = _timed(torch, ops, lambda: _gated(
+            torch, sync_gate, eng.absorb, eng.init(d), timeline))
+        keep(f"stream {kind}", wall, counts, W=_digest(st.W), L=_digest(st.L))
+        out["stream"][kind] = {"W": st.W.cpu()} if lead else {}
+        if kind == "fp32":
+            state = st
+    del timeline
+
+    # the statistics engine on the simulator's 100 clients, the packed
+    # arrays on the card first; psum against merge on this rank
+    sfed, _, _, sfc = simulator_setup(dev)
+    sclients = [(sfed.client(k).features, sfed.client(k).labels) for k in range(sfc.n_clients)]
+    packed = pack_client_shards(sclients, sfc.clients_per_round,
+                                client_ids=list(range(sfc.n_clients)), round_to=PACK_ROUND_TO,
+                                mesh=mesh)
+    packed = PackedClients(*(torch.as_tensor(a, device=dev) for a in packed))
+    d_sim, C_sim = packed.inputs.shape[-1], sfed.n_classes
+    eng = AccumulationEngine(EngineConfig(n_classes=C_sim, dist=psum), device=dev)
+    if sync_gate:
+        eng.accumulate(eng.init(d_sim), packed)
+    acc, wall, counts = _timed(torch, ops, lambda: _gated(
+        torch, sync_gate, eng.accumulate, eng.init(d_sim), packed))
+    keep("accumulate", wall, counts, A=_digest(acc.stats.A), b=_digest(acc.stats.b))
+    merge = AccumulationEngine(EngineConfig(n_classes=C_sim), device=dev)
+    ref, _, mcounts = _timed(torch, ops, lambda: merge.accumulate(merge.init(d_sim), packed))
+    out["accumulate"] = {
+        "slots": packed.n_slots, "merge_launches": mcounts,
+        "bitwise": bool(torch.equal(acc.stats.A, ref.stats.A) and torch.equal(acc.stats.b, ref.stats.b)
+                        and torch.equal(acc.class_counts, ref.class_counts)),
+        "rel": max(max_rel_err(acc.stats.A, ref.stats.A), max_rel_err(acc.stats.b, ref.stats.b)),
+    }
+    del packed, sclients, sfed, acc, ref
+
+    # 32 tenants' heads over the fp32 stream's state, the cohort split
+    tenants = [(fed.client(k).features, fed.client(k).labels) for k in range(DIST_HEADS)]
+    pc = pack_personal_cohort(tenants, mesh=mesh)
+    fac = Fed3RFactored(L=state.L, b=state.b)
+    eng = PersonalizationEngine(PersonalizeConfig(n_classes=C, alpha_grid=HEADS["alpha_grid"],
+                                                  dist=psum), device=dev)
+    heads, wall, counts = _timed(torch, ops, lambda: eng.solve_heads(fac, pc))
+    keep("heads", wall, counts, W=_digest(heads.W), alpha=_digest(heads.alpha))
+    mheads = PersonalizationEngine(PersonalizeConfig(n_classes=C, alpha_grid=HEADS["alpha_grid"]),
+                                   device=dev).solve_heads(fac, pc)
+    out["heads"] = {"cohort": pc.cohort,
+                    "alpha_bitwise": bool(torch.equal(heads.alpha, mheads.alpha)),
+                    "W_bitwise": bool(torch.equal(heads.W, mheads.W)),
+                    "W_err": float((heads.W - mheads.W).abs().max())}
+    del fed, test, schedule, state, fac, heads, mheads
+
+    # the async ring under a mesh tree of the ranks (region x edge on 4,
+    # one edge tier on 1): K = 4 clients of grid-exact rows at d 1280
+    tmesh = make_tier_host_mesh((2, world // 2) if world > 1 else (1,), device_type="cuda")
+    tree = mesh_tree(tmesh)
+    K, rows = ASYNC_COHORT, DIST_ASYNC_ROWS
+    g = torch.Generator(device=dev)
+    g.manual_seed(TIERS["seed"])
+    payloads = {c: shard_stats(torch.randint(-16, 17, (rows, d), generator=g, device=dev).float() / 8,
+                               torch.randint(0, C, (rows,), generator=g, device=dev), C)
+                for c in range(K)}
+    order = np.random.default_rng(3).permutation(K)
+
+    def fold(dist_cfg, gate):
+        eng = AsyncRoundEngine(AsyncConfig(n_classes=C, ridge_lambda=lam, cohort=K,
+                                           dist=dist_cfg), device=dev)
+        st = eng.init(d)
+        eng.begin_round(0, list(range(K)), 0.0)
+        for i, c in enumerate(order):
+            st, _ = _gated(torch, gate, eng.deliver, st, UploadEvent(0.1 * i, 0, int(c), 0),
+                           payloads[int(c)])
+        st = _gated(torch, gate, eng.close_round, st, 0, now=1.0)
+        return eng.drain(st)
+
+    routed = DistConfig(aggregation="psum", mesh=tmesh, tree=tree)
+    if sync_gate:
+        fold(routed, False)
+    st, wall, counts = _timed(torch, ops, lambda: fold(routed, sync_gate))
+    keep("async", wall, counts, W=_digest(st.W), L=_digest(st.L))
+    ref = fold(DistConfig(), False)
+    out["async"] = {"tree_axes": tree.axes,
+                    "bitwise": bool(torch.equal(st.W, ref.W) and torch.equal(st.L, ref.L))}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_dist(torch, ops, sl, ft, stream) -> dict:
+    """The psum backend at world 1 under NCCL in this process (every engine
+    bitwise its merge result where the algebra is the same, no host sync),
+    then dist_paths on DIST_WORLD gloo ranks sharing this card (NCCL takes
+    one card a rank): equal bits on every rank, launch counts, phase 1 and
+    the FT round against the one-process runs of [slice] and [ft], the
+    stream against its float64 yardstick."""
+    from repro_torch.launch.world import run_world, single_rank_world
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with single_rank_world("nccl", "cuda") as dev:
+        one = dist_paths(0, 1, dev, sync_gate=True)
+    wall1 = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(dist_paths, DIST_WORLD, backend="gloo", device="cuda",
+                      timeout_s=DIST_TIMEOUT_S)
+    wall4 = time.perf_counter() - t0
+    T = one["stream"]["waves"]
+
+    # world 1, NCCL: the one-process results' bits, the same launches
+    c1 = one["launches"]
+    checks = {
+        "phase 1 A, b bitwise [slice]'s": torch.equal(one["phase 1"]["A"], sl["A"])
+        and torch.equal(one["phase 1"]["b"], sl["b"]),
+        "phase 1 fed3r_stats = [slice]'s": c1["phase 1"]["fed3r_stats"] == sl["launches"],
+        "ft round bitwise [ft]'s": _bitwise(one["ft round"]["theta"], ft["theta1"]),
+        "ft round launches no kernel": not any(c1["ft round"].values()),
+        "accumulate bitwise merge": one["accumulate"]["bitwise"],
+        "accumulate launches = merge's": c1["accumulate"] == one["accumulate"]["merge_launches"],
+        "heads bitwise merge": one["heads"]["alpha_bitwise"] and one["heads"]["W_bitwise"],
+        "heads: one batched_chol_gram": c1["heads"]["batched_chol_gram"] == 1,
+        "async under a tree bitwise merge": one["async"]["bitwise"],
+        "stream fp32: fed3r_stats and chol_gram a wave": c1["stream fp32"]["fed3r_stats"] == T
+        and c1["stream fp32"]["chol_gram"] == T,
+        "stream int8: quant pair 2 a wave": c1["stream int8"]["quantize_tiles"] == 2 * T
+        and c1["stream int8"]["dequant_acc"] == 2 * T,
+    }
+    W64, e_batch = stream["W64"], stream["e_batch"]
+    errs, rel8 = {}, {}
+    for name, run in (("world 1", one), ("world 4", ranks[0])):
+        errs[name] = float((run["stream"]["fp32"]["W"].cuda().double() - W64).abs().max())
+        checks[f"stream fp32 {name} within the float64 gate"] = errs[name] <= 2 * e_batch + 1e-5
+        rel8[name] = max_rel_err(run["stream"]["int8"]["W"], stream["W"].cpu())
+        checks[f"stream int8 {name} within 0.5 of the fp32 stream"] = rel8[name] < 0.5
+
+    # world 4, gloo on the card: every rank's bits, the launches split
+    lead, c4 = ranks[0], [r["launches"] for r in ranks]
+    slots4 = lead["phase 1"]["n_slots"]
+    dA = max_rel_err(lead["phase 1"]["A"], sl["A"])
+    db = max_rel_err(lead["phase 1"]["b"], sl["b"])
+    ft_err, ft_scale = _dtheta_rel(lead["ft round"]["theta"], ft["theta1"], ft["theta0"])
+    checks.update({
+        "every rank's digests equal": all(r["digests"] == lead["digests"] for r in ranks),
+        "phase 1 fed3r_stats summed = client slots": sum(c["phase 1"]["fed3r_stats"] for c in c4)
+        == slots4,
+        "phase 1 A, b within DIST_STATS_REL of [slice]'s": dA <= DIST_STATS_REL
+        and db <= DIST_STATS_REL,
+        "phase 1 accuracy equal": lead["phase 1"]["acc"] == sl["acc"],
+        "ft round within FT_ROUND_REL of [ft]'s": ft_scale > 0 and ft_err <= FT_ROUND_REL * ft_scale,
+        "ft round repeats bitwise": all(r["ft round"]["repeat_bitwise"] for r in ranks),
+        "stream: fed3r_stats, chol_gram a wave a rank": all(
+            c["stream fp32"]["fed3r_stats"] == T and c["stream fp32"]["chol_gram"] == T for c in c4),
+        "stream int8: quant pair 2 a wave a rank": all(
+            c["stream int8"]["quantize_tiles"] == 2 * T and c["stream int8"]["dequant_acc"] == 2 * T
+            for c in c4),
+        "accumulate within STATS_REL of merge": lead["accumulate"]["rel"] <= STATS_REL,
+        "accumulate fed3r_stats summed = slots": sum(c["accumulate"]["fed3r_stats"] for c in c4)
+        == lead["accumulate"]["slots"],
+        "heads alpha bitwise merge, W within 1e-5": lead["heads"]["alpha_bitwise"]
+        and lead["heads"]["W_err"] <= 1e-5,
+        "heads: one batched_chol_gram a rank": all(c["heads"]["batched_chol_gram"] == 1 for c in c4),
+        "async under a 2-tier mesh tree bitwise merge": lead["async"]["bitwise"]
+        and lead["async"]["tree_axes"] == ("edge", "region"),
+    })
+    log(f"[dist] world 1 (NCCL, this process) in {wall1:.1f}s; world {DIST_WORLD} (gloo, "
+        f"{DIST_WORLD} processes on the one card) in {wall4:.1f}s; phase 1 over {DIST_WORLD} "
+        f"ranks: max|dA|/max|A| {dA:.3e}, max|db|/max|b| {db:.3e} (limit {DIST_STATS_REL:g}), "
+        f"acc {lead['phase 1']['acc']:.4f} vs {sl['acc']:.4f}; FT round of {lead['ft round']['cohort']} "
+        f"slots, {lead['ft round']['cohort'] // DIST_WORLD} a rank: max|d dtheta|/max|dtheta| "
+        f"{ft_err / ft_scale:.4e} (limit {FT_ROUND_REL:g}); stream max|W - W_f64| {errs} "
+        f"(limit {2 * e_batch + 1e-5:.3e}), int8 max|W - W_fp32|/max|W_fp32| {rel8} (limit 0.5); "
+        f"accumulate vs merge {lead['accumulate']['rel']:.3e}; "
+        f"heads max|dW| {lead['heads']['W_err']:.3e}")
+    log(f"[dist] walls in s (host clock around each call, ending in torch.cuda.synchronize(); the "
+        f"{DIST_WORLD} ranks share one card's SMs and a host-staged gloo wire, so world "
+        f"{DIST_WORLD} is not a scale-out number) on {card()}:")
+    for name in one["walls"]:
+        per_rank = " ".join(f"{r['walls'][name]:.3f}" for r in ranks)
+        log(f"[dist]   {name:12s} world 1 {one['walls'][name]:.3f}  world {DIST_WORLD} by rank "
+            f"{per_rank}  launches world 1 {c1[name]}  rank 0 of {DIST_WORLD} {c4[0][name]}")
+    log(f"[dist] peak memory a rank: world 1 {one['peak_bytes'] / 2**30:.3f} GiB (FT round "
+        f"{one['ft round']['peak_bytes'] / 2**30:.3f}); world {DIST_WORLD} "
+        + " ".join(f"{r['peak_bytes'] / 2**30:.3f}" for r in ranks) + " GiB (FT round "
+        + " ".join(f"{r['ft round']['peak_bytes'] / 2**30:.3f}" for r in ranks) + ")")
+    for name, ok in checks.items():
+        log(f"[dist] {'ok  ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError(f"[dist] failed: {[n for n, ok in checks.items() if not ok]}")
+    launches = {k: 0 for k in c1["phase 1"]}
+    for c in [c1] + c4:
+        for sub in c.values():
+            for k, v in sub.items():
+                launches[k] += v
+    return {"launches": launches, "wall1_s": wall1, "wall4_s": wall4}
+
+
 def half_way_matrix(tiles_down, tiles_across, tile, seed):
     """An fp32 matrix whose every entry but one a tile sits exactly half-way
     between two integers of its tile's quantization grid (x/s = k + 1/2, no
@@ -2697,7 +3047,7 @@ def main() -> int:
     phase_build(build, ops)
     sl = phase_slice(torch, ops)
     sim = phase_simulator(torch, ops)
-    phase_ft(torch, ops, sim)
+    ft = phase_ft(torch, ops, sim)
     rf = phase_rf(torch, ops, ref, sim)
     stream = phase_stream(torch, ops)
     packed = stream["arrival"]["packed"]
@@ -2710,6 +3060,8 @@ def main() -> int:
     phase_secure(torch, ops, sim)
     asy = phase_async(torch, ops)
     tiers = phase_tiers(torch, ops)
+    dist = phase_dist(torch, ops, sl, ft, stream["arrival"])
+    del ft
     srv = phase_serve(torch, ops)
     phase_serve_consistency(torch, ops)
     t_phases = time.perf_counter() - t_all
@@ -2731,26 +3083,30 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fed3r_stats.cu",
          "replaces": "src/repro/kernels/fed3r_stats.py:57",
          "launches": sl["launches"] + asy["launches"]["fed3r_stats"]
-         + tiers["launches"]["fed3r_stats"], **kern},
+         + tiers["launches"]["fed3r_stats"] + dist["launches"]["fed3r_stats"], **kern},
         {"name": "rff", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rff.cu",
          "replaces": "src/repro/kernels/rff.py:42", "launches": rf["launches"],
          **{k: v for k, v in kern_rff.items() if k != "gemm_only_ms"}},
         {"name": "chol_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/chol_gram.cu",
          "replaces": "src/repro/kernels/chol_update.py:86",
-         "launches": stream["arrival"]["launches"], **kern_chol},
+         "launches": stream["arrival"]["launches"] + dist["launches"]["chol_gram"],
+         **kern_chol},
         {"name": "batched_chol_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/batched_chol_gram.cu",
          "replaces": "src/repro/kernels/chol_update.py:189",
-         "launches": heads["lru strict"]["launches"], **kern_batched},
+         "launches": heads["lru strict"]["launches"] + dist["launches"]["batched_chol_gram"],
+         **kern_batched},
         {"name": "quantize_tiles", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
          "replaces": "src/repro/kernels/quant.py:77",
          "launches": wire["launches"]["quantize_tiles"] + asy["launches"]["quantize_tiles"]
-         + tiers["launches"]["quantize_tiles"], **kern_quant["quantize_tiles"]},
+         + tiers["launches"]["quantize_tiles"] + dist["launches"]["quantize_tiles"],
+         **kern_quant["quantize_tiles"]},
         {"name": "dequant_acc", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
          "replaces": "src/repro/kernels/quant.py:108",
          "launches": wire["launches"]["dequant_acc"] + asy["launches"]["dequant_acc"]
-         + tiers["launches"]["dequant_acc"], **kern_quant["dequant_acc"]},
+         + tiers["launches"]["dequant_acc"] + dist["launches"]["dequant_acc"],
+         **kern_quant["dequant_acc"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:85",

@@ -15,6 +15,9 @@ engine carries (:class:`Fed3RFactored`), and the deprecated subtractive
 Woodbury state (:class:`Fed3ROnline`), kept only as the numerical foil of
 :class:`repro_torch.federated.streaming_engine.ReferenceArrivalLoop`.
 
+Distributed aggregation: :func:`aggregate_mesh`, the rank partials summed
+over a ``DeviceMesh`` (:mod:`repro_torch.federated.dist`).
+
 Personalized heads: :func:`personalized_solution` and
 :func:`batched_personalized_solution`, W_k = (A + α_k·A_k + λI)⁻¹(b + α_k·b_k)
 over the shared factored state.
@@ -23,12 +26,12 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.federated.dist import resolve_device
+from repro_torch.federated.dist import resolve_device, two_stage_psum
 from repro_torch.kernels.ops import chol_gram
 
 
@@ -103,6 +106,13 @@ def merge(*stats: Fed3RStats) -> Fed3RStats:
         b=sum(s.b for s in stats),
         n=sum(s.n for s in stats),
     )
+
+
+def aggregate_mesh(stats: Fed3RStats, axis_names: Sequence[str], mesh: Any) -> Fed3RStats:
+    """Distributed aggregation: every rank's local statistics summed over
+    the mesh axes (one all-reduce an axis, innermost first), the same sum
+    on every rank."""
+    return two_stage_psum(stats, mesh, axis_names)
 
 
 def normalize_columns(W: torch.Tensor, axis: int = 0) -> torch.Tensor:

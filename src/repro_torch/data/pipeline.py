@@ -41,8 +41,25 @@ import torch
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import FeatureDataset, make_feature_dataset
 from repro_torch.federated.dist import resolve_device
+from repro_torch.launch.mesh import data_parallel_size
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
+
+
+def _data_parallel(mesh: Optional[object], num_shards: Optional[int]) -> int:
+    """The data-parallel way count a packed leading axis must divide.
+
+    Every packer pads its sharded axis to a multiple of this with fully
+    masked blocks (``client_ids == -1``, zero mask), so the dist layer
+    (:mod:`repro_torch.federated.dist`) splits it evenly over
+    ``data_axes(mesh)``.  Masked blocks contribute exactly nothing to any
+    statistic, so padding preserves canonical-order bit-invariance.
+    """
+    if num_shards is not None:
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        return int(num_shards)
+    return 1 if mesh is None else data_parallel_size(mesh)
 
 
 @dataclass
@@ -119,6 +136,7 @@ def pack_client_shards(
     max_n: Optional[int] = None,
     round_to: int = 8,
     canonical_order: bool = True,
+    mesh: Optional[object] = None,
     num_shards: Optional[int] = None,
 ) -> PackedClients:
     """Pack ``[(inputs_k, labels_k), ...]`` into :class:`PackedClients`.
@@ -128,16 +146,16 @@ def pack_client_shards(
     before packing, which makes the packed arrays — and therefore every
     deterministic accumulation over them — invariant to sampling order.
 
-    ``num_shards`` pads the leading shard axis to a multiple of that way
-    count with fully masked empty shards (exact no-ops), for a later
-    distributed layer to split evenly.
+    ``mesh`` (a ``DeviceMesh``, or an explicit ``num_shards`` way count)
+    pads the leading shard axis to a multiple of the mesh's data-parallel
+    size with fully masked empty shards (exact no-ops), so the dist layer
+    splits it evenly over the ranks.
     """
     if not clients:
         raise ValueError("pack_client_shards: empty client list")
     if clients_per_shard < 1:
         raise ValueError(f"clients_per_shard must be >= 1, got {clients_per_shard}")
-    if num_shards is not None and num_shards < 1:
-        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    dp = _data_parallel(mesh, num_shards)
     ids = np.arange(len(clients), dtype=np.int32) if client_ids is None else (
         np.asarray(client_ids, np.int32)
     )
@@ -152,7 +170,6 @@ def pack_client_shards(
     cap = -(-need // round_to) * round_to
 
     n_shards = -(-len(clients) // clients_per_shard)
-    dp = 1 if num_shards is None else int(num_shards)
     n_shards = -(-n_shards // dp) * dp  # pad with fully-masked shards
     n_slots = n_shards * clients_per_shard
     x0 = np.asarray(clients[order[0]][0])
@@ -243,19 +260,11 @@ def pack_arrival_waves(
     packing, making the packed arrays bitwise invariant to the
     presentation order of concurrent arrivals.
 
-    ``num_shards`` pads ``clients_per_wave`` (the axis a distributed layer
-    would split; the wave axis is the arrival clock) to a multiple of that
-    way count with fully masked slots.  ``mesh`` waits for the distributed
-    layer and raises.
+    ``mesh`` (or ``num_shards``) pads ``clients_per_wave`` — the axis the
+    dist layer splits; the wave axis is the arrival clock — to a multiple
+    of the mesh's data-parallel size with fully masked slots.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "pack_arrival_waves(mesh=...): device meshes are the distributed "
-            "layer, the collective half of ROADMAP Queue 1 item 8; pass num_shards= "
-            "for the padding"
-        )
-    if num_shards is not None and num_shards < 1:
-        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    dp = _data_parallel(mesh, num_shards)
     if not waves:
         raise ValueError("pack_arrival_waves: empty timeline")
     if client_ids is None:
@@ -278,7 +287,6 @@ def pack_arrival_waves(
         raise ValueError(
             f"wave with {max(widths)} arrivals exceeds clients_per_wave={P}"
         )
-    dp = 1 if num_shards is None else int(num_shards)
     P = -(-P // dp) * dp  # pad the wave-width axis
     sizes = [len(y) for wave in waves for _, y in wave]
     need = max(sizes, default=1) if max_n is None else max_n
@@ -373,25 +381,16 @@ def pack_personal_cohort(
     sample order, never of cohort position, preserving bit-invariance to
     request order.
 
-    ``num_shards`` pads the cohort axis to a multiple of that way count with
-    empty slots whose heads degenerate to the global solution, for a later
-    distributed layer to split evenly.  ``mesh`` waits for the distributed
-    layer and raises.
+    ``mesh`` (or ``num_shards``) pads the cohort axis to a multiple of the
+    mesh's data-parallel size with empty slots whose heads degenerate to
+    the global solution, so the dist layer splits it evenly.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "pack_personal_cohort(mesh=...): device meshes are the distributed "
-            "layer, the collective half of ROADMAP Queue 1 item 8; pass num_shards= "
-            "for the padding"
-        )
-    if num_shards is not None and num_shards < 1:
-        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    dp = _data_parallel(mesh, num_shards)
     if not 0.0 <= holdout_frac < 1.0:
         raise ValueError(f"holdout_frac must be in [0, 1), got {holdout_frac}")
     K = len(clients) if cohort_size is None else cohort_size
     if K < len(clients):
         raise ValueError(f"cohort_size={K} < {len(clients)} clients")
-    dp = 1 if num_shards is None else int(num_shards)
     K = -(-K // dp) * dp  # pad the sharded cohort axis
     shards = pack_client_shards(
         clients,
@@ -513,19 +512,12 @@ def pack_cohort_batches(
     a pure function of (seed, id), never of cohort position — so the packed
     arrays (and therefore the whole aggregated round) are bitwise invariant
     to sampling order.  ``cohort_size`` pads the cohort with empty slots
-    (``client_ids == -1``, zero mask) up to a fixed width; ``num_shards``
-    additionally pads it to a multiple of that way count (padded slots have
-    aggregation weight 0 — exact no-ops) for a later distributed layer to
-    split evenly.  ``mesh`` waits for the distributed layer and raises.
+    (``client_ids == -1``, zero mask) up to a fixed width; ``mesh`` (or
+    ``num_shards``) additionally pads it to a multiple of the
+    mesh's data-parallel size (padded slots have aggregation weight 0 —
+    exact no-ops), so the dist layer splits it evenly.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "pack_cohort_batches(mesh=...): device meshes are the distributed "
-            "layer, the collective half of ROADMAP Queue 1 item 8; pass num_shards= "
-            "for the padding"
-        )
-    if num_shards is not None and num_shards < 1:
-        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    dp = _data_parallel(mesh, num_shards)
     if not clients:
         raise ValueError("pack_cohort_batches: empty cohort")
     ids = np.arange(len(clients), dtype=np.int32) if client_ids is None else (
@@ -536,7 +528,6 @@ def pack_cohort_batches(
     K = len(clients) if cohort_size is None else cohort_size
     if K < len(clients):
         raise ValueError(f"cohort_size={K} < {len(clients)} clients")
-    dp = 1 if num_shards is None else int(num_shards)
     K = -(-K // dp) * dp  # pad the sharded cohort axis
     order = np.argsort(ids, kind="stable") if canonical_order else np.arange(len(ids))
 

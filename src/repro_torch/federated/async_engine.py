@@ -47,9 +47,16 @@ ints, and the fold's factorization is the branch-free guarded Cholesky
 plain factorization succeeds), so neither ``deliver`` nor ``close_round``
 waits for the card.
 
-The collective half — ``DistConfig(aggregation="psum")``, dist-owned
-meshes and mesh-routed trees — is ROADMAP Queue 1 item 8's: ``DistConfig``
-refuses it.
+Distribution (:mod:`repro_torch.federated.dist`): under ``DistConfig(
+aggregation="psum", mesh=...)`` every rank runs the same control plane on
+the same events, and the slot ring's K axis is split over the ranks: rank
+s holds the contiguous block of K/N slots filled with its round-robin
+:func:`repro_torch.federated.dist.shard_cohort` share (shard-major slot
+layout), writes only the uploads of the clients it owns and leaves every
+other slot an exact zero.  A retire and the live classifier all-reduce the
+ranks' partial cohort sums (through an N-tier tree with ``tree=``) before
+the same fold on every rank.  Secure mode and psum are exclusive, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -71,6 +78,7 @@ from repro_torch.federated.dist import (
     DistContext,
     DistDispatchMixin,
     resolve_device,
+    shard_cohort,
 )
 from repro_torch.federated.engine import shard_stats
 from repro_torch.federated.telemetry import Telemetry, get_telemetry
@@ -101,7 +109,7 @@ class AsyncConfig:
     synchronous: bool = False
     early_close: bool = True
     normalize: bool = True
-    dist: DistConfig = field(default_factory=DistConfig)  # "merge" only
+    dist: DistConfig = field(default_factory=DistConfig)  # backend/mesh
     wire: WireFormat = field(default_factory=WireFormat)
     secure: bool = False
     secure_seed: int = 0
@@ -233,6 +241,13 @@ class AsyncRoundEngine(DistDispatchMixin):
     """
 
     def __init__(self, cfg: AsyncConfig, *, device: Union[str, torch.device] = "cuda"):
+        if cfg.secure and cfg.dist.aggregation == "psum":
+            raise ValueError("secure mode and psum aggregation are exclusive")
+        if cfg.dist.mesh is not None and cfg.cohort % cfg.dist.data_shards != 0:
+            raise ValueError(
+                f"dist-owned mesh shards the K={cfg.cohort} slot axis over "
+                f"{cfg.dist.data_shards} data shards: K must divide evenly"
+            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.wire = cfg.wire.resolved()
@@ -282,8 +297,13 @@ class AsyncRoundEngine(DistDispatchMixin):
     def ring_size(self) -> int:
         return self.cfg.staleness_rounds + 1
 
+    @property
+    def local_slots(self) -> int:
+        """Slots of a round this rank holds (K, or K/N under a mesh)."""
+        return self.cfg.cohort // self.cfg.dist.data_shards
+
     def init(self, d: int) -> AsyncState:
-        S, K, C = self.ring_size, self.cfg.cohort, self.cfg.n_classes
+        S, K, C = self.ring_size, self.local_slots, self.cfg.n_classes
         fac = fed3r.init_factored(d, C, self.cfg.ridge_lambda, self.device)
         slot_dtype = torch.int32 if self.cfg.secure else torch.float32
         dev = self.device
@@ -301,7 +321,11 @@ class AsyncRoundEngine(DistDispatchMixin):
         """Write one client's payload into its round slot, in place
         (exactly-once: dedupe happens on the host before).  The wire format
         applies here — the upload lands as the aggregator received it; fp32
-        is the bitwise identity."""
+        is the bitwise identity.  Under a mesh ``slot`` is a global slot:
+        only its owner writes, into its local block."""
+        slot -= self.dist.shard_index * self.local_slots
+        if not 0 <= slot < self.local_slots:
+            return state  # another rank's client: this block stays zero
         if not self.cfg.secure:
             A, b = compress.wire_roundtrip(A, b, self.wire)
         state.A_slots[ring, slot].copy_(A)
@@ -318,8 +342,10 @@ class AsyncRoundEngine(DistDispatchMixin):
         Under int8, fp8 and secure payloads the factorization is guarded by
         the quantization-noise bound (:func:`compress.psd_cholesky`);
         otherwise by the fp32 rounding bound, bit-identical to the plain
-        factorization where that succeeds.
+        factorization where that succeeds.  Under psum the ranks' partial
+        cohort sums all-reduce here (the identity under merge).
         """
+        S_A, S_b, S_n = self.dist.all_reduce((S_A, S_b, S_n))
         G = L @ L.T + S_A
         if self.cfg.secure:
             # shared-scale int8-valued payloads: same error model as int8
@@ -373,6 +399,7 @@ class AsyncRoundEngine(DistDispatchMixin):
         S, K = state.n_slots.shape
         S_A = _left_fold(state.A_slots.reshape((S * K,) + tuple(state.A_slots.shape[2:])))
         S_b = _left_fold(state.b_slots.reshape((S * K,) + tuple(state.b_slots.shape[2:])))
+        S_A, S_b = self.dist.all_reduce((S_A, S_b))
         G = state.L @ state.L.T + S_A
         if self.wire.kind in ("int8", "fp8"):
             L = compress.psd_cholesky(G, compress.quant_spectral_bound(S_A, self.wire))
@@ -414,9 +441,16 @@ class AsyncRoundEngine(DistDispatchMixin):
             )
         if self.cfg.secure and scales is None:
             raise ValueError("secure rounds need the shared (sA, sb) scales")
+        if self.cfg.dist.mesh is not None:
+            # shard-major slot layout: rank s owns the slots [s·K/N, (s+1)·K/N),
+            # filled with its round-robin shard_cohort share
+            n, k = self.cfg.dist.data_shards, self.local_slots
+            slot_of = {c: s * k + j for s in range(n) for j, c in enumerate(shard_cohort(ids, s, n))}
+        else:
+            slot_of = {c: i for i, c in enumerate(ids)}
         self._rounds[round_id] = _RoundMeta(
             cohort=ids,
-            slot_of={c: i for i, c in enumerate(ids)},
+            slot_of=slot_of,
             start_t=start_t,
             scales=scales,
         )

@@ -43,8 +43,11 @@ folds each client's payload into the fp32 accumulator through
 :func:`roundtrip_add` (``EngineConfig(wire=...)``);
 :class:`repro_torch.federated.streaming_engine.StreamingEngine` compresses
 each wave's rank-n statistics before they touch the carried factor
-(``StreamConfig(wire=...)``).  The psum form (each device's partial through
-the wire before an all-reduce) waits for the distributed layer.
+(``StreamConfig(wire=...)``).  Under the dist layer's psum backend
+(:mod:`repro_torch.federated.dist`) each rank's LOCAL partial crosses the
+all-reduce through :func:`wire_roundtrip` (int8: one ``quantize_tiles`` and
+one ``dequant_acc`` launch a matrix), dequantized once before the sum; the
+aggregation tree's lossy tiers use :func:`matrix_roundtrip` the same way.
 
 Secure-aggregation interop (paper App. B): :func:`cohort_quantize_int8`
 quantizes a whole cohort against SHARED per-tile scales into int32 working

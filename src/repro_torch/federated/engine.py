@@ -32,12 +32,23 @@ made exact rather than approximate.
 
 * :func:`shard_stats` — the masked (A, b, n) of one padded sample block
   through ONE ``fed3r_stats`` launch, and :func:`aggregate`, the server
-  backend behind one interface (``"merge"``: the identity); the datacenter
+  backend behind one interface (``"merge"``: the identity; ``"psum"``: the
+  dist layer's two-stage all-reduce over a mesh's axes); the datacenter
   statistics step (:func:`repro_torch.launch.steps.make_fed3r_stats_step`)
   is built on the two.
 
-Not ported yet: the psum/mesh/tree backends (the collective half of ROADMAP
-Queue 1 item 8), and with them the compressed wire's psum form.
+Scale-out (:mod:`repro_torch.federated.dist`): with ``DistConfig(
+aggregation="psum", mesh=...)`` every rank makes the same ``accumulate``
+call on the same packed selection (pack with ``pack_client_shards(...,
+mesh=mesh)`` so the shard axis divides), folds only its contiguous block of
+shards — one ``fed3r_stats`` launch a client, as the merge path — and the
+accumulator (A, b, n and the class counts) is all-reduced ONCE, after the
+fold, so feature extraction never waits on a collective.  Under a
+compressed wire each rank's partial also crosses the all-reduce through
+:func:`repro_torch.federated.compress.wire_roundtrip` (int8: one
+``quantize_tiles`` and one ``dequant_acc`` launch a matrix), after the
+per-client wire of the fold, as in the reference.  On grid-exact features
+the sum is exact in any order, so the result is bitwise the merge engine's.
 """
 from __future__ import annotations
 
@@ -57,6 +68,8 @@ from repro_torch.federated.dist import (
     DistContext,
     DistDispatchMixin,
     resolve_device,
+    two_stage_psum,
+    validate_backend,
 )
 from repro_torch.federated.telemetry import Telemetry
 from repro_torch.kernels.ops import fed3r_stats
@@ -80,20 +93,20 @@ def aggregate(
     stats: Fed3RStats,
     backend: str = "merge",
     axis_names: Sequence[str] = (),
+    mesh: Any = None,
 ) -> Fed3RStats:
     """Server-aggregation backends behind one interface.
 
     ``"merge"``: the left fold already produced the global statistics —
-    identity.  ``"psum"`` (an all-reduce over mesh axes) is the
-    distributed layer and raises.
+    identity.  ``"psum"``: each rank's local statistics summed over the
+    ``axis_names`` of ``mesh`` (one all-reduce an axis, innermost first).
     """
+    validate_backend(backend, tuple(axis_names))
     if backend == "merge":
         return stats
-    if backend == "psum":
-        raise NotImplementedError(
-            f"aggregate(backend='psum', axis_names={tuple(axis_names)}): the distributed "
-            "layer's collective half, ROADMAP Queue 1 item 8")
-    raise ValueError(f"unknown aggregation backend: {backend!r}")
+    if mesh is None:
+        raise ValueError("psum aggregation reduces over a DeviceMesh: pass mesh=")
+    return two_stage_psum(stats, mesh, axis_names)
 
 
 class EngineStats(NamedTuple):
@@ -126,10 +139,10 @@ def to_ncm_stats(acc: EngineStats) -> ncm.NCMStats:
 @dataclass(frozen=True)
 class EngineConfig:
     n_classes: int
-    dist: DistConfig = field(default_factory=DistConfig)  # "merge" only
+    dist: DistConfig = field(default_factory=DistConfig)  # backend/mesh
     # statistics wire format (repro_torch.federated.compress): each client's
-    # (A_k, b_k) crosses the wire in this format; fp32 is bitwise the
-    # uncompressed engine
+    # (A_k, b_k) crosses the wire in this format, and under psum each rank's
+    # partial too; fp32 is bitwise the uncompressed engine
     wire: WireFormat = field(default_factory=WireFormat)
 
 
@@ -185,13 +198,16 @@ class AccumulationEngine(DistDispatchMixin):
         """Fold a packed client selection into the accumulator.
 
         Shards in order, and within a shard the clients in slot order: a
-        strict left fold in canonical client-id order.
+        strict left fold in canonical client-id order.  Under ``"psum"``
+        this rank folds its block of the shards, then the accumulator is
+        all-reduced once.
         """
         with self.dist.telemetry.span("accumulate", engine="accumulation"):
             self.dist.dispatch()
-            inputs = torch.as_tensor(packed.inputs, device=self.device)
-            labels = torch.as_tensor(packed.labels, device=self.device)
-            mask = torch.as_tensor(packed.mask, device=self.device)
+            inputs, labels, mask = (
+                torch.as_tensor(self.dist.local_block(a), device=self.device)
+                for a in (packed.inputs, packed.labels, packed.mask)
+            )
             for x, y, m in zip(inputs, labels, mask):  # (P, N, ...), (P, N), (P, N)
                 flat = x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
                 feats = flat if self.feature_fn is None else self.feature_fn(params, flat)
@@ -200,4 +216,16 @@ class AccumulationEngine(DistDispatchMixin):
                 feats = feats.reshape(tuple(x.shape[:2]) + tuple(feats.shape[1:]))
                 for c in range(x.shape[0]):
                     acc = self._client_fold(acc, feats[c], y[c], m[c])
-            return acc  # "merge": the local fold IS the global sum
+            # "merge": the local fold IS the global sum
+            return self.dist.all_reduce(acc, wire_fn=self._wire_fn())
+
+    def _wire_fn(self) -> Optional[Callable[[EngineStats], EngineStats]]:
+        """The dist layer's compressed-payload hook (None under fp32)."""
+        if self.wire.kind == "fp32":
+            return None
+
+        def roundtrip(acc: EngineStats) -> EngineStats:
+            A, b = compress.wire_roundtrip(acc.stats.A, acc.stats.b, self.wire)
+            return acc._replace(stats=acc.stats._replace(A=A, b=b))
+
+        return roundtrip

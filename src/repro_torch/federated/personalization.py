@@ -38,6 +38,14 @@ solve plus one re-solve per client (K+1 dispatches for a K-head cohort) —
 as the dispatch baseline and the parity oracle.  The serving layers are
 :mod:`repro_torch.launch.serve_heads` and
 :mod:`repro_torch.launch.serving_engine`.
+
+Scale-out (:mod:`repro_torch.federated.dist`): under ``DistConfig(
+aggregation="psum", mesh=...)`` every rank takes the same call on the same
+packed cohort (pack with ``pack_personal_cohort(..., mesh=mesh)`` so the
+cohort divides) and solves only its block of the heads against the shared
+(L, b) — one ``batched_chol_gram`` launch over its K/N heads — then the
+heads are gathered back, a broadcast of each rank's block: heads are per
+tenant, so the cohort's reduction is a gather, not a sum.
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ class PersonalizeConfig:
     clients whose holdout split is empty (single-sample clients, or
     ``holdout_frac=0`` at pack time) fall back to ``alpha_grid[0]``, so
     put the conservative default (typically ``0.0`` = global head) first.
-    ``dist`` is ``"merge"`` only (meshes are ROADMAP Queue 1 item 8).
+    ``dist`` under ``"psum"`` with a mesh splits the cohort over the ranks.
     """
 
     n_classes: int
@@ -185,7 +193,9 @@ class PersonalizationEngine(DistDispatchMixin):
         return self._refit(L, b, z, yh, alphas), alphas, score
 
     def _cohort(self, packed: PackedPersonalCohort, *fields: str):
-        return [torch.as_tensor(getattr(packed, f), device=self.device) for f in fields]
+        """The fields on the engine's device: this rank's block of the cohort."""
+        return [torch.as_tensor(self.dist.local_block(getattr(packed, f)), device=self.device)
+                for f in fields]
 
     # ---- host API ---------------------------------------------------------
 
@@ -197,7 +207,8 @@ class PersonalizationEngine(DistDispatchMixin):
         with self.dist.telemetry.span("solve_heads", engine="personalization"):
             self.dist.dispatch()
             x, y, m, ho = self._cohort(packed, "inputs", "labels", "mask", "holdout")
-            W, alphas, score = self._heads_impl(state.L, state.b, x, y, m, ho)
+            W, alphas, score = self.dist.gather_blocks(
+                self._heads_impl(state.L, state.b, x, y, m, ho))
             return PersonalizedHeads(
                 W=W, alpha=alphas, score=score,
                 client_ids=torch.as_tensor(packed.client_ids, device=self.device),
@@ -216,7 +227,8 @@ class PersonalizationEngine(DistDispatchMixin):
             a = torch.as_tensor(alphas, dtype=torch.float32, device=self.device)
             x, y, m = self._cohort(packed, "inputs", "labels", "mask")
             z, yh = self._design(x, y, m)
-            W = self._refit(state.L, state.b, z, yh, a)
+            (W,) = self.dist.gather_blocks(
+                [self._refit(state.L, state.b, z, yh, self.dist.local_block(a))])
             return PersonalizedHeads(
                 W=W, alpha=a, score=torch.zeros_like(a),
                 client_ids=torch.as_tensor(packed.client_ids, device=self.device),

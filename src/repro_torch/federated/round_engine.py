@@ -23,8 +23,16 @@ control-variate scatter — in one ``round_step`` on the device:
 
 :class:`ReferenceLoop` keeps the per-client shape (K local updates, host-side
 aggregation with a ``float()`` a client, one server step) as the parity
-oracle.  The distributed backends (``DistConfig(aggregation="psum")``, a
-mesh) are ROADMAP Queue 1 item 8 and raise.
+oracle.
+
+Scale-out (:mod:`repro_torch.federated.dist`): under ``DistConfig(
+aggregation="psum", mesh=...)`` every rank steps the same state over the
+same packed cohort (pack with ``pack_cohort_batches(..., mesh=mesh)`` so
+the cohort divides), vmaps the local updates of its block of the cohort
+only, and all-reduces the weighted delta tree and the weight sum once,
+after the updates, as one buffer; the server step then runs on every rank
+on the same sum.  Scaffold refuses psum, as in the reference: its cvar
+scatter needs the whole cohort.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ class RoundConfig:
     server_lr: float = 1.0
     weight_decay: float = 0.0
     n_total_clients: int = 0  # sizes the Scaffold cvar table / 1/N update
-    dist: DistConfig = field(default_factory=DistConfig)  # "merge" only
+    dist: DistConfig = field(default_factory=DistConfig)  # backend/mesh
 
 
 def _cohort_on(cohort: PackedCohort, state: ServerState) -> PackedCohort:
@@ -73,6 +81,11 @@ class RoundEngine(DistDispatchMixin):
     """
 
     def __init__(self, cfg: RoundConfig, loss_fn: LossFn, freeze: Any):
+        if cfg.dist.aggregation == "psum" and cfg.algo.uses_cvar:
+            raise ValueError(
+                "scaffold needs the global cohort for the cvar scatter; "
+                "use aggregation='merge' (GSPMD) for mesh runs"
+            )
         self.cfg = cfg
         self.freeze = freeze
         self._local = make_local_update(
@@ -115,7 +128,10 @@ class RoundEngine(DistDispatchMixin):
         # weighted delta aggregation, entirely on the device: padded cohort
         # slots have an all-zero mask, hence weight 0 and a zero delta
         weighted = tree_map(lambda d: torch.tensordot(w, d, dims=1), delta)
-        wsum = w.sum().clamp_min(1.0)
+        # identity under "merge"; under "psum" the ranks' weighted deltas
+        # and weights summed once, after the vmapped local updates
+        weighted, wsum = self.dist.all_reduce((weighted, w.sum()))
+        wsum = wsum.clamp_min(1.0)
         avg_delta = tree_map(lambda d: d / wsum, weighted)
 
         state = server_optimizer_step(
@@ -142,7 +158,8 @@ class RoundEngine(DistDispatchMixin):
         with self.dist.telemetry.span("round_step", engine="rounds"):
             self.dist.dispatch()
             cohort = _cohort_on(cohort, state)
-            return self.round_step(state, cohort.batches(), cohort.client_ids)
+            batches = {k: self.dist.local_block(v) for k, v in cohort.batches().items()}
+            return self.round_step(state, batches, self.dist.local_block(cohort.client_ids))
 
 
 class ReferenceLoop:

@@ -91,14 +91,15 @@ def pack_round(
     cfg: FederatedConfig,
     rnd: int,
     n_batches: int,
+    mesh: Optional[object] = None,
     num_shards: Optional[int] = None,
 ):
     """The packed cohort of round ``rnd`` — a pure function of (cfg, rnd).
 
     Sampling and the per-client epoch shuffles both derive from
     (cfg.seed, rnd, client id), which is what makes stop/resume exact.
-    ``num_shards`` pads the cohort axis to a multiple of that way count —
-    padded slots are exact no-ops.
+    ``mesh`` (or ``num_shards``) pads the cohort axis to a multiple of the
+    mesh's data-parallel size — padded slots are exact no-ops.
     """
     chosen = sample_round(
         dataset.n_clients, cfg.clients_per_round, rnd,
@@ -110,7 +111,7 @@ def pack_round(
     ]
     return chosen, pack_cohort_batches(
         clients, cfg.local_batch_size, n_batches, cfg.local_epochs,
-        client_ids=chosen, seed=(cfg.seed + 7, rnd), num_shards=num_shards,
+        client_ids=chosen, seed=(cfg.seed + 7, rnd), mesh=mesh, num_shards=num_shards,
     )
 
 

@@ -50,8 +50,17 @@ keeps the subtractive Woodbury update as the numerical foil.
 
 :meth:`StreamingEngine.tiered_absorber` folds segments of edge payloads
 through a host-tier aggregation tree (:mod:`repro_torch.federated.tiers`).
-Not ported yet: the ``psum`` backend (and with it the wire's psum form) and
-meshes, the collective half of ROADMAP Queue 1 item 8.
+
+Scale-out (:mod:`repro_torch.federated.dist`): under ``DistConfig(
+aggregation="psum", mesh=...)`` every rank absorbs the same timeline and
+takes its block of each wave's WIDTH (the arrival clock is not split; pack
+with ``pack_arrival_waves(..., mesh=mesh)``).  A wave is then one
+``fed3r_stats`` launch on the rank's rows, one all-reduce of (S, ΔB, n)
+(each rank's partial through the wire first, under a compressed wire),
+and the replicated Gram L Lᵀ + S — the ``chol_gram`` launch with no sample
+rows — before the same guarded factorization on every rank.  The fused
+``chol_gram`` is not used there: every rank would add L Lᵀ.  The all-reduce
+sits on the critical path (wave t+1's factor needs wave t's sum).
 """
 from __future__ import annotations
 
@@ -86,7 +95,7 @@ class StreamConfig:
     ridge_lambda: float
     refresh_every: int = 1  # 1 = refresh-on-arrival; k > 1 = every k-th wave
     normalize: bool = True  # per-class column normalization of the served W
-    dist: DistConfig = field(default_factory=DistConfig)  # "merge" only
+    dist: DistConfig = field(default_factory=DistConfig)  # backend/mesh
     # statistics wire format (repro_torch.federated.compress): each wave's
     # rank-n (S, ΔB) upload crosses the wire in this format before it
     # touches the carried factor; fp32 is bitwise the uncompressed stream
@@ -207,7 +216,14 @@ class StreamingEngine(DistDispatchMixin):
             feats = rff_map(self.rff_params, feats)
         # ψ(0) ≠ 0: the mask applies after the map, here
         z, yh, nw = fed3r.masked_design(feats, y.reshape(-1), self.cfg.n_classes, m.reshape(-1))
-        if self.wire.kind == "fp32":
+        if self.cfg.dist.aggregation == "psum":
+            # this rank's rows; the Gram of the carried factor once, after
+            # the sum (the fused kernel would add L Lᵀ on every rank)
+            S, dB = fed3r_stats(z, yh)
+            S, dB, nw = self.dist.all_reduce((S, dB, nw), wire_fn=self._wire_fn())
+            G, b = self._gram(state) + S, state.b + dB
+            L = self._lossy_cholesky(G, S)
+        elif self.wire.kind == "fp32":
             G, dB = chol_gram(state.L, z, yh)
             L = fed3r.psd_cholesky(G)
             b = state.b + dB
@@ -234,11 +250,27 @@ class StreamingEngine(DistDispatchMixin):
 
     def _lossy_cholesky(self, G: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
         """The guarded factorization of a Gram that received statistics S
-        through the wire: int8 and fp8 size the jitter by their quantization
-        noise; sketch and fp32 add none, so the fp32 rounding bound guards."""
-        if self.wire.kind in ("int8", "fp8"):
-            return fed3r.psd_cholesky(G, bound=compress.quant_spectral_bound(S, self.wire))
+        through the wire: int8 and fp8 (the engine's wire, else a lossy tier
+        of a routed tree) size the jitter by their quantization noise;
+        sketch and fp32 add none, so the fp32 rounding bound guards.  Under
+        psum S is the reduced sum, so every rank takes the same guard."""
+        lossy = self.wire if self.wire.kind in ("int8", "fp8") else self.cfg.dist.lossy_tier_wire
+        if lossy is not None:
+            return fed3r.psd_cholesky(G, bound=compress.quant_spectral_bound(S, lossy))
         return fed3r.psd_cholesky(G)
+
+    def _wire_fn(self) -> Optional[Callable[[Tuple], Tuple]]:
+        """The dist layer's compressed-payload hook (None under fp32): the
+        rank's (S, ΔB) through the wire, n exact."""
+        if self.wire.kind == "fp32":
+            return None
+
+        def roundtrip(payload: Tuple) -> Tuple:
+            S, dB, nw = payload
+            S, dB = compress.wire_roundtrip(S, dB, self.wire)
+            return S, dB, nw
+
+        return roundtrip
 
     @torch.no_grad()
     def absorb(
@@ -253,9 +285,10 @@ class StreamingEngine(DistDispatchMixin):
         """
         with self.dist.telemetry.span("absorb", engine="streaming"):
             self.dist.dispatch()
-            inputs = torch.as_tensor(packed.inputs, device=self.device)
-            labels = torch.as_tensor(packed.labels, device=self.device)
-            mask = torch.as_tensor(packed.mask, device=self.device)
+            inputs, labels, mask = (  # psum: this rank's block of the wave width
+                torch.as_tensor(self.dist.local_block(a, axis=1), device=self.device)
+                for a in (packed.inputs, packed.labels, packed.mask)
+            )
             n_seen, refreshed, stale_w, stale_n = [], [], [], []
             for x, y, m in zip(inputs, labels, mask):
                 state, refresh = self._wave(state, x, y, m, params)
@@ -283,7 +316,14 @@ class StreamingEngine(DistDispatchMixin):
         ``chol_gram`` launch with no sample rows) and W re-solves.  Under the
         ``merge`` backend the already-reduced statistics do not cross the
         wire again, but a lossy wire's noise bound still sizes the guard.
+        Under a dist-owned mesh the statistics would be counted once a rank,
+        so it is refused there: use :meth:`absorb`.
         """
+        if self.cfg.dist.mesh is not None:
+            raise ValueError(
+                "absorb_stats takes pre-reduced statistics; under a "
+                "dist-owned mesh use absorb()"
+            )
         with self.dist.telemetry.span("absorb_stats", engine="streaming"):
             self.dist.dispatch()
             A = torch.as_tensor(A, dtype=torch.float32, device=self.device)

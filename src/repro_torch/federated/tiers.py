@@ -36,9 +36,14 @@ flight-recorder events (``tier_batch_flushed``, ``tier_staleness_exceeded``,
 ``tier_wire_fallback``) that :mod:`repro_torch.launch.obs_report` renders
 as the tree.
 
-The collective form — :meth:`AggregationTree.psum` (one all-reduce per mesh
-tier) and :func:`mesh_tree` — is the collective half of ROADMAP Queue 1
-item 8 and raises.
+The collective form runs over a ``DeviceMesh``
+(:mod:`repro_torch.launch.mesh`): :func:`mesh_tree` makes one collective
+tier a data axis of a tier mesh, leaf (edge) innermost, and
+:meth:`AggregationTree.psum` — which ``DistConfig(tree=...)`` routes the
+engines' all-reduce through — crosses each collective tier in its wire
+(each rank's partial roundtripped, dequantized once) and all-reduces over
+the tier's axis, leaf first.  With fp32 wires it issues exactly the
+two-stage program of :func:`repro_torch.federated.dist.two_stage_psum`.
 """
 from __future__ import annotations
 
@@ -53,18 +58,17 @@ from repro_torch.core.random_features import rff_map
 from repro_torch.federated import compress
 from repro_torch.federated.compress import WireFormat
 from repro_torch.federated.costs import stats_wire_bytes
-from repro_torch.federated.dist import DistConfig, DistContext
+from repro_torch.federated.dist import DistConfig, DistContext, psum_axis
 from repro_torch.federated.engine import shard_stats
 from repro_torch.federated.streaming_engine import StreamState
 from repro_torch.federated.telemetry import Telemetry
-from repro_torch.launch.mesh import ICI_BW
+from repro_torch.launch.mesh import ICI_BW, axis_size, data_axes
+from repro_torch.tree import tree_map
 
 # tier boundaries carry arbitrary statistics payloads, so only the
 # per-matrix formats are valid tier wires (sketch is a client-uplink
 # format for PSD second moments, not a generic boundary format)
 TIER_WIRE_KINDS = ("fp32", "int8", "fp8")
-
-_COLLECTIVE_LATER = "the collective half of ROADMAP Queue 1 item 8"
 
 
 @dataclass(frozen=True)
@@ -110,6 +114,14 @@ def _wire_leaf(child: torch.Tensor) -> bool:
     and d·C class-sum payloads).  Scalars and 1-D sidecars (sample counts)
     stay exact fp32 — the same convention as the engines' uplink."""
     return child.dim() >= 2 and child.is_floating_point()
+
+
+def _roundtrip_nd(x: torch.Tensor, fmt: WireFormat) -> torch.Tensor:
+    """The per-matrix wire roundtrip over any leading stack axes (one
+    roundtrip a matrix, in index order)."""
+    if x.dim() == 2:
+        return compress.matrix_roundtrip(x, fmt)
+    return torch.stack([_roundtrip_nd(m, fmt) for m in x])
 
 
 def _map(fn, payload):
@@ -198,9 +210,22 @@ class AggregationTree:
 
     # ---- collective form -----------------------------------------------------
 
-    def psum(self, payload: Any) -> Any:
-        """The N-tier all-reduce over mesh axes: not ported yet."""
-        raise NotImplementedError(f"AggregationTree.psum: {_COLLECTIVE_LATER}")
+    def psum(self, payload: Any, mesh: Any) -> Any:
+        """The N-tier all-reduce over ``mesh``: per collective tier, LEAF
+        FIRST, each rank's partial crosses the tier's wire (≥2-D float
+        matrices, one roundtrip a matrix, dequantized once at the boundary;
+        fp32 leaves it untouched), then one all-reduce over the tier's axis.
+        Host-level tiers (``axis=None``) are skipped — they fold via
+        :meth:`fold_stacked`.  With fp32 wires this is exactly
+        ``two_stage_psum`` generalized to N axes."""
+        for tier in self.tiers:
+            if tier.axis is None:
+                continue
+            if tier.wire.kind != "fp32":
+                payload = tree_map(lambda x, t=tier: _roundtrip_nd(x, t.wire)
+                                   if _wire_leaf(x) else x, payload)
+            payload = psum_axis(payload, mesh, tier.axis)
+        return payload
 
     # ---- host-tier form (stacked fixed-order folds) ------------------------
 
@@ -280,8 +305,21 @@ def two_stage_tree(axis_names: Sequence[str]) -> AggregationTree:
 
 def mesh_tree(mesh: Any, wires: Optional[dict] = None,
               bandwidths: Optional[dict] = None) -> AggregationTree:
-    """An N-tier tree over a tier mesh: not ported yet."""
-    raise NotImplementedError(f"mesh_tree: {_COLLECTIVE_LATER}")
+    """An N-tier tree over a tier mesh (:func:`repro_torch.launch.mesh.
+    make_tier_host_mesh`): one collective tier a batch-carrying axis,
+    innermost (leaf/edge) first, fan-in = the axis size.  ``wires`` /
+    ``bandwidths`` map axis name → per-tier overrides."""
+    wires = wires or {}
+    bandwidths = bandwidths or {}
+    tiers = []
+    for ax in reversed(data_axes(mesh)):
+        kwargs = {}
+        if ax in wires:
+            kwargs["wire"] = wires[ax]
+        if ax in bandwidths:
+            kwargs["bandwidth"] = bandwidths[ax]
+        tiers.append(TierSpec(name=ax, fan_in=axis_size(mesh, ax), axis=ax, **kwargs))
+    return AggregationTree(tuple(tiers))
 
 
 class TieredAbsorber:
@@ -319,7 +357,7 @@ class TieredAbsorber:
         if any(t.axis is not None for t in tree.tiers):
             raise ValueError(
                 "TieredAbsorber folds host-level tiers; mesh tiers "
-                f"(axis=...) route through DistConfig(tree=...), {_COLLECTIVE_LATER}"
+                "(axis=...) route through DistConfig(tree=...)"
             )
         if engine.cfg.dist.mesh is not None or engine.cfg.dist.aggregation != "merge":
             raise ValueError(

@@ -1,17 +1,38 @@
-"""Link bandwidths of the aggregation-tree tiers.
+"""Host meshes over a ``torch.distributed`` world, and the tier bandwidths.
 
-The port's copy of the pricing constants of the reference's
-``launch/mesh.py``: the bandwidth each tier of an aggregation tree
-(:class:`repro_torch.federated.tiers.TierSpec`) is priced at by
-:meth:`repro_torch.federated.costs.CostModel.tiered_allreduce` — edge folds
+The port's counterpart of the reference's ``launch/mesh.py``.  The
+reference lays its engines over ``jax.devices()``; the port runs one
+process per rank (:mod:`repro_torch.launch.world` starts them), and a mesh
+is a :class:`torch.distributed.device_mesh.DeviceMesh` over the initialized
+world, built by ``init_device_mesh``.  The layouts are the reference's:
+
+* :func:`make_host_mesh` — ``("data", "model")``, or with ``pods > 1``
+  ``("pod", "data", "model")``, the multi-pod layout whose two data axes
+  the dist layer reduces innermost first;
+* :func:`make_tier_host_mesh` — one axis per aggregation tier, outermost
+  (cloud) first, the leaf (edge) tier innermost, plus ``"model"``;
+* :func:`data_axes` (every axis but ``"model"``), :func:`data_parallel_size`
+  (the way count the packers pad to) and :func:`n_chips`.
+
+The ``"model"`` axis is always 1: tensor parallelism (ROADMAP Queue 1 item
+13) is not ported, and ``model_parallel > 1`` raises.  A mesh's
+``device_type`` is the card's by default (``"cpu"`` for gloo worlds on the
+CPU, as the tests run them); the backend is whatever the world was
+initialized with, and nothing here picks one.
+
+The bandwidth constants are the reference's pricing inputs for the tiers of
+an aggregation tree (:class:`repro_torch.federated.tiers.TierSpec`,
+:meth:`repro_torch.federated.costs.CostModel.tiered_allreduce`): edge folds
 over the fast intra-host interconnect, region crossings over the data-centre
-network, cloud crossings over the WAN.  They are the reference's assumed
-deployment links, inputs of the cost model, not measurements of any device.
-
-The mesh constructors (``make_host_mesh``, ``make_tier_host_mesh``,
-``data_axes``) come with the collective half of ROADMAP Queue 1 item 8.
+network, cloud crossings over the WAN.  They are assumed deployment links,
+not measurements of any device.
 """
 from __future__ import annotations
+
+from typing import Tuple
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 ICI_BW = 50e9  # bytes/s per link (~per-chip effective for ring collectives)
 DCN_BW = 12.5e9  # bytes/s per pod boundary (~100 Gbps cross-pod effective)
@@ -20,3 +41,125 @@ WAN_BW = 1.25e9  # bytes/s cross-region (~10 Gbps effective over WAN)
 # Per-tier bandwidth lookup for aggregation trees: edge folds ride ICI,
 # region crossings ride DCN, cloud crossings ride the WAN.
 TIER_BANDWIDTHS = {"ici": ICI_BW, "dcn": DCN_BW, "wan": WAN_BW}
+
+# Default axis names for N-tier host meshes, outermost (slowest) first.
+# The leaf tier keeps the name "edge"; a 1-tier mesh degenerates to it.
+_TIER_AXIS_NAMES = ("cloud", "region", "edge")
+
+_TENSOR_PARALLEL_LATER = (
+    "tensor parallelism over a 'model' axis > 1 is ROADMAP Queue 1 item 13"
+)
+
+
+def _world_size() -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no torch.distributed world is initialized: start the ranks with "
+            "repro_torch.launch.world (run_world, or init_world under torchrun)"
+        )
+    return dist.get_world_size()
+
+
+def _no_tensor_parallel(model_parallel: int) -> None:
+    if model_parallel > 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: {_TENSOR_PARALLEL_LATER}"
+        )
+
+
+def make_host_mesh(
+    model_parallel: int = 1, *, pods: int = 1, device_type: str = "cuda"
+) -> DeviceMesh:
+    """A mesh over every rank of the world, in the reference's layouts.
+
+    ``pods=1`` builds ("data", "model"); ``pods > 1`` adds the leading
+    "pod" axis: ("pod", "data", "model").  Raises ``ValueError`` when the
+    world size does not factor as pods × data × model_parallel, and
+    ``NotImplementedError`` for ``model_parallel > 1``.
+    """
+    n = _world_size()
+    if model_parallel < 1 or pods < 1:
+        raise ValueError(
+            f"model_parallel and pods must be >= 1, got {model_parallel}, {pods}"
+        )
+    if n % (model_parallel * pods) != 0:
+        raise ValueError(
+            f"{n} ranks do not factor as pods={pods} × data × "
+            f"model_parallel={model_parallel}"
+        )
+    _no_tensor_parallel(model_parallel)
+    data = n // (model_parallel * pods)
+    if pods > 1:
+        return init_device_mesh(
+            device_type, (pods, data, model_parallel), mesh_dim_names=("pod", "data", "model")
+        )
+    return init_device_mesh(device_type, (data, model_parallel), mesh_dim_names=("data", "model"))
+
+
+def make_tier_host_mesh(
+    tier_shape: Tuple[int, ...],
+    tier_names: Tuple[str, ...] = (),
+    model_parallel: int = 1,
+    *,
+    device_type: str = "cuda",
+) -> DeviceMesh:
+    """N-tier mesh over the world's ranks: one axis per tier + "model".
+
+    ``tier_shape`` lists tier sizes OUTERMOST FIRST (cloud → edge), so the
+    trailing tier axis is the leaf/edge tier.  Default names for ≤3 tiers
+    are drawn from ("cloud", "region", "edge") right-aligned; deeper trees
+    must name their axes.  Raises ``ValueError`` when the world size does
+    not factor as prod(tier_shape) × model_parallel or names and shape
+    disagree, and ``NotImplementedError`` for ``model_parallel > 1``.
+    """
+    if not tier_shape or any(s < 1 for s in tier_shape):
+        raise ValueError(f"tier_shape must be non-empty positive ints, got {tier_shape}")
+    if not tier_names:
+        if len(tier_shape) > len(_TIER_AXIS_NAMES):
+            raise ValueError(
+                f"{len(tier_shape)} tiers need explicit tier_names "
+                f"(defaults cover {len(_TIER_AXIS_NAMES)})"
+            )
+        tier_names = _TIER_AXIS_NAMES[len(_TIER_AXIS_NAMES) - len(tier_shape):]
+    if len(tier_names) != len(tier_shape):
+        raise ValueError(f"tier_names {tier_names} do not match tier_shape {tier_shape}")
+    if "model" in tier_names:
+        raise ValueError('"model" is reserved for the model-parallel axis')
+    n = _world_size()
+    want = model_parallel
+    for s in tier_shape:
+        want *= s
+    if n != want:
+        raise ValueError(
+            f"{n} ranks do not factor as tiers {tier_shape} × "
+            f"model_parallel={model_parallel}"
+        )
+    _no_tensor_parallel(model_parallel)
+    return init_device_mesh(
+        device_type,
+        tuple(tier_shape) + (model_parallel,),
+        mesh_dim_names=tuple(tier_names) + ("model",),
+    )
+
+
+def data_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
+    """Axes carrying the batch dimension (everything but "model")."""
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    """The size of one named axis."""
+    return int(mesh.mesh.shape[mesh.mesh_dim_names.index(axis)])
+
+
+def data_parallel_size(mesh: DeviceMesh) -> int:
+    """Product of the batch-carrying axis sizes — the shard count the
+    packers pad the engines' leading axes to a multiple of."""
+    n = 1
+    for a in data_axes(mesh):
+        n *= axis_size(mesh, a)
+    return n
+
+
+def n_chips(mesh: DeviceMesh) -> int:
+    return int(mesh.mesh.numel())

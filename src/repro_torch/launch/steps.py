@@ -20,7 +20,7 @@ reference jits them) and hides nothing but that binding.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -29,6 +29,7 @@ from repro_torch.core import fed3r
 from repro_torch.core.random_features import RFFParams, rff_map
 from repro_torch.federated import engine as engine_lib
 from repro_torch.federated.simulator import softmax_ce
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models import model as model_lib
 from repro_torch.tree import tree_map
 
@@ -123,6 +124,8 @@ def make_fed3r_stats_step(
     rff_params: Optional[RFFParams] = None,
     *,
     aggregation: str = "merge",
+    mesh_axes: Tuple[str, ...] = (),
+    mesh: Any = None,
 ) -> Callable:
     """(params, stats, batch{tokens, class_labels[, mask]}) -> stats'.
 
@@ -132,9 +135,11 @@ def make_fed3r_stats_step(
     through one ``fed3r_stats`` launch.  An optional per-sample
     ``batch["mask"]`` supports packed batches (padding rows contribute
     exactly nothing).  ``aggregation`` is the engine's server backend:
-    ``"merge"`` (the sum IS the aggregation); ``"psum"`` is the
-    distributed layer and raises.
+    ``"merge"`` (the sum IS the aggregation); ``"psum"``: this rank's
+    batch statistics all-reduced over ``mesh_axes`` of ``mesh`` (default:
+    its data axes) before they fold into ``stats``.
     """
+    axes = tuple(mesh_axes) or (data_axes(mesh) if mesh is not None else ())
 
     @torch.no_grad()
     def stats_step(params, stats: fed3r.Fed3RStats, batch) -> fed3r.Fed3RStats:
@@ -142,6 +147,6 @@ def make_fed3r_stats_step(
         if rff_params is not None:
             feats = rff_map(rff_params, feats)
         new = engine_lib.shard_stats(feats, batch["class_labels"], n_classes, batch.get("mask"))
-        return fed3r.merge(stats, engine_lib.aggregate(new, aggregation))
+        return fed3r.merge(stats, engine_lib.aggregate(new, aggregation, axes, mesh))
 
     return stats_step

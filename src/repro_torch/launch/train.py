@@ -21,20 +21,33 @@ backbone+head params, optimizer buffers, round index — checkpoints every
 snapshot and reproduces the uninterrupted run (cohorts and shuffles are
 pure functions of the round index).
 
+Scale-out: started by ``torchrun`` with more than one rank, the driver
+joins the world over the backend ``--backend`` names (``nccl``: one card a
+rank; ``gloo``: any number of ranks, sharing cards), lays a host mesh
+(:func:`repro_torch.launch.mesh.make_host_mesh`) over it and runs both
+phases under ``DistConfig(aggregation="psum", mesh=...)``: phase 1's shards
+and phase 2's cohort are split over the ranks, the statistics and the
+weighted deltas all-reduced.  Rank 0's parameters are broadcast first, so
+every rank starts from the same weights; only rank 0 prints and writes
+checkpoints.  With one rank the driver runs as a single process.
+
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch fed3r-mnv2-proxy \\
       --clients 100 --per-round 10 --seq-len 128 --rounds 3 --device cuda \\
       [--algorithm fedavg] [--ft-strategy feat] [--ckpt-dir DIR [--resume]]
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --backend gloo --arch fed3r-mnv2-proxy ...
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import latest_checkpoint, load_pytree, save_pytree
 from repro_torch.configs import get_config
@@ -44,11 +57,13 @@ from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.pipeline import PackedCohort, pack_client_shards, pack_cohort_batches
 from repro_torch.data.synthetic import TokenDataset, make_token_dataset
 from repro_torch.federated.algorithms import make_algorithm, server_state_from_tree
-from repro_torch.federated.dist import resolve_device
+from repro_torch.federated.dist import DistConfig, broadcast_tree, resolve_device
 from repro_torch.federated.engine import AccumulationEngine, EngineConfig
 from repro_torch.federated.round_engine import RoundConfig, RoundEngine
 from repro_torch.federated.sampling import sample_round
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_cls_per_example_loss
+from repro_torch.launch.world import BACKENDS, init_world
 from repro_torch.models import build_model
 from repro_torch.tree import tree_map
 
@@ -62,6 +77,11 @@ def _partition(labels_np: np.ndarray, n_clients: int):
     return dirichlet_partition(np.random.default_rng(2), labels_np, n_clients, alpha=0.0)
 
 
+def _dist(mesh: Any) -> DistConfig:
+    """The engines' backend: merge in one process, psum over ``mesh``."""
+    return DistConfig() if mesh is None else DistConfig(aggregation="psum", mesh=mesh)
+
+
 def fed3r_phase(
     cfg: ModelConfig,
     params: dict,
@@ -70,13 +90,15 @@ def fed3r_phase(
     n_clients: int,
     clients_per_round: int,
     device: Union[str, torch.device] = "cuda",
+    mesh: Any = None,
     verbose: bool = True,
 ) -> dict:
     """Phase 1 on given backbone params and token dataset.
 
     Every client contributes exactly once: the clients (a one-class-per-
     client split of ``ds``) are packed ``clients_per_round`` to a shard and
-    folded by the engine.  The first fifth of ``ds`` is the test set; the
+    folded by the engine (with ``mesh``, each rank folds its block of the
+    shards and the statistics are all-reduced).  The first fifth of ``ds`` is the test set; the
     temperature is calibrated on the next 512 samples.  Returns the
     classifier, its calibrated form, the statistics and what was measured.
     """
@@ -90,13 +112,13 @@ def fed3r_phase(
 
     t0 = time.time()
     engine = AccumulationEngine(
-        EngineConfig(n_classes=ds.n_classes),
+        EngineConfig(n_classes=ds.n_classes, dist=_dist(mesh)),
         feature_fn=lambda p, toks: model.extract_features(p, {"tokens": toks}),
         device=dev,
     )
     packed = pack_client_shards(
         [(tokens_np[parts[k]], labels_np[parts[k]]) for k in range(n_clients)],
-        clients_per_shard=clients_per_round,
+        clients_per_shard=clients_per_round, mesh=mesh,
     )
     acc = engine.accumulate(engine.init(cfg.d_feat), packed, params)
     W = fed3r.solve(acc.stats, RIDGE_LAMBDA)
@@ -109,7 +131,8 @@ def fed3r_phase(
     W_head = calibration.fold_temperature(W, temp)
     seconds = time.time() - t0
     if verbose:
-        print(f"[fed3r] classifier in {n_clients} client visits "
+        ranks = "" if mesh is None else f" over {dist.get_world_size()} ranks"
+        print(f"[fed3r] classifier in {n_clients} client visits{ranks} "
               f"({seconds:.1f}s)  acc={test_acc:.4f}  T={float(temp):.2f}")
     return {
         "W": W, "W_head": W_head, "stats": acc.stats, "fed3r_acc": test_acc,
@@ -126,10 +149,12 @@ def ft_engine(
     lr: float = 0.05,
     algorithm: str = "fedavg",
     ft_strategy: str = "feat",
+    mesh: Any = None,
 ) -> RoundEngine:
     """Phase 2's round engine over ``{"backbone": params, "head": {"W", "b"}}``:
     the classification loss, and the freeze mask of ``ft_strategy`` (full:
-    everything trains; lp: the head only; feat: the backbone only)."""
+    everything trains; lp: the head only; feat: the backbone only); with
+    ``mesh``, the psum backend over it."""
     if ft_strategy not in ("full", "lp", "feat"):
         raise ValueError(f"unknown ft_strategy {ft_strategy!r}")
     head = 0.0 if ft_strategy == "feat" else 1.0
@@ -138,7 +163,8 @@ def ft_engine(
         "head": {"W": head, "b": head},
     }
     return RoundEngine(
-        RoundConfig(algo=make_algorithm(algorithm), client_lr=lr, n_total_clients=n_clients),
+        RoundConfig(algo=make_algorithm(algorithm), client_lr=lr, n_total_clients=n_clients,
+                    dist=_dist(mesh)),
         make_cls_per_example_loss(cfg),
         freeze,
     )
@@ -160,11 +186,13 @@ class FtClients:
         self.local_batch_size = local_batch_size
         self.n_batches = -(-max(len(p) for p in self.parts) // local_batch_size)
 
-    def cohort(self, rnd: int) -> PackedCohort:
+    def cohort(self, rnd: int, mesh: Any = None) -> PackedCohort:
+        """Round ``rnd``'s packed cohort (padded to divide ``mesh``)."""
         chosen = sample_round(self.n_clients, self.clients_per_round, rnd, seed=_FT_SEED)
         return pack_cohort_batches(
             [(self.tokens[self.parts[int(k)]], self.labels[self.parts[int(k)]]) for k in chosen],
             self.local_batch_size, self.n_batches, client_ids=chosen, seed=(_FT_SEED, rnd),
+            mesh=mesh,
         )
 
 
@@ -184,6 +212,7 @@ def ft_phase(
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
     device: Union[str, torch.device] = "cuda",
+    mesh: Any = None,
     verbose: bool = True,
 ) -> dict:
     """Phase 2 on given backbone params, token dataset and head init.
@@ -193,7 +222,9 @@ def ft_phase(
     over :class:`FtClients`' cohorts.  Returns the final ``ServerState``,
     the test accuracies at every checkpoint round, and each round's
     host-clock ms around ``RoundEngine.step`` (ending in a device
-    synchronize) with the real tokens its local training read.
+    synchronize) with the real tokens its local training read.  With
+    ``mesh`` each rank trains its block of the cohort, and only global rank
+    0 writes checkpoints.
     """
     dev = resolve_device(device)
     model = build_model(cfg)
@@ -202,7 +233,8 @@ def ft_phase(
     test_tokens, test_labels = ds.tokens[:n_test].to(dev), ds.labels[:n_test].to(dev)
 
     engine = ft_engine(cfg, params, n_clients=n_clients, lr=lr, algorithm=algorithm,
-                       ft_strategy=ft_strategy)
+                       ft_strategy=ft_strategy, mesh=mesh)
+    writer = mesh is None or dist.get_rank() == 0
     resume_path = latest_checkpoint(ckpt_dir) if (resume and ckpt_dir) else None
     if resume_path is not None:
         state = server_state_from_tree(load_pytree(resume_path), dev)
@@ -226,7 +258,7 @@ def ft_phase(
 
     log = {"rounds": [], "ft_acc": [], "round_ms": [], "round_tokens": []}
     for rnd in range(start_round, rounds):
-        cohort = clients.cohort(rnd)
+        cohort = clients.cohort(rnd, mesh)
         log["round_tokens"].append(cohort.n_samples * clients.tokens.shape[1])
         cohort = cohort.to(dev)
         sync()
@@ -241,7 +273,7 @@ def ft_phase(
             if verbose:
                 print(f"[ft:{ft_strategy}] round {rnd + 1:4d}  acc={acc:.4f}  "
                       f"({log['round_ms'][-1]:.1f} ms the last round)")
-            if ckpt_dir:
+            if ckpt_dir and writer:
                 # round-resumable: the FULL server state, not just the head
                 save_pytree(os.path.join(ckpt_dir, f"ckpt_{rnd + 1}.npz"), state)
     log["state"] = state
@@ -265,10 +297,13 @@ def run(
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
     device: Union[str, torch.device] = "cuda",
+    mesh: Any = None,
     verbose: bool = True,
 ) -> dict:
     """Random backbone params (seed 0) and a synthetic token dataset (seed
-    1), then phase 1 and, with ``rounds > 0``, phase 2 (under ``"ft"``).
+    1), then phase 1 and, with ``rounds > 0``, phase 2 (under ``"ft"``);
+    with ``mesh`` (a host mesh over an initialized world) both phases run
+    under the psum backend, from rank 0's parameters.
 
     Phase 1 is skipped without ``use_fed3r_init`` (the head is then drawn
     0.01·N(0, 1) from a ``torch.Generator`` seeded 0) and when phase 2
@@ -278,6 +313,8 @@ def run(
     dev = resolve_device(device)
     cfg = get_config(arch)
     params = build_model(cfg).init(seed=0, device=dev)
+    if mesh is not None:
+        params = broadcast_tree(params, src=0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     ds = make_token_dataset(gen, n_samples, seq_len, cfg.vocab_size, n_classes)
@@ -286,7 +323,7 @@ def run(
     if use_fed3r_init and not resuming:
         out.update(fed3r_phase(
             cfg, params, ds, n_clients=n_clients, clients_per_round=clients_per_round,
-            device=dev, verbose=verbose,
+            device=dev, mesh=mesh, verbose=verbose,
         ))
     if rounds > 0:
         W_head = out.get("W_head")
@@ -297,7 +334,7 @@ def run(
             cfg, params, ds, W_head, n_clients=n_clients, clients_per_round=clients_per_round,
             rounds=rounds, lr=lr, local_batch_size=local_batch_size, algorithm=algorithm,
             ft_strategy=ft_strategy, ckpt_dir=ckpt_dir, resume=resume, device=dev,
-            verbose=verbose,
+            mesh=mesh, verbose=verbose,
         )
     return out
 
@@ -317,14 +354,28 @@ def main() -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="collective backend when torchrun starts more than one rank")
     args = ap.parse_args()
-    run(
-        args.arch, rounds=args.rounds, n_clients=args.clients,
-        clients_per_round=args.per_round, seq_len=args.seq_len,
-        local_batch_size=args.local_batch, algorithm=args.algorithm,
-        ft_strategy=args.ft_strategy, use_fed3r_init=not args.no_fed3r_init,
-        ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device,
-    )
+    device, mesh, verbose = args.device, None, True
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.backend is None:
+            ap.error("more than one rank: name the collective backend with --backend")
+        device = init_world(args.backend, args.device)
+        mesh = make_host_mesh(device_type=device.type)
+        verbose = dist.get_rank() == 0
+    try:
+        run(
+            args.arch, rounds=args.rounds, n_clients=args.clients,
+            clients_per_round=args.per_round, seq_len=args.seq_len,
+            local_batch_size=args.local_batch, algorithm=args.algorithm,
+            ft_strategy=args.ft_strategy, use_fed3r_init=not args.no_fed3r_init,
+            ckpt_dir=args.ckpt_dir, resume=args.resume, device=device, mesh=mesh,
+            verbose=verbose,
+        )
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

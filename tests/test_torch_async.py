@@ -63,7 +63,10 @@ from repro_torch.federated.costs import CostModel  # noqa: E402
 from repro_torch.federated.dist import DistConfig, shard_cohort  # noqa: E402
 from repro_torch.federated.fed3r_driver import run_fed3r  # noqa: E402
 from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine  # noqa: E402
+from repro_torch.launch import dist_check  # noqa: E402
 from repro_torch.launch import serve_stream as serve_stream_mod  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 
 D, C = 16, 4
 N_CLIENTS = 10
@@ -553,9 +556,25 @@ def test_config_validation():
     with pytest.raises(ValueError, match="secure"):
         AsyncConfig(n_classes=C, ridge_lambda=LAMBDA, cohort=1, secure=True,
                     wire=WireFormat(kind="int8"))
-    with pytest.raises(NotImplementedError, match="collective half"):
+    with pytest.raises(ValueError, match="mesh axis"):  # the reference's validation
         AsyncConfig(n_classes=C, ridge_lambda=LAMBDA, cohort=1,
                     dist=DistConfig(aggregation="psum"))
+    # psum runs on a one-rank world: every slot is this rank's, bitwise merge
+    rng = np.random.default_rng(0)
+    payloads = {c: fed3r.client_stats(torch.from_numpy(dist_check.grid(rng, (8, dist_check.D))),
+                                      torch.from_numpy(rng.integers(0, dist_check.C, size=8)),
+                                      dist_check.C)
+                for c in range(3)}
+    with single_rank_world("gloo", "cpu"):
+        psum = DistConfig(aggregation="psum", mesh=make_host_mesh(device_type="cpu"))
+        with pytest.raises(ValueError, match="exclusive"):
+            AsyncRoundEngine(AsyncConfig(n_classes=C, ridge_lambda=LAMBDA, cohort=1, secure=True,
+                                         dist=psum), device="cpu")
+        got = dist_check.run_async(payloads, 3, psum, "cpu")
+    want = dist_check.run_async(payloads, 3, None, "cpu")
+    for k in ("W", "L", "live"):
+        assert torch.equal(got[k], want[k])
+    assert got["status"] == want["status"] == ["folded"] * 3
     if not torch.cuda.is_available():  # the card by default: no CPU fallback
         with pytest.raises(RuntimeError, match="device='cpu'"):
             AsyncRoundEngine(AsyncConfig(n_classes=C, ridge_lambda=LAMBDA, cohort=1))

@@ -28,6 +28,9 @@ from repro_torch.federated.engine import (  # noqa: E402
 )
 from repro_torch.federated.telemetry import Telemetry  # noqa: E402
 from repro_torch.kernels.ops import fed3r_stats  # noqa: E402
+from repro_torch.federated import compress  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 
 D, C = 16, 5
 STATS_REL = 1e-5  # fp32 sums of ≤ 100 products in two orders, scaled to max|A|
@@ -160,8 +163,29 @@ def test_engine_rejects_unported_options():
     assert _engine().wire == WireFormat()  # fp32 by default
     with pytest.raises(ValueError):
         EngineConfig(n_classes=C, wire=WireFormat(kind="int4"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # psum needs axes: the reference's validation
         EngineConfig(n_classes=C, dist=DistConfig(aggregation="psum"))
+    # psum runs on a one-rank world: the all-reduce sums one partial, so
+    # fp32 is bitwise the merge fold, and int8 the merge fold through the
+    # wire once more (the partial's crossing)
+    packed = pack_client_shards(_make_clients(3, [5, 9, 4]), 2)
+    int8 = WireFormat(kind="int8", tile=8)
+
+    def eng(**kw):
+        return AccumulationEngine(EngineConfig(n_classes=C, **kw), device="cpu")
+
+    merge32, merge8 = eng(), eng(wire=int8)
+    want32 = merge32.accumulate(merge32.init(D), packed)
+    want8 = merge8.accumulate(merge8.init(D), packed)
+    with single_rank_world("gloo", "cpu"):
+        psum = DistConfig(aggregation="psum", mesh=make_host_mesh(device_type="cpu"))
+        eng32, eng8 = eng(dist=psum), eng(dist=psum, wire=int8)
+        got32 = eng32.accumulate(eng32.init(D), packed)
+        got8 = eng8.accumulate(eng8.init(D), packed)
+    assert torch.equal(got32.stats.A, want32.stats.A) and torch.equal(got32.stats.b, want32.stats.b)
+    assert torch.equal(got32.class_counts, want32.class_counts)
+    A8, b8 = compress.wire_roundtrip(want8.stats.A, want8.stats.b, int8)
+    assert torch.equal(got8.stats.A, A8) and torch.equal(got8.stats.b, b8)
     with pytest.raises(ValueError):
         DistConfig(aggregation="allgather")
     with pytest.raises(TypeError):  # FED3R-RF is ported: rff_params must be RFFParams

@@ -57,6 +57,8 @@ from repro_torch.federated.simulator import linear_head_task, run_federated  # n
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 from repro_torch.models.convert import params_from_jax, tree_from_jax  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -347,6 +349,12 @@ def test_fed3r_stats_step_matches_reference():
         jparams, jfed3r.init_stats(jcfg.d_feat, FT["n_classes"]), jbatch)
     assert _rel(stats.A, jstats.A) <= 1e-5 and _rel(stats.b, jstats.b) <= 1e-5
     assert float(stats.n) == float(jstats.n) == mask.sum()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh axis"):  # psum needs its axes
         steps.make_fed3r_stats_step(cfg, FT["n_classes"], aggregation="psum")(
             params, fed3r.init_stats(cfg.d_feat, FT["n_classes"], "cpu"), batch)
+    with single_rank_world("gloo", "cpu"):  # one rank's all-reduce: the merge step's bits
+        summed = steps.make_fed3r_stats_step(
+            cfg, FT["n_classes"], aggregation="psum", mesh=make_host_mesh(device_type="cpu"))(
+            params, fed3r.init_stats(cfg.d_feat, FT["n_classes"], "cpu"), batch)
+    assert torch.equal(summed.A, stats.A) and torch.equal(summed.b, stats.b)
+    assert float(summed.n) == float(stats.n)

@@ -48,6 +48,8 @@ from repro_torch.federated.streaming_engine import factored_from_jax  # noqa: E4
 from repro_torch.kernels import chol_update as chol_update_mod  # noqa: E402
 from repro_torch.kernels.ops import batched_chol_gram  # noqa: E402
 from repro_torch.kernels.ref import batched_chol_gram_ref  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 
 D, C, LAM = 24, 6, 1e-2
 GRID = (0.0, 0.5, 1.0, 2.0)
@@ -320,8 +322,10 @@ def test_pack_personal_cohort_holdout_rule_and_validation():
             pack_personal_cohort(clients, **bad)
     with pytest.raises(ValueError):
         pack_personal_cohort([])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pack_personal_cohort(clients, mesh=object())
+    with single_rank_world("gloo", "cpu"):  # one data shard: the mesh pads nothing
+        meshed = pack_personal_cohort(clients, mesh=make_host_mesh(device_type="cpu"))
+    plain = pack_personal_cohort(clients)
+    assert all(np.array_equal(a, b) for a, b in zip(meshed, plain))
 
 
 def test_cohort_stats_matches_reference():
@@ -508,8 +512,23 @@ def test_config_refuses_what_the_port_lacks():
         PersonalizeConfig(n_classes=C, selection="accuracy")
     with pytest.raises(TypeError):
         PersonalizeConfig(n_classes=C, use_kernel=True)  # the tensor's device decides
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh axis"):  # the reference's validation
         PersonalizeConfig(n_classes=C, dist=DistConfig(aggregation="psum"))
+    # psum runs on a one-rank world: its block is the whole cohort and the
+    # gather broadcasts it, so the heads are the merge engine's bits
+    packed = pack_personal_cohort(_make_clients(12, 5), cohort_size=8)
+    state = fed3r.factored_update(fed3r.init_factored(D, C, 0.1, "cpu"),
+                                  torch.from_numpy(np.concatenate(packed.inputs)),
+                                  torch.from_numpy(np.concatenate(packed.labels)))
+    want = PersonalizationEngine(PersonalizeConfig(n_classes=C), device="cpu")
+    want_h = want.solve_heads(state, packed)
+    with single_rank_world("gloo", "cpu"):
+        psum = DistConfig(aggregation="psum", mesh=make_host_mesh(device_type="cpu"))
+        eng = PersonalizationEngine(PersonalizeConfig(n_classes=C, dist=psum), device="cpu")
+        got_h, got_at = eng.solve_heads(state, packed), eng.solve_at(state, packed, want_h.alpha)
+    for f in ("W", "alpha", "score"):
+        assert torch.equal(getattr(got_h, f), getattr(want_h, f))
+    assert torch.equal(got_at.W, want.solve_at(state, packed, want_h.alpha).W)
 
 
 def test_personalization_modules_import_without_jax():

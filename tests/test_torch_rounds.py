@@ -16,8 +16,9 @@ CPU, and adds port-against-reference rounds:
   linear and the feature-finetune tasks within 1e-5 of max|θ| of the
   reference's engine for every algorithm (fp32 reassociation only: both
   take the same SGD steps on the same packed batches);
-* the distributed backends raise (the reference's psum tests, whose mesh
-  the port does not have yet).
+* the psum backend's validation, and on a one-rank world its round bitwise
+  the merge engine's (the 4-rank rounds are in
+  ``tests/test_torch_dist_engines.py``).
 
 Inputs come from the reference's ``make_federated_features`` (numpy), the
 head inits from ``numpy.random.default_rng``.  The step under
@@ -57,6 +58,8 @@ from repro_torch.federated.fed3r_driver import feature_finetune_task  # noqa: E4
 from repro_torch.federated.round_engine import ReferenceLoop, RoundConfig, RoundEngine  # noqa: E402
 from repro_torch.federated.sampling import ClientSampler, sample_round  # noqa: E402
 from repro_torch.federated.simulator import linear_head_task, pack_round, run_federated  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 
 N_CLIENTS, C, D = 12, 4, 8
 ALGOS = ["fedavg", "fedavgm", "fedprox", "scaffold", "fedadam", "fedyogi"]
@@ -382,21 +385,38 @@ def test_stop_resume_reproduces_uninterrupted_run(fed_data, tmp_path, algo):
 
 
 # ---------------------------------------------------------------------------
-# the distributed backends wait for ROADMAP Queue 1 item 8
+# the psum backend (tests/test_round_engine.py:316-330); the sharded rounds
+# on 4 ranks are in tests/test_torch_dist_engines.py
 # ---------------------------------------------------------------------------
 
 
 def test_psum_and_meshes_raise(fed_data):
-    fed, _, tf, tl = fed_data
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DistConfig(aggregation="psum")
+    """The reference's validation raises; on a one-rank world the psum
+    backend runs, bitwise the merge engine (its all-reduce sums one rank),
+    and Scaffold refuses it with the reference's message."""
+    _, pfed, tf, tl = fed_data
+    with pytest.raises(ValueError):
+        DistConfig(aggregation="psum")  # no axes, no mesh
     with pytest.raises(ValueError):
         DistConfig(aggregation="allgather")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        engine_lib.aggregate(engine_lib.shard_stats(torch.ones(3, 2), torch.zeros(3), 2),
-                             "psum", ("data",))
     with pytest.raises(ValueError):
         engine_lib.aggregate(None, "allgather")
-    clients = [(fed.client(0).features, fed.client(0).labels)]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pack_cohort_batches(clients, 16, 4, mesh=object())
+    task = _task(tf, tl)
+    _, cohort = pack_round(pfed, _fc(), 0, n_batches=4)
+    with single_rank_world("gloo", "cpu"):
+        mesh = make_host_mesh(device_type="cpu")
+        psum = DistConfig(aggregation="psum", mesh=mesh)
+        with pytest.raises(ValueError, match="scaffold needs the global cohort for the cvar"):
+            RoundEngine(_rc("scaffold", dist=psum), task.per_example_loss, task.freeze)
+        merge = RoundEngine(_rc("fedavg"), task.per_example_loss, task.freeze)
+        eng = RoundEngine(_rc("fedavg", dist=psum), task.per_example_loss, task.freeze)
+        want = merge.step(merge.init(task.params0), cohort)
+        got = eng.step(eng.init(task.params0), pack_round(pfed, _fc(), 0, n_batches=4,
+                                                          mesh=mesh)[1])
+        for k in ("W", "bias"):
+            assert torch.equal(got.params[k], want.params[k])
+        stats = engine_lib.shard_stats(torch.ones(3, 2), torch.zeros(3), 2)
+        summed = engine_lib.aggregate(stats, "psum", ("data",), mesh)
+        assert torch.equal(summed.A, stats.A) and torch.equal(summed.b, stats.b)
+        clients = [(pfed.client(0).features, pfed.client(0).labels)]
+        assert pack_cohort_batches(clients, 16, 4, mesh=mesh).cohort == 1

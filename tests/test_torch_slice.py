@@ -244,5 +244,6 @@ def test_port_imports_without_jax_or_the_reference_package():
                  "federated.round_engine", "federated.simulator", "federated.fed3r_driver",
                  "core.probe", "federated.engine", "models.model", "launch.train",
                  "models.convert", "tree", "federated.async_engine", "federated.tiers",
-                 "launch.mesh", "launch.obs_report"):
+                 "launch.mesh", "launch.obs_report", "launch.world", "launch.dist_check",
+                 "sharding", "sharding.specs"):
         assert "repro_torch." + name in names

@@ -56,6 +56,8 @@ from repro_torch.kernels import chol_update as chol_update_mod  # noqa: E402
 from repro_torch.kernels.ops import chol_gram  # noqa: E402
 from repro_torch.kernels.ref import chol_gram_ref  # noqa: E402
 from repro_torch.launch import serve_stream as serve_stream_mod  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 
 D, C = 24, 6
 STATS_REL = 1e-5  # fp32 sums in two orders, relative to the largest entry
@@ -318,8 +320,9 @@ def test_pack_arrival_waves_validates_like_the_reference():
         pack_arrival_waves([])
     with pytest.raises(ValueError):
         pack_arrival_waves([[], []])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pack_arrival_waves(waves, mesh=object())
+    with single_rank_world("gloo", "cpu"):  # one data shard: the mesh pads nothing
+        meshed = pack_arrival_waves(waves, mesh=make_host_mesh(device_type="cpu"))
+    assert all(np.array_equal(a, b) for a, b in zip(meshed, pack_arrival_waves(waves)))
 
 
 def test_packed_arrivals_to_device_keeps_the_arrays():
@@ -533,13 +536,24 @@ def test_streaming_rejects_unported_options():
     assert _engine(wire=WireFormat(kind="int8", tile=16)).wire == WireFormat(kind="int8", tile=16)
     with pytest.raises(ValueError):
         _cfg(wire=WireFormat(kind="int4"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh axis"):  # the reference's validation
         _cfg(dist=DistConfig(aggregation="psum"))
-    # host-tier trees are ported (tests/test_torch_tiers.py); a mesh-routed
-    # tree waits for the collective half
+    # host-tier trees fold in TieredAbsorber (tests/test_torch_tiers.py); a
+    # mesh-routed tree routes the psum backend instead
     mesh_routed = AggregationTree((TierSpec("data", fan_in=1, axis="data"),))
-    with pytest.raises(ValueError, match="collective half of ROADMAP Queue 1 item 8"):
+    with pytest.raises(ValueError, match="route through DistConfig"):
         _engine().tiered_absorber(mesh_routed)
+    # psum runs on a one-rank world: on the CPU the plain chol_gram is
+    # L Lᵀ + ZᵀZ, so the psum wave's L Lᵀ + S is bitwise the merge wave
+    packed = pack_arrival_waves(_make_stream(4, 3, max_clients=2))
+    want, _ = _engine().absorb(_engine().init(D), packed)
+    with single_rank_world("gloo", "cpu"):
+        mesh = make_host_mesh(device_type="cpu")
+        eng = StreamingEngine(_cfg(dist=DistConfig(aggregation="psum", mesh=mesh)), device="cpu")
+        got, _ = eng.absorb(eng.init(D), packed)
+        with pytest.raises(ValueError, match="dist-owned mesh"):
+            eng.absorb_stats(got, got.L, got.b, got.n)
+    assert torch.equal(got.L, want.L) and torch.equal(got.W, want.W)
     with pytest.raises(TypeError):
         StreamingEngine(_cfg(), rff_params=object(), device="cpu")
 

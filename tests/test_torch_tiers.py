@@ -8,8 +8,9 @@ per boundary, so the tree matches a manual per-boundary roundtrip bit for
 bit.  The :class:`TieredAbsorber`'s overlapped and blocking forms agree
 bitwise with each other and with ``absorb_stats`` of the flat sum, and its
 W agrees with the reference absorber's within tolerance.  The mesh-routed
-tests (``tests/test_tiers.py:229-347``) wait for the collective half of the
-distributed layer; here the collective forms are held to raising.
+forms run here on a one-rank world (the tree's all-reduce sums one rank,
+bitwise the merge fold); ``tests/test_tiers.py:229-347`` on 4 ranks is
+twinned in ``tests/test_torch_dist_engines.py``.
 
 ``obs_report``: the same snapshot JSON, read by both packages, gives the
 same text.
@@ -48,7 +49,10 @@ from repro_torch.federated.tiers import (  # noqa: E402
     mesh_tree,
     two_stage_tree,
 )
+from repro_torch.data.pipeline import pack_client_shards  # noqa: E402
+from repro_torch.federated.engine import AccumulationEngine, EngineConfig  # noqa: E402
 from repro_torch.launch import mesh, obs_report  # noqa: E402
+from repro_torch.launch.world import single_rank_world  # noqa: E402
 
 D, C, LAM = 16, 5, 0.1
 
@@ -147,17 +151,38 @@ def test_resolved_keeps_every_field():
 
 
 def test_collective_forms_wait_for_the_collective_half():
+    """The reference's refusals (tests/test_tiers.py:233-245), and the
+    collective forms on a one-rank world: ``mesh_tree`` of a 1-axis tier
+    mesh, ``AggregationTree.psum`` and the tree-routed statistics engine,
+    bitwise the merge fold (tests/test_tiers.py:248-271)."""
     tree = AggregationTree((TierSpec("data", fan_in=1, axis="data"),))
-    with pytest.raises(NotImplementedError, match="collective half"):
-        tree.psum({"A": torch.zeros(2, 2)})
-    with pytest.raises(NotImplementedError, match="collective half"):
-        mesh_tree(object())
-    with pytest.raises(NotImplementedError, match="collective half"):
-        DistConfig(aggregation="psum", tree=tree)
-    with pytest.raises(NotImplementedError, match="collective half"):
+    with pytest.raises(ValueError):  # a tree routes the psum backend
         DistConfig(tree=tree)
-    with pytest.raises(NotImplementedError, match="collective half"):
+    with pytest.raises(ValueError):  # no reduce axes for the tree to cover
+        DistConfig(aggregation="psum", tree=tree)
+    with pytest.raises(ValueError):  # merge is the single-process backend
         DistConfig(mesh=object())
+    rng = np.random.default_rng(0)
+    clients = [(_grid(rng, (8, D)), rng.integers(0, C, size=8).astype(np.int32))
+               for _ in range(2)]
+    packed = pack_client_shards(clients, 2)
+    ref_eng = AccumulationEngine(EngineConfig(n_classes=C), device="cpu")
+    ref = ref_eng.accumulate(ref_eng.init(D), packed)
+    with single_rank_world("gloo", "cpu"):
+        tiers = mesh.make_tier_host_mesh((1,), device_type="cpu")
+        routed = mesh_tree(tiers)
+        assert routed.axes == ("edge",) and routed.leaves == 1
+        with pytest.raises(ValueError):  # the tree's axes must be the mesh's
+            DistConfig(aggregation="psum", mesh=tiers, tree=tree)
+        payload = {"A": torch.arange(4.0).reshape(2, 2), "n": torch.tensor(3.0)}
+        summed = routed.psum(payload, tiers)
+        eng = AccumulationEngine(EngineConfig(
+            n_classes=C, dist=DistConfig(aggregation="psum", mesh=tiers, tree=routed)),
+            device="cpu")
+        acc = eng.accumulate(eng.init(D), pack_client_shards(clients, 2, mesh=tiers))
+    assert torch.equal(summed["A"], payload["A"]) and torch.equal(summed["n"], payload["n"])
+    assert torch.equal(acc.stats.A, ref.stats.A) and torch.equal(acc.stats.b, ref.stats.b)
+    assert eng.dispatches == 1
 
 
 def test_bandwidth_constants_equal_the_reference():
@@ -448,7 +473,7 @@ def test_absorber_validation():
         TieredAbsorber(eng, AggregationTree((TierSpec("data", fan_in=1, axis="data"),)))
     with pytest.raises(ValueError):  # overlap needs a staleness budget
         TieredAbsorber(eng, AggregationTree((TierSpec("edge", fan_in=2),)), overlap=True)
-    with pytest.raises(NotImplementedError, match="collective half"):  # no psum engine yet
+    with pytest.raises(ValueError):  # psum needs its axes (the reference's validation)
         StreamConfig(n_classes=C, ridge_lambda=LAM, dist=DistConfig(aggregation="psum"))
     wired = StreamingEngine(StreamConfig(
         n_classes=C, ridge_lambda=LAM, wire=WireFormat(kind="int8")
