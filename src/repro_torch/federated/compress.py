@@ -61,7 +61,7 @@ import functools
 import math
 import warnings
 from dataclasses import dataclass, replace
-from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -206,6 +206,21 @@ def wire_roundtrip(
         return _fp8_roundtrip(A, fmt.tile), _fp8_roundtrip(b, fmt.tile)
     return (_int8_roundtrip_add(torch.zeros_like(A, dtype=torch.float32), A, fmt.tile),
             _int8_roundtrip_add(torch.zeros_like(b, dtype=torch.float32), b, fmt.tile))
+
+
+def psum_wire_fn(fmt: WireFormat) -> Optional[Callable[[Tuple], Tuple]]:
+    """The psum form of the wire: the dist layer's hook that sends a rank's
+    partial ``(A, b, *rest)`` through :func:`wire_roundtrip` before the
+    all-reduce, ``rest`` (sample and class counts) exact.  ``None`` under
+    ``fp32``, which keeps the reduce bit-exact."""
+    if fmt.kind == "fp32":
+        return None
+
+    def roundtrip(partial: Tuple) -> Tuple:
+        A, b, *rest = partial
+        return (*wire_roundtrip(A, b, fmt), *rest)
+
+    return roundtrip
 
 
 def roundtrip_add(

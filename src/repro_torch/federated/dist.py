@@ -37,13 +37,13 @@ its own block of the packed arrays:
 * :func:`shard_cohort` — the deterministic partition of a cohort over
   shards (pure Python).
 
-Unlike the reference, the port's ``"psum"`` always needs the mesh its axes
-name: its collectives run on the mesh's process groups, and there is no
-ambient ``shard_map`` to take them from.  ``DistConfig`` keeps the
-reference's validation (axes without a mesh are a valid configuration),
-and :class:`DistContext` refuses to run it.  The reference's ``donate`` has
-no counterpart: the port's engines update their carried buffers in place
-where the reference donates them.
+Unlike the reference, the port's ``"psum"`` always needs a mesh: its
+collectives run on the mesh's process groups, and there is no ambient
+``shard_map`` to take them from.  So the reduce axes are always the mesh's
+data axes, and the reference's ``mesh_axes`` (explicit axes for an
+external ``shard_map``) and ``donate`` have no counterpart: the port's
+engines update their carried buffers in place where the reference donates
+them.
 """
 from __future__ import annotations
 
@@ -152,16 +152,15 @@ class DistConfig:
         Every rank must make the same engine calls on the same packed
         arrays; every rank ends with the same results.
 
-    ``mesh_axes`` names the reduce axes explicitly; empty with a ``mesh``
-    defaults to every non-``"model"`` axis (``("pod", "data")`` on the
-    multi-pod mesh).  ``tree`` routes the all-reduce through an N-tier
+    The reduce axes are the mesh's data axes (every non-``"model"`` axis:
+    ``("pod", "data")`` on the multi-pod mesh).  ``tree`` routes the
+    all-reduce through an N-tier
     :class:`repro_torch.federated.tiers.AggregationTree` — one collective
     tier a reduce axis, LEAF TIER INNERMOST — so an all-fp32 tree issues
     exactly the two-stage program.  Requires ``"psum"``.
     """
 
     aggregation: str = "merge"  # "merge" | "psum"
-    mesh_axes: Tuple[str, ...] = ()  # reduce axes ("psum"); () + mesh → data axes
     mesh: Optional[Any] = None  # DeviceMesh the psum reduces over
     tree: Optional[Any] = None  # N-tier AggregationTree (repro_torch.federated.tiers)
 
@@ -173,16 +172,12 @@ class DistConfig:
                 "mesh-mode execution all-reduces rank partials: use "
                 "aggregation='psum' (merge is the single-process backend)"
             )
-        axes = self.axis_names
-        if self.aggregation == "psum" and not axes:
-            raise ValueError("psum aggregation needs at least one mesh axis")
-        if self.mesh is not None:
-            unknown = set(axes) - set(self.mesh.mesh_dim_names)
-            if unknown:
-                raise ValueError(
-                    f"mesh_axes {sorted(unknown)} not in mesh axes "
-                    f"{self.mesh.mesh_dim_names}"
-                )
+        if self.aggregation == "psum" and not self.axis_names:
+            raise ValueError(
+                "psum aggregation needs at least one mesh axis: the data axes "
+                "of a DeviceMesh (one process a rank), DistConfig(mesh=...) "
+                "from repro_torch.launch.mesh.make_host_mesh"
+            )
         if self.tree is not None:
             if self.aggregation != "psum":
                 raise ValueError(
@@ -191,13 +186,11 @@ class DistConfig:
                 )
             # duck-typed (tiers.py imports this module); the tree's
             # collective tiers must cover the reduce axes leaf-innermost
-            self.tree.validate_mesh_axes(axes)
+            self.tree.validate_mesh_axes(self.axis_names)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
-        """The resolved reduce axes (explicit, or the mesh's data axes)."""
-        if self.mesh_axes:
-            return tuple(self.mesh_axes)
+        """The reduce axes: the mesh's data axes (none without a mesh)."""
         return data_axes(self.mesh) if self.mesh is not None else ()
 
     @property
@@ -228,12 +221,6 @@ class DistContext:
         engine: str = "engine",
         telemetry: Optional[Telemetry] = None,
     ):
-        if cfg.aggregation == "psum" and cfg.mesh is None:
-            raise ValueError(
-                "the port's psum runs one process a rank and reduces over a "
-                "DeviceMesh's process groups: pass DistConfig(mesh=...) "
-                "(repro_torch.launch.mesh.make_host_mesh)"
-            )
         self.cfg = cfg
         self.telemetry = get_telemetry() if telemetry is None else telemetry
         inst = self.telemetry.next_instance(f"dist:{engine}")
@@ -269,7 +256,7 @@ class DistContext:
     def all_reduce(self, tree: Any, wire_fn: Optional[Callable[[Any], Any]] = None) -> Any:
         """The server aggregation behind one interface: identity under
         ``"merge"`` (the local fold IS the global sum); the two-stage psum
-        over the resolved axes under ``"psum"``.
+        over the mesh's data axes under ``"psum"``.
 
         ``wire_fn`` is the compressed-uplink hook
         (:mod:`repro_torch.federated.compress`): each rank's LOCAL partial

@@ -217,15 +217,7 @@ class AccumulationEngine(DistDispatchMixin):
                 for c in range(x.shape[0]):
                     acc = self._client_fold(acc, feats[c], y[c], m[c])
             # "merge": the local fold IS the global sum
-            return self.dist.all_reduce(acc, wire_fn=self._wire_fn())
-
-    def _wire_fn(self) -> Optional[Callable[[EngineStats], EngineStats]]:
-        """The dist layer's compressed-payload hook (None under fp32)."""
-        if self.wire.kind == "fp32":
-            return None
-
-        def roundtrip(acc: EngineStats) -> EngineStats:
-            A, b = compress.wire_roundtrip(acc.stats.A, acc.stats.b, self.wire)
-            return acc._replace(stats=acc.stats._replace(A=A, b=b))
-
-        return roundtrip
+            A, b, n, counts = self.dist.all_reduce(
+                (acc.stats.A, acc.stats.b, acc.stats.n, acc.class_counts),
+                wire_fn=compress.psum_wire_fn(self.wire))
+            return EngineStats(stats=Fed3RStats(A=A, b=b, n=n), class_counts=counts)

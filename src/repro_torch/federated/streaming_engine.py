@@ -220,7 +220,8 @@ class StreamingEngine(DistDispatchMixin):
             # this rank's rows; the Gram of the carried factor once, after
             # the sum (the fused kernel would add L Lᵀ on every rank)
             S, dB = fed3r_stats(z, yh)
-            S, dB, nw = self.dist.all_reduce((S, dB, nw), wire_fn=self._wire_fn())
+            S, dB, nw = self.dist.all_reduce((S, dB, nw),
+                                             wire_fn=compress.psum_wire_fn(self.wire))
             G, b = self._gram(state) + S, state.b + dB
             L = self._lossy_cholesky(G, S)
         elif self.wire.kind == "fp32":
@@ -258,19 +259,6 @@ class StreamingEngine(DistDispatchMixin):
         if lossy is not None:
             return fed3r.psd_cholesky(G, bound=compress.quant_spectral_bound(S, lossy))
         return fed3r.psd_cholesky(G)
-
-    def _wire_fn(self) -> Optional[Callable[[Tuple], Tuple]]:
-        """The dist layer's compressed-payload hook (None under fp32): the
-        rank's (S, ΔB) through the wire, n exact."""
-        if self.wire.kind == "fp32":
-            return None
-
-        def roundtrip(payload: Tuple) -> Tuple:
-            S, dB, nw = payload
-            S, dB = compress.wire_roundtrip(S, dB, self.wire)
-            return S, dB, nw
-
-        return roundtrip
 
     @torch.no_grad()
     def absorb(

@@ -19,21 +19,15 @@ tests' sizes, made to run on the port's one-process-a-rank model.
 * :func:`engines_program` — the statistics, streaming, round,
   personalization and async engines, sharded against merge (flat psum and
   through ``mesh_tree`` trees), the int8 wire's psum form, and the pod mesh.
+* :func:`train_program` — ``launch/train.py``'s ``run`` over the world's
+  host mesh: phase 1, one FT round and its checkpoint, then a resume.
 
-Run them from the command line on the CPU with gloo::
-
-    PYTHONPATH=src python -m repro_torch.launch.dist_check --world 4 --backend gloo --device cpu
-
-which prints one line a check and exits non-zero if any mismatched (on a
-card, with gloo, the stream is held within fp32 rounding of merge: its
-merge wave is the fused ``chol_gram`` kernel).
 The programs import nothing of the reference package: spawned ranks import
 this module by name.
 """
 from __future__ import annotations
 
-import argparse
-import sys
+import os
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +42,6 @@ from repro_torch.data.pipeline import (
     pack_cohort_batches,
     pack_personal_cohort,
 )
-from repro_torch.federated import compress
 from repro_torch.federated.algorithms import make_algorithm
 from repro_torch.federated.arrivals import UploadEvent
 from repro_torch.federated.async_engine import AsyncConfig, AsyncRoundEngine
@@ -61,6 +54,7 @@ from repro_torch.federated.simulator import linear_head_task, pack_round
 from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
 from repro_torch.federated.tiers import TierSpec, AggregationTree, mesh_tree
 from repro_torch.configs.base import FederatedConfig
+from repro_torch.launch import train
 from repro_torch.launch.mesh import (
     data_axes,
     data_parallel_size,
@@ -72,6 +66,10 @@ from repro_torch.tree import tree_leaves
 
 D, C, LAM = 16, 5, 0.1  # the reference tests' sizes
 ROUND_CLIENTS, ROUND_D, ROUND_C = 12, 8, 4  # tests/test_round_engine.py's task
+TRAIN_ARCH = "fed3r-mnv2-proxy-smoke"
+# train.run at the smoke width: 2 phase-1 shards and a cohort of 4 clients
+TRAIN = dict(n_clients=8, clients_per_round=4, n_samples=160, seq_len=16, n_classes=8,
+             local_batch_size=8)
 
 
 def grid(rng: np.random.Generator, shape) -> np.ndarray:
@@ -214,10 +212,6 @@ def layer_program(rank: int, world: int, device: torch.device) -> dict:
     out["config"] = {
         "axis_names": cfg.axis_names, "data_shards": cfg.data_shards,
         "merge+mesh": _raises(DistConfig, aggregation="merge", mesh=mesh),
-        "unknown axis": _raises(DistConfig, aggregation="psum", mesh=mesh,
-                                mesh_axes=("nonexistent",)),
-        "psum without mesh": _raises(DistContext, DistConfig(aggregation="psum",
-                                                             mesh_axes=("data",))),
     }
 
     # the two-stage psum against one flat all-reduce over the world
@@ -292,21 +286,13 @@ def engines_program(rank: int, world: int, device: torch.device) -> dict:
     out["accumulate"] = np_({"psum": run_accumulate(packed, psum, dev=dev), "merge": run_accumulate(packed, dev=dev)})
     int8 = WireFormat(kind="int8", tile=8)
     got = run_accumulate(packed, psum, wire=int8, dev=dev)
-    # each rank's partial as the wire delivers it, summed in rank order
-    ctx = DistContext(psum)
-    A_want = b_want = None
-    for r in range(world):
-        k = packed.n_shards // world
-        part = run_accumulate(type(packed)(*(a[r * k:(r + 1) * k] for a in packed)), wire=int8, dev=dev)
-        A, b = compress.wire_roundtrip(part["A"], part["b"], int8)
-        A_want, b_want = (A, b) if r == 0 else (A_want + A, b_want + b)
-    out["accumulate_int8"] = np_({"A": got["A"], "b": got["b"], "A_want": A_want,
-                                  "b_want": b_want, "shard_index": ctx.shard_index})
+    out["accumulate_int8"] = np_({"A": got["A"], "b": got["b"]})
 
     # streaming engine
     waves = pack_arrival_waves([grid_clients(10 + t, [8] * (2 + t % 2)) for t in range(5)],
                                mesh=mesh)
     out["stream"] = np_({"psum": run_stream(waves, psum, dev=dev), "merge": run_stream(waves, dev=dev)})
+    out["stream_int8"] = np_(run_stream(waves, psum, dev=dev, wire=int8))
     out["absorb_stats under mesh"] = _raises(
         StreamingEngine(StreamConfig(n_classes=C, ridge_lambda=LAM, dist=psum),
                         device=dev).absorb_stats,
@@ -401,55 +387,30 @@ def engines_program(rank: int, world: int, device: torch.device) -> dict:
     return out
 
 
+def train_program(rank: int, world: int, device: torch.device, root: str) -> dict:
+    """``train.run`` under the psum backend over the host mesh of the world:
+    phase 1 alone; then one FT round from the seeded head, checkpointed
+    into ``root/rank<r>`` (each rank is given a directory of its own, so
+    that what each wrote shows), and a ``resume`` to round 2.  Returns the
+    statistics, the classifier, both rounds' parameters, the resumed run's
+    log and the files in this rank's directory."""
+    mesh = make_host_mesh(device_type=device.type)
+    ckpt = os.path.join(root, f"rank{rank}")
+    kw = dict(TRAIN, device=device, mesh=mesh, verbose=False)
+    phase1 = train.run(TRAIN_ARCH, **kw)
+    first = train.run(TRAIN_ARCH, rounds=1, use_fed3r_init=False, ckpt_dir=ckpt, **kw)
+    resumed = train.run(TRAIN_ARCH, rounds=2, resume=True, ckpt_dir=ckpt, **kw)
+    return {
+        **np_({"A": phase1["stats"].A, "b": phase1["stats"].b, "W": phase1["W"],
+               "theta1": first["ft"]["state"].params, "theta2": resumed["ft"]["state"].params}),
+        "fed3r_acc": phase1["fed3r_acc"],
+        "ft_acc": (first["ft"]["ft_acc"], resumed["ft"]["ft_acc"]),
+        "resumed_rounds": resumed["ft"]["rounds"],
+        "files": sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else [],
+    }
+
+
 def digest(tree: Any) -> List[bytes]:
     """The bytes of every array leaf (for equal-bits checks across ranks)."""
     return [np.ascontiguousarray(x).tobytes() for x in tree_leaves(tree)
             if isinstance(x, np.ndarray)]
-
-
-def _same(a: dict, b: dict, keys: Sequence[str], rel: float = 0.0) -> bool:
-    """Equal bits (``rel`` 0), or within ``rel`` of each array's max|·|."""
-    return all(float(np.abs(a[k] - b[k]).max()) <= rel * float(np.abs(b[k]).max())
-               if rel else np.array_equal(a[k], b[k]) for k in keys)
-
-
-def main() -> None:
-    from repro_torch.launch.world import run_world
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--world", type=int, default=4)
-    ap.add_argument("--backend", required=True, choices=["nccl", "gloo"])
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    if args.world != 4:
-        sys.exit("the programs lay out (2, 2) pod and tier meshes: --world 4")
-    ranks = run_world(engines_program, args.world, backend=args.backend, device=args.device)
-    r = ranks[0]
-    # the merge stream's wave is one fused chol_gram launch (L Lᵀ + ZᵀZ in
-    # one fp32 chain); psum forms L Lᵀ + S after the sum.  The plain
-    # versions on the CPU add the same two products, so there the stream is
-    # bitwise merge; on the card it is within fp32 rounding (1e-5 of max|·|)
-    rel = 0.0 if args.device == "cpu" else 1e-5
-    ts = r["tree_stream"]
-    checks = {
-        "every rank holds the same bits": all(digest(x) == digest(r) for x in ranks),
-        "accumulate psum == merge": _same(r["accumulate"]["psum"], r["accumulate"]["merge"],
-                                          ("A", "b", "counts")),
-        "stream psum ~ merge": _same(r["stream"]["psum"], r["stream"]["merge"], ("L", "W"), rel),
-        "pod stream psum ~ merge": _same(r["pod_stream"]["psum"], r["pod_stream"]["merge"],
-                                         ("L", "W"), rel),
-        "tree stream == flat": np.array_equal(ts["tree"], ts["flat"]),
-        "tree stream ~ merge": _same(ts, {"tree": ts["merge"]}, ("tree",), rel),
-        "async tree == flat == merge": _same(r["async"]["tree"], r["async"]["merge"], ("W", "L"))
-        and _same(r["async"]["flat"], r["async"]["merge"], ("W", "L")),
-        "personalization alpha": np.array_equal(r["personalization"]["psum"]["alpha"],
-                                                r["personalization"]["merge"]["alpha"]),
-    }
-    for name, ok in checks.items():
-        print(f"[dist_check] {name}: {'ok' if ok else 'MISMATCH'}", flush=True)
-    if not all(checks.values()):
-        sys.exit(1)
-
-
-if __name__ == "__main__":
-    main()

@@ -20,7 +20,7 @@ reference jits them) and hides nothing but that binding.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -124,7 +124,6 @@ def make_fed3r_stats_step(
     rff_params: Optional[RFFParams] = None,
     *,
     aggregation: str = "merge",
-    mesh_axes: Tuple[str, ...] = (),
     mesh: Any = None,
 ) -> Callable:
     """(params, stats, batch{tokens, class_labels[, mask]}) -> stats'.
@@ -136,10 +135,10 @@ def make_fed3r_stats_step(
     ``batch["mask"]`` supports packed batches (padding rows contribute
     exactly nothing).  ``aggregation`` is the engine's server backend:
     ``"merge"`` (the sum IS the aggregation); ``"psum"``: this rank's
-    batch statistics all-reduced over ``mesh_axes`` of ``mesh`` (default:
-    its data axes) before they fold into ``stats``.
+    batch statistics all-reduced over the data axes of ``mesh`` before they
+    fold into ``stats``.
     """
-    axes = tuple(mesh_axes) or (data_axes(mesh) if mesh is not None else ())
+    axes = data_axes(mesh) if mesh is not None else ()
 
     @torch.no_grad()
     def stats_step(params, stats: fed3r.Fed3RStats, batch) -> fed3r.Fed3RStats:

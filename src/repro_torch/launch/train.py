@@ -35,7 +35,7 @@ Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch fed3r-mnv2-proxy \\
       --clients 100 --per-round 10 --seq-len 128 --rounds 3 --device cuda \\
       [--algorithm fedavg] [--ft-strategy feat] [--ckpt-dir DIR [--resume]]
-  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.train --backend gloo --arch fed3r-mnv2-proxy ...
 """
 from __future__ import annotations
@@ -80,6 +80,23 @@ def _partition(labels_np: np.ndarray, n_clients: int):
 def _dist(mesh: Any) -> DistConfig:
     """The engines' backend: merge in one process, psum over ``mesh``."""
     return DistConfig() if mesh is None else DistConfig(aggregation="psum", mesh=mesh)
+
+
+def _writer(mesh: Any) -> bool:
+    """Whether this process owns the checkpoints: the one process, or
+    global rank 0 of a mesh."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _resume_path(ckpt_dir: Optional[str], resume: bool, mesh: Any) -> Optional[str]:
+    """The checkpoint to resume from, as global rank 0 finds it: only rank
+    0 reads ``ckpt_dir``, and every rank gets its answer."""
+    path = latest_checkpoint(ckpt_dir) if (resume and ckpt_dir and _writer(mesh)) else None
+    if mesh is not None:
+        box = [path]
+        dist.broadcast_object_list(box, src=0)
+        path = box[0]
+    return path
 
 
 def fed3r_phase(
@@ -224,7 +241,8 @@ def ft_phase(
     host-clock ms around ``RoundEngine.step`` (ending in a device
     synchronize) with the real tokens its local training read.  With
     ``mesh`` each rank trains its block of the cohort, and only global rank
-    0 writes checkpoints.
+    0 reads and writes checkpoints: a resumed state travels from it by
+    broadcast.
     """
     dev = resolve_device(device)
     model = build_model(cfg)
@@ -234,17 +252,20 @@ def ft_phase(
 
     engine = ft_engine(cfg, params, n_clients=n_clients, lr=lr, algorithm=algorithm,
                        ft_strategy=ft_strategy, mesh=mesh)
-    writer = mesh is None or dist.get_rank() == 0
-    resume_path = latest_checkpoint(ckpt_dir) if (resume and ckpt_dir) else None
+    writer = _writer(mesh)
+    head = {"W": W_head, "b": torch.zeros((ds.n_classes,), dtype=torch.float32, device=dev)}
+    state = engine.init({"backbone": params, "head": head})
+    start_round = 0
+    resume_path = _resume_path(ckpt_dir, resume, mesh)
     if resume_path is not None:
-        state = server_state_from_tree(load_pytree(resume_path), dev)
+        if writer:  # the snapshot's leaves in the live state's order
+            state = tree_map(lambda _, x: x, state,
+                             server_state_from_tree(load_pytree(resume_path), dev))
+        if mesh is not None:  # rank 0's snapshot on every rank
+            state = broadcast_tree(state, src=0)
         start_round = int(state.round)
         if verbose:
             print(f"[ft:{ft_strategy}] resuming from {resume_path} (round {start_round})")
-    else:
-        head = {"W": W_head, "b": torch.zeros((ds.n_classes,), dtype=torch.float32, device=dev)}
-        state = engine.init({"backbone": params, "head": head})
-        start_round = 0
 
     @torch.no_grad()
     def evaluate(p) -> float:
@@ -318,7 +339,7 @@ def run(
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     ds = make_token_dataset(gen, n_samples, seq_len, cfg.vocab_size, n_classes)
-    resuming = rounds > 0 and resume and ckpt_dir and latest_checkpoint(ckpt_dir)
+    resuming = rounds > 0 and _resume_path(ckpt_dir, resume, mesh) is not None
     out: dict = {"params0": params}
     if use_fed3r_init and not resuming:
         out.update(fed3r_phase(

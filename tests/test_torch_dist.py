@@ -5,14 +5,22 @@ shard-count tests and ``tests/test_system.py:77`` (``aggregate_mesh``) on
 the port's one-process-a-rank model: one 4-rank world
 (:func:`repro_torch.launch.world.run_world`, a ``file://`` store, a
 deadline) runs :func:`repro_torch.launch.dist_check.layer_program`, whose
-results every test below reads.  The rank program lives in the package, so
-no rank imports JAX.  The engines' sharded runs are in
-``tests/test_torch_dist_engines.py``.
+results the layer tests read.  A second world runs ``launch/train.py``'s
+``run`` over the mesh (:func:`repro_torch.launch.dist_check.train_program`)
+against the one-process driver, and one ``torchrun`` of its command line
+covers ``main`` and :func:`repro_torch.launch.world.init_world`.  The rank
+programs live in the package, so no rank imports JAX.  The engines'
+sharded runs are in ``tests/test_torch_dist_engines.py``.
 
 Where the reference takes its device count from ``jax.devices()``, the port
 counts the world's ranks; ``model_parallel > 1`` raises
 ``NotImplementedError`` naming tensor parallelism's ROADMAP item.
 """
+import os
+import signal
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -35,10 +43,11 @@ from repro_torch.federated.personalization import (  # noqa: E402
     PersonalizeConfig,
 )
 from repro_torch.federated.round_engine import RoundConfig, RoundEngine  # noqa: E402
-from repro_torch.launch import dist_check  # noqa: E402
+from repro_torch.launch import dist_check, train  # noqa: E402
 from repro_torch.launch.dist_check import C, D, LAM, grid_clients  # noqa: E402
 from repro_torch.launch.world import run_world, single_rank_world  # noqa: E402
 from repro_torch.sharding.specs import data_parallel_spec, replicated, stats_specs  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 WORLD = 4
 
@@ -119,18 +128,10 @@ def test_meshes_need_an_initialized_world():
 def test_dist_config_validation(ranks):
     with pytest.raises(ValueError):
         DistConfig(aggregation="allgather")
-    with pytest.raises(ValueError):
-        DistConfig(aggregation="psum")  # no axes, no mesh
+    with pytest.raises(ValueError, match="DistConfig\\(mesh=...\\)"):
+        DistConfig(aggregation="psum")  # no mesh: nothing to reduce over
     cfg = ranks[0]["config"]
     assert cfg["merge+mesh"][0] == "ValueError"  # merge is local
-    assert cfg["unknown axis"][0] == "ValueError"
-    # explicit axes without a mesh: the reference's external-shard_map
-    # configuration validates ...
-    cfg_ext = DistConfig(aggregation="psum", mesh_axes=("data",))
-    assert cfg_ext.axis_names == ("data",) and cfg_ext.data_shards == 1
-    # ... but the port's collectives need the mesh's groups to run it
-    kind, msg = cfg["psum without mesh"]
-    assert kind == "ValueError" and "DistConfig(mesh=...)" in msg
 
 
 def test_dist_config_resolves_axes_from_mesh(ranks):
@@ -245,3 +246,112 @@ def test_shard_count_invariance_stats_and_stream(ranks):
     for k in ("A", "b", "L", "Ws"):
         assert np.array_equal(one[k], four[k]), k
     np.testing.assert_allclose(one["W"], four["W"], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the entry point: launch/train.py over the mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def train_ranks(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("ckpt"))
+    return run_world(dist_check.train_program, WORLD, backend="gloo", device="cpu",
+                     timeout_s=150, args=(root,))
+
+
+@pytest.fixture(scope="module")
+def train_one():
+    """The one-process driver on the same sizes: phase 1 alone, then one
+    and two FT rounds from the seeded head."""
+    kw = dict(dist_check.TRAIN, device="cpu", verbose=False)
+    return {"phase1": train.run(dist_check.TRAIN_ARCH, **kw),
+            "ft1": train.run(dist_check.TRAIN_ARCH, rounds=1, use_fed3r_init=False, **kw),
+            "ft2": train.run(dist_check.TRAIN_ARCH, rounds=2, use_fed3r_init=False, **kw)}
+
+
+def test_train_run_sharded_phase1_matches_one_process(train_ranks, train_one):
+    """Phase 1 over 4 ranks (2 shards padded to 4, one a rank): A and b
+    within fp32 summation of 4 partials (1e-6 of max|·|) of the one
+    process's strict left fold, the same test accuracy, and every rank's
+    bits equal."""
+    got, want = train_ranks[0], train_one["phase1"]
+    for r in train_ranks[1:]:
+        assert dist_check.digest(r) == dist_check.digest(got)
+    for k in ("A", "b"):
+        w = getattr(want["stats"], k).numpy()
+        assert float(np.abs(got[k] - w).max()) <= 1e-6 * float(np.abs(w).max()), k
+    assert got["fed3r_acc"] == want["fed3r_acc"]
+
+
+def test_train_run_sharded_ft_round_and_resume_match_one_process(train_ranks, train_one):
+    """One FT round over 4 ranks (a cohort of 4, one client a rank), then a
+    resume from its checkpoint to round 2: each within the round engine's
+    rtol 1e-5, atol 1e-6 of the one-process run of as many rounds."""
+    got = train_ranks[0]
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(train_one["ft1"]["ft"]["state"].params["backbone"]),
+        tree_leaves(train_one["ft1"]["params0"])))
+    assert moved > 1e-3  # the round trains: a real comparison
+    for name, key in (("theta1", "ft1"), ("theta2", "ft2")):
+        want = train_one[key]["ft"]["state"].params
+        for a, b in zip(tree_leaves(got[name]), tree_leaves(want)):
+            np.testing.assert_allclose(a, b.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
+    assert got["resumed_rounds"] == [2]
+    assert got["ft_acc"] == (train_one["ft1"]["ft"]["ft_acc"], train_one["ft2"]["ft"]["ft_acc"])
+
+
+def test_train_run_only_rank0_writes_checkpoints(train_ranks):
+    """Each rank was given a checkpoint directory of its own: rank 0 wrote
+    both rounds' snapshots, the others nothing, and they resumed all the
+    same (rank 0's snapshot travels by broadcast)."""
+    assert train_ranks[0]["files"] == ["ckpt_1.npz", "ckpt_2.npz"]
+    assert all(r["files"] == [] for r in train_ranks[1:])
+    assert all(r["resumed_rounds"] == [2] for r in train_ranks)
+
+
+TORCHRUN_ARGS = ["--rounds", "1", "--clients", "8", "--per-round", "4", "--seq-len", "16",
+                 "--local-batch", "8"]
+
+
+def test_train_main_under_torchrun(tmp_path, capsys, monkeypatch):
+    """The command line under ``torchrun`` (4 gloo ranks on the CPU, joined
+    over env:// by init_world): rank 0 alone prints, its accuracies equal
+    the one-process driver's, and its checkpoint is the only file."""
+    ckpt = str(tmp_path / "ck")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "src")
+    env = {**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "1"}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(WORLD), "-m", "repro_torch.launch.train", "--backend", "gloo", "--device", "cpu",
+           *TORCHRUN_ARGS, "--ckpt-dir", ckpt]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=150)
+    finally:  # torchrun's ranks too, whatever happened
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    lines = [ln for ln in out.splitlines() if ln.startswith("[")]
+    assert [ln.split()[0] for ln in lines] == ["[fed3r]", "[ft:feat]"], out
+    assert f"over {WORLD} ranks" in lines[0]
+    monkeypatch.setattr(sys, "argv", ["train", "--device", "cpu", *TORCHRUN_ARGS])
+    capsys.readouterr()
+    train.main()
+    one = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[")]
+
+    def accs(ls):
+        return [ln.split("acc=")[1].split()[0] for ln in ls]
+
+    assert accs(lines) == accs(one)
+    assert os.listdir(ckpt) == ["ckpt_1.npz"]
+
+
+def test_train_main_names_its_backend(monkeypatch):
+    """More than one rank and no --backend: the driver refuses, and picks
+    none itself."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setattr(sys, "argv", ["train", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        train.main()

@@ -4,7 +4,9 @@ Twins ``tests/test_dist.py``'s four-engine psum == merge tests and the pod
 mesh, ``tests/test_tiers.py:229-347`` (mesh-routed trees, the async engine
 under a mesh tree) and ``tests/test_round_engine.py:300-330`` (the psum
 round), and adds the async engine's flat psum and the int8 wire's psum
-form.  One 4-rank world (:func:`repro_torch.launch.world.run_world`) runs
+form (the statistics engine's partials, the stream's waves and a mesh
+tree's int8 tier, each against the reference's quantizer).  One 4-rank
+world (:func:`repro_torch.launch.world.run_world`) runs
 :func:`repro_torch.launch.dist_check.engines_program`: every rank builds the
 same grid-exact inputs from numpy seeds, runs each engine under
 ``DistConfig(aggregation="psum", mesh=...)`` on its block and the same
@@ -32,6 +34,7 @@ from repro.data.pipeline import pack_client_shards as jpack_client_shards  # noq
 from repro.data.pipeline import pack_cohort_batches as jpack_cohort_batches  # noqa: E402
 from repro.data.pipeline import pack_personal_cohort as jpack_personal_cohort  # noqa: E402
 from repro.federated import async_engine as jasync  # noqa: E402
+from repro.federated import compress as jcompress  # noqa: E402
 from repro.federated.algorithms import make_algorithm as jmake_algorithm  # noqa: E402
 from repro.federated.arrivals import UploadEvent as JUploadEvent  # noqa: E402
 from repro.federated.engine import AccumulationEngine as JAccumulationEngine  # noqa: E402
@@ -44,7 +47,6 @@ from repro.federated.simulator import linear_head_task as jlinear_head_task  # n
 from repro.federated.simulator import pack_round as jpack_round  # noqa: E402
 from repro.federated.streaming_engine import StreamConfig as JStreamConfig  # noqa: E402
 from repro.federated.streaming_engine import StreamingEngine as JStreamingEngine  # noqa: E402
-from repro_torch.federated.compress import WireFormat  # noqa: E402
 from repro_torch.launch import dist_check  # noqa: E402
 from repro_torch.launch.dist_check import C, D, LAM, grid, grid_clients  # noqa: E402
 from repro_torch.launch.world import run_world  # noqa: E402
@@ -92,15 +94,71 @@ def test_accumulation_engine_sharded_matches_merge_bitwise(ranks):
     _near_ref(out["psum"]["b"], ref.stats.b)
 
 
+JINT8 = jcompress.WireFormat(kind="int8", tile=8)  # engines_program's int8 wire
+# the reference's wire as its engines run it: jitted, so XLA folds the
+# scale's division by 127 into a product, as its kernel computes it
+_jwire = jax.jit(jcompress.wire_roundtrip, static_argnames=("fmt", "use_kernel"))
+
+
+def _blocks(packed, world=WORLD):
+    """The reference's packed arrays cut into the ranks' blocks of dim 0."""
+    k = packed.inputs.shape[0] // world
+    return [type(packed)(*(a[r * k:(r + 1) * k] for a in packed)) for r in range(world)]
+
+
 def test_int8_wire_crosses_the_all_reduce_once_a_rank(ranks):
     """Each rank's partial (its clients folded through the int8 wire, as
-    merge folds them) crosses the all-reduce roundtripped once: the sum of
-    the four roundtripped partials, within the ring's fp32 reassociation."""
+    merge folds them) crosses the all-reduce roundtripped once.  The
+    expectation is the reference's: its merge engine under the int8 wire
+    on each rank's block of shards, each result through its
+    ``wire_roundtrip``, the four summed — within the ring's fp32
+    reassociation of four terms."""
     out = ranks[0]["accumulate_int8"]
-    for k in ("A", "b"):
-        want = out[k + "_want"]
-        assert float(np.abs(out[k] - want).max()) <= 1e-6 * float(np.abs(want).max())
+    packed = jpack_client_shards(grid_clients(3, [9, 3, 14, 6, 1, 11, 8, 4]), 2, max_n=16,
+                                 num_shards=WORLD)
+    jeng = JAccumulationEngine(JEngineConfig(n_classes=C, wire=JINT8))
+    parts = [_jwire(*jeng.accumulate(jeng.init(D), blk).stats[:2], JINT8)
+             for blk in _blocks(packed)]
+    for i, k in enumerate(("A", "b")):
+        want = np.asarray(sum(p[i] for p in parts))
+        assert float(np.abs(out[k] - want).max()) <= 1e-6 * float(np.abs(want).max()), k
     assert not np.array_equal(out["A"], ranks[0]["accumulate"]["merge"]["A"])  # it quantized
+
+
+def _jint8_psum_stream(waves, world=WORLD):
+    """The reference's psum wave body under the int8 wire, one rank's block
+    of every wave at a time: each rank's (S, ΔB) through ``wire_roundtrip``,
+    the sum, G = L Lᵀ + S, the guarded Cholesky (its jitter sized by the
+    reduced S, as the port's every rank sizes it), the refreshed W."""
+    packed = jpack_arrival_waves(waves, num_shards=world)
+    fac = jfed3r.init_factored(D, C, LAM)
+    L, b = fac.L, fac.b
+    for t in range(packed.inputs.shape[0]):
+        k = packed.inputs.shape[1] // world
+        S = dB = 0.0
+        for r in range(world):
+            blk = slice(r * k, (r + 1) * k)
+            z, yh, _ = jfed3r.masked_design(jnp.asarray(packed.inputs[t, blk].reshape(-1, D)),
+                                            jnp.asarray(packed.labels[t, blk].reshape(-1)), C,
+                                            jnp.asarray(packed.mask[t, blk].reshape(-1)))
+            Sr, dBr = _jwire(z.T @ z, z.T @ yh, JINT8)
+            S, dB = S + Sr, dB + dBr
+        L = jcompress.psd_cholesky(L @ L.T + S, jcompress.quant_spectral_bound(S, JINT8))
+        b = b + dB
+    return L, jfed3r.factored_solution(jfed3r.Fed3RFactored(L=L, b=b), True)
+
+
+def test_int8_psum_stream_crosses_the_all_reduce_once_a_rank(ranks):
+    """The stream's psum wave under the int8 wire: each rank's (S, ΔB)
+    roundtripped once before the all-reduce, held against the reference's
+    wave algebra on the same numpy inputs (fp32 reassociation, 1e-5 of the
+    largest entry), and away from the fp32 stream."""
+    out = ranks[0]["stream_int8"]
+    assert out["dispatches"] == 1 and out["refreshed"].all()
+    L, W = _jint8_psum_stream([grid_clients(10 + t, [8] * (2 + t % 2)) for t in range(5)])
+    _near_ref(out["L"], L)
+    _near_ref(out["W"], W)
+    assert not np.allclose(out["W"], ranks[0]["stream"]["psum"]["W"], rtol=0, atol=1e-4)
 
 
 def test_streaming_engine_sharded_matches_merge_bitwise(ranks):
@@ -218,23 +276,20 @@ def test_mesh_tree_two_tier_bitwise_vs_two_stage(ranks):
 
 def test_int8_tier_crosses_each_boundary_once(ranks):
     """An int8 region tier: each region's fp32 edge sum is roundtripped
-    once and the two summed — two-term sums, so the emulation in rank
-    order is the all-reduce's bits."""
-    from repro_torch.data.pipeline import pack_client_shards
-    from repro_torch.federated import compress
-
+    once and the two summed.  The expectation is the reference's merge
+    engine on each rank's block (grid-exact, so any fp32 order is exact),
+    each region's sum through its ``wire_roundtrip`` — two-term sums, so
+    the expectation in rank order is the all-reduce's bits."""
     out = ranks[0]["tree_int8"]
     assert out["lossy"] == "int8"
-    packed = pack_client_shards(grid_clients(7, [8] * (2 * WORLD)), 2, num_shards=WORLD)
-    k = packed.n_shards // WORLD
-    parts = [dist_check.run_accumulate(type(packed)(*(a[r * k:(r + 1) * k] for a in packed)))
-             for r in range(WORLD)]
-    int8 = WireFormat(kind="int8", tile=8)
-    regions = [compress.wire_roundtrip(parts[2 * g]["A"] + parts[2 * g + 1]["A"],
-                                       parts[2 * g]["b"] + parts[2 * g + 1]["b"], int8)
+    packed = jpack_client_shards(grid_clients(7, [8] * (2 * WORLD)), 2, num_shards=WORLD)
+    jeng = JAccumulationEngine(JEngineConfig(n_classes=C))
+    parts = [jeng.accumulate(jeng.init(D), blk).stats for blk in _blocks(packed)]
+    regions = [_jwire(parts[2 * g].A + parts[2 * g + 1].A, parts[2 * g].b + parts[2 * g + 1].b,
+                      JINT8)
                for g in range(2)]
-    assert np.array_equal(out["A"], (regions[0][0] + regions[1][0]).numpy())
-    assert np.array_equal(out["b"], (regions[0][1] + regions[1][1]).numpy())
+    assert np.array_equal(out["A"], np.asarray(regions[0][0] + regions[1][0]))
+    assert np.array_equal(out["b"], np.asarray(regions[0][1] + regions[1][1]))
 
 
 def test_async_engine_dist_mesh_tree_bitwise(ranks):

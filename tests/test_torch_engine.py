@@ -12,9 +12,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.data.pipeline import pack_client_shards as jpack  # noqa: E402
+from repro.federated import compress as jcompress  # noqa: E402
 from repro.federated.engine import AccumulationEngine as JEngine  # noqa: E402
 from repro.federated.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro_torch.core import fed3r  # noqa: E402
@@ -28,7 +30,6 @@ from repro_torch.federated.engine import (  # noqa: E402
 )
 from repro_torch.federated.telemetry import Telemetry  # noqa: E402
 from repro_torch.kernels.ops import fed3r_stats  # noqa: E402
-from repro_torch.federated import compress  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.world import single_rank_world  # noqa: E402
 
@@ -167,7 +168,8 @@ def test_engine_rejects_unported_options():
         EngineConfig(n_classes=C, dist=DistConfig(aggregation="psum"))
     # psum runs on a one-rank world: the all-reduce sums one partial, so
     # fp32 is bitwise the merge fold, and int8 the merge fold through the
-    # wire once more (the partial's crossing)
+    # wire once more (the partial's crossing) — the reference's merge
+    # engine under the int8 wire, then its jitted wire_roundtrip
     packed = pack_client_shards(_make_clients(3, [5, 9, 4]), 2)
     int8 = WireFormat(kind="int8", tile=8)
 
@@ -184,8 +186,14 @@ def test_engine_rejects_unported_options():
         got8 = eng8.accumulate(eng8.init(D), packed)
     assert torch.equal(got32.stats.A, want32.stats.A) and torch.equal(got32.stats.b, want32.stats.b)
     assert torch.equal(got32.class_counts, want32.class_counts)
-    A8, b8 = compress.wire_roundtrip(want8.stats.A, want8.stats.b, int8)
-    assert torch.equal(got8.stats.A, A8) and torch.equal(got8.stats.b, b8)
+    jint8 = jcompress.WireFormat(kind="int8", tile=8)
+    jeng = JEngine(JEngineConfig(n_classes=C, wire=jint8))
+    jacc = jeng.accumulate(jeng.init(D), jpack(_make_clients(3, [5, 9, 4]), 2))
+    A8, b8 = jax.jit(jcompress.wire_roundtrip, static_argnames=("fmt",))(
+        jacc.stats.A, jacc.stats.b, fmt=jint8)
+    _close(got8.stats.A, A8, STATS_REL)
+    _close(got8.stats.b, b8, STATS_REL)
+    assert not torch.equal(got8.stats.A, want8.stats.A)  # the partial crossed the wire
     with pytest.raises(ValueError):
         DistConfig(aggregation="allgather")
     with pytest.raises(TypeError):  # FED3R-RF is ported: rff_params must be RFFParams
