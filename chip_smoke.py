@@ -128,7 +128,21 @@ counts just after.
                 across KV heads); then ``qwen2-7b-smoke`` in fp32, card
                 against CPU: the same greedy tokens, logits within 2e-4 of
                 the largest.
-18. kernel    -- each kernel against its plain PyTorch version at the shapes
+18. serve-moe -- ``launch/serve.py`` on ``deepseek-moe-16b`` at full width and
+                depth (28 layers, d_model 2048, MHA 16/16, 64 routed experts
+                top 6 and 2 shared, d_expert 1408, vocab 102,400), bf16,
+                random fp32 weights (62.9 GiB): batch 8, 2048-token prompts,
+                64 tokens, cold and warm; flash_attention launches 28 in the
+                prefill and 0 in decode; the share of (token, choice)
+                entries the prefill's capacity dropped.
+19. serve-moe-consistency -- at full width, bf16, capacity factor E / top_k
+                (no drop): prefill + 64 decode steps against one train-mode
+                forward within the bounds measured once, no entry dropped,
+                every token's first expert rolled by one outside them; a
+                decode step under sync-debug "error"; one layer's
+                ``moe_apply`` in fp32 against the dense oracle (every expert
+                on every token) over 1024 tokens.
+20. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
                 bitwise, on all-zero tiles and exact half-way inputs too;
                 flash attention in bf16 and fp32, with and without a
@@ -150,7 +164,8 @@ counts just after.
                 path's shape the times of kernel, plain version and library
                 call, and the device time alone of kernel and library call
                 (a CUDA graph of the calls replayed) beside the call time
-                (flash attention at the serve, long and hd-256 shapes;
+                (flash attention at the serve, long, hd-256 and serve-moe
+                shapes;
                 quantize_tiles and dequant_acc also at 5000 x 5000, where
                 no one PyTorch call computes them).
 
@@ -303,19 +318,40 @@ CONSIST_VARIANTS = (
 )
 CONSIST_VARIANT_REL = {"sliding_window=1024": 1.67e-2, "kv_cache_quant": 2.21e-2}
 SMOKE_SERVE = dict(arch="qwen2-7b-smoke", B=2, S=16, gen=8, rel=2e-4)
+# the MoE serving path (launch/serve.py) at DeepSeekMoE 16B's full width and
+# depth, bf16 activations, fp32 weights (62.9 GiB) from seed 0
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SERVE = dict(batch=8, prompt_len=2048, gen=64)
+# prefill + decode against the train forward at capacity factor E / top_k
+# (C >= T: no entry drops, as tests/test_decode_consistency.py assumes), in
+# bf16 and in fp32: (max|dlogit|/max|logit|, least share of equal argmaxes).
+# Measured once on the card (PERF.md §6), the same in two runs: bf16
+# 1.1143e-2 of max|logit| 4.031 and 117 of 130 argmaxes equal (the router's
+# bf16 logits round apart between the decode and train shapes, so near-tied
+# experts swap; 65 positions have a top-2 gap under twice the largest
+# logit gap); fp32 3.0122e-6, 130 of 130.  Bounds: twice the gap and twice
+# the flipped argmaxes (bf16; at most 3 of 130 in fp32), never to be
+# loosened.  The planted fault (every token's first expert rolled by one)
+# read 3.1734e-2 (argmax 0.7538) in bf16 and 2.6508e-2 in fp32: above them.
+MOE_CONSIST = {"bfloat16": (2.23e-2, 0.80), "float32": (6.1e-6, 0.97)}
+# one layer's moe_apply at full width in fp32 against the dense oracle of
+# tests/test_layers.py (every expert on every token, weighted by the top k),
+# over 1024 tokens with no drops; the reference test's rtol = atol
+MOE_ORACLE_TOKENS = 1024
+MOE_ORACLE_TOL = 2e-4
 # flash attention: the reference test's tolerances (tests/test_kernels.py),
 # at the serve shape, a long one, the reference test's MHA/GQA/MQA shapes,
 # ragged lengths, recurrentgemma-9b's attention (hd 256, one KV head; its
-# local window 2048, and 128) and a width that runs on a wider instance (hd
-# 96 on the 128-column one); times (bf16, causal, no window) at the shapes
-# FLASH_TIMED names
+# local window 2048, and 128), a width that runs on a wider instance (hd
+# 96 on the 128-column one) and serve-moe's MHA 16/16 prefill; times (bf16,
+# causal, no window) at the shapes FLASH_TIMED names
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
                 (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64),
-                (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96)]
+                (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96), (8, 2048, 16, 16, 128)]
 FLASH_WINDOWS = {(2, 4096, 16, 1, 256): (None, 2048, 128)}  # else (None, 128)
 FLASH_TIMED = {(8, 2048, 28, 4, 128): "serve", (1, 8192, 28, 4, 128): "long",
-               (2, 4096, 16, 1, 256): "hd-256"}
+               (2, 4096, 16, 1, 256): "hd-256", (8, 2048, 16, 16, 128): "serve-moe"}
 # the bf16 kernel's row log-sum-exp m + log l against an fp32 logsumexp of
 # the scaled, masked scores: max |difference| over the rows.  The sound
 # kernel read at most 1.907e-6 (measured on one H100: ex2.approx and the fp32
@@ -2786,12 +2822,14 @@ def phase_serve(torch, ops) -> dict:
     return out
 
 
-def _prefill_decode(model, params, toks, S, T):
+def _prefill_decode(model, params, toks, S, T, drops=None):
     """Prefill toks[:, :S], then T decode steps fed toks[:, S:S + T]: the
-    logits of positions S-1 .. S+T-1, (B, T + 1, V) in fp32."""
+    logits of positions S-1 .. S+T-1, (B, T + 1, V) in fp32 (an MoE
+    model's prefill adds its dropped entries to ``drops``)."""
     import torch
 
-    logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, cache_capacity=S + T)
+    logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, cache_capacity=S + T,
+                                  drops=drops)
     got = [logits]
     for i in range(T):
         logits, cache = model.decode_step(params, cache, toks[:, S + i:S + i + 1], S + i)
@@ -2936,6 +2974,195 @@ def phase_serve_consistency(torch, ops) -> dict:
     if not same_toks or srel > sm["rel"] or launches != scfg.n_layers:
         raise AssertionError("the smoke-width fp32 serving path on the card disagrees with the CPU")
     return {"rel": rel, "agree": agree, "smoke_rel": srel}
+
+
+def phase_serve_moe(torch, ops) -> dict:
+    """launch/serve.py at DeepSeekMoE 16B's full width and depth: the main
+    configuration cold (the first prefill after emptying the allocator's
+    cache) and warm, with the prefill's drop share."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[serve-moe] {MOE_ARCH}: d_model={cfg.d_model} layers={cfg.n_layers} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} experts={cfg.n_experts} top_k={cfg.top_k} "
+        f"shared={cfg.n_shared_experts} d_expert={cfg.d_expert} capacity_factor="
+        f"{cfg.capacity_factor} vocab={cfg.vocab_size} dtype={cfg.dtype}, fp32 weights from seed "
+        f"0, random prompts; {held:.3f} GiB held by earlier phases")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = build_model(cfg).param_count(params)
+    log(f"[serve-moe] {n_params:,} parameters ({4 * n_params / 2**30:.3f} GiB fp32) drawn in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if len(params["layers"]) != 28 or cfg.d_model != 2048 or cfg.n_experts != 64:
+        raise AssertionError("serve-moe is not at DeepSeekMoE 16B's full width and depth")
+    out = {}
+    for label in ("cold", "full"):
+        if label == "cold":
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = serve(MOE_ARCH, verbose=False, device="cuda", seed=0, params=params, **MOE_SERVE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        kw = MOE_SERVE
+        toks = res.tokens
+        step_ms = res.decode_s * 1e3 / (kw["gen"] - 1)
+        log(f"[serve-moe] {label} batch {kw['batch']} x prompt {kw['prompt_len']}, gen "
+            f"{kw['gen']}: prefill {res.prefill_s * 1e3:.1f} ms  decode {step_ms:.2f} ms a step "
+            f"({kw['gen'] - 1} steps, {res.tokens_per_s:.1f} tok/s)  peak memory "
+            f"{res.peak_bytes / 2**30:.3f} GiB  prefill drop share {res.prefill_drop_share:.6f} "
+            f"of {kw['batch'] * kw['prompt_len'] * cfg.top_k * cfg.n_layers:,} (token, choice) "
+            f"entries  wall {wall:.2f}s  flash_attention launches: prefill "
+            f"{res.prefill_launches}, decode {res.decode_launches}  (all counts {counts})")
+        log(f"[serve-moe] {label} generated[0]: {toks[0, :16].tolist()}")
+        others = {k: v for k, v in counts.items() if k != "flash_attention" and v}
+        if res.prefill_launches != cfg.n_layers or res.decode_launches != 0 or others:
+            raise AssertionError(f"serve-moe launched {res.prefill_launches} flash_attention "
+                                 f"kernels in the prefill, {res.decode_launches} in decode, "
+                                 f"{others}")
+        if tuple(toks.shape) != (kw["batch"], kw["gen"]) or not (
+                int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"tokens of shape {tuple(toks.shape)} outside [0, vocab)")
+        if not (0.0 <= res.prefill_drop_share < 1.0) or not bool(torch.isfinite(res.logits).all()):
+            raise AssertionError(f"drop share {res.prefill_drop_share}, or logits not finite")
+        out[label] = {"launches": counts["flash_attention"], "prefill_ms": res.prefill_s * 1e3,
+                      "decode_step_ms": step_ms, "tok_s": res.tokens_per_s,
+                      "peak_gib": res.peak_bytes / 2**30, "drop_share": res.prefill_drop_share,
+                      "wall_s": wall}
+        del res, toks
+    out["params"] = params
+    return out
+
+
+def _first_choice_rolled(real, n_experts):
+    """A stand-in for moe.route_top_k that sends every token's first choice
+    to the next expert."""
+    def wrong(probs, k):
+        top_p, idx = real(probs, k)
+        idx = idx.clone()
+        idx[:, 0] = (idx[:, 0] + 1) % n_experts
+        return top_p, idx
+
+    return wrong
+
+
+def phase_serve_moe_consistency(torch, ops, params) -> dict:
+    """Full width, capacity factor E / top_k, in bf16 and in fp32: prefill +
+    decode against the train forward, the planted routing fault outside the
+    bounds; a bf16 decode step with no host sync; then one layer's moe_apply
+    in fp32 against the dense oracle."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    base = get_config(MOE_ARCH)
+    cfg = base.replace(capacity_factor=base.n_experts / base.top_k)
+    B, S, T = CONSIST["B"], CONSIST["S"], CONSIST["T"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), generator=gen, device="cuda")
+    out = {}
+    for dtype, (rel_limit, argmax_limit) in MOE_CONSIST.items():
+        model = build_model(cfg.replace(dtype=dtype))
+        torch.cuda.empty_cache()
+        reset_counts(ops)
+        drops = moe_mod.DropTally()
+        got = _prefill_decode(model, params, toks, S, T, drops)
+        with torch.no_grad():
+            ref = model.forward(params, {"tokens": toks}, drops=drops).logits
+        ref = ref[:, S - 1:S + T].float()
+        launches = read_counts(ops)["flash_attention"]
+        dropped = int(drops.dropped)
+        rel = max_rel_err(got, ref)
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        pre_rel = max_rel_err(got[:, 0], ref[:, 0])
+        # an argmax can flip only where the reference's top-2 gap is under
+        # twice the largest logit gap
+        top2 = ref.topk(2, dim=-1).values
+        near = int((top2[..., 0] - top2[..., 1] < 2 * float((got - ref).abs().max())).sum())
+        del got
+        real = moe_mod.route_top_k
+        moe_mod.route_top_k = _first_choice_rolled(real, cfg.n_experts)
+        try:
+            bad = _prefill_decode(model, params, toks, S, T)
+        finally:
+            moe_mod.route_top_k = real
+        frel = max_rel_err(bad, ref)
+        fagree = float((bad.argmax(-1) == ref.argmax(-1)).float().mean())
+        del bad
+        log(f"[serve-moe-consistency] {MOE_ARCH} {dtype}, capacity factor "
+            f"{cfg.capacity_factor:.4f} (E/top_k), B={B} S={S} T={T}: prefill + {T} decode "
+            f"steps vs one train forward over {S + T} tokens (plain attention): "
+            f"max|dlogit|/max|logit| {rel:.4e} (prefill position {pre_rel:.4e}; limit "
+            f"{rel_limit:g})  equal argmax {agree:.4f} of {ref.shape[0] * ref.shape[1]} (limit >= "
+            f"{argmax_limit:g}; {near} positions with a top-2 gap under twice max|dlogit|)  "
+            f"max|logit| {float(ref.abs().max()):.3f}  entries dropped {dropped} of "
+            f"{drops.routed:,}  flash_attention launches {launches}; planted fault, every "
+            f"token's first expert rolled by one: {frel:.4e} (must exceed {rel_limit:g})  equal "
+            f"argmax {fagree:.4f}")
+        del ref
+        if launches != cfg.n_layers:
+            raise AssertionError(f"the consistency prefill launched flash_attention {launches} "
+                                 f"times")
+        if dropped != 0:
+            raise AssertionError(f"{dropped} entries dropped at capacity factor E / top_k")
+        if not (rel <= rel_limit and agree >= argmax_limit):
+            raise AssertionError(f"MoE prefill + decode disagree with the full forward in "
+                                 f"{dtype}: {rel}, {agree}")
+        if not frel > rel_limit:
+            raise AssertionError(f"the {dtype} MoE consistency bound cannot see a rolled first "
+                                 f"expert: {frel}")
+        out[dtype] = {"rel": rel, "agree": agree, "fault_rel": frel}
+    model = build_model(cfg)
+
+    # a full-width decode step never waits on the card
+    _, cache = model.prefill(params, {"tokens": toks[:, :S]}, cache_capacity=S + T)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, toks[:, S:S + 1], S)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del cache
+    log("[serve-moe-consistency] a full-width MoE decode step under sync-debug 'error': no host "
+        "sync")
+
+    # one layer against the dense oracle, fp32, no drops
+    layer = {k: v for k, v in params["layers"][0]["moe"].items() if k != "shared"}
+    ocfg = cfg.replace(dtype="float32", n_shared_experts=0)
+    x = 0.3 * torch.randn((1, MOE_ORACLE_TOKENS, cfg.d_model), generator=gen, device="cuda")
+    drops = moe_mod.DropTally()
+    y, _ = moe_mod.moe_apply(ocfg, layer, x, drops)
+    xf = x[0]
+    probs = torch.softmax(xf @ layer["router"], -1)
+    top_p, top_idx = moe_mod.route_top_k(probs, cfg.top_k)
+    g = F.silu(torch.einsum("td,edf->tef", xf, layer["w_gate"]))
+    u = torch.einsum("td,edf->tef", xf, layer["w_up"])
+    all_out = torch.einsum("tef,efd->ted", g * u, layer["w_down"])
+    del g, u
+    want = torch.zeros_like(xf)
+    rows = torch.arange(xf.shape[0], device="cuda")
+    for kk in range(cfg.top_k):
+        want += all_out[rows, top_idx[:, kk]] * top_p[:, kk, None]
+    del all_out
+    diff = (y[0] - want).abs()
+    worst = float((diff - MOE_ORACLE_TOL * want.abs()).max())
+    log(f"[serve-moe-consistency] layer 0 moe_apply fp32 over {MOE_ORACLE_TOKENS} tokens vs the "
+        f"dense oracle (every expert on every token, weighted by the top {cfg.top_k}): "
+        f"max|dy| {float(diff.max()):.3e} of max|y| {float(want.abs().max()):.3e}, "
+        f"max(|dy| - rtol*|y|) {worst:.3e} (rtol = atol = {MOE_ORACLE_TOL:g})  entries dropped "
+        f"{int(drops.dropped)}")
+    if not worst <= MOE_ORACLE_TOL or int(drops.dropped) != 0:
+        raise AssertionError("moe_apply disagrees with the dense oracle at full width")
+    return out
 
 
 def _int8_scales_rolled(real):
@@ -3191,6 +3418,9 @@ def main() -> int:
     del ft
     srv = phase_serve(torch, ops)
     phase_serve_consistency(torch, ops)
+    moe = phase_serve_moe(torch, ops)
+    phase_serve_moe_consistency(torch, ops, moe.pop("params"))
+    torch.cuda.empty_cache()
     t_phases = time.perf_counter() - t_all
     gates = phase_heads_gates(torch, heads["lru strict"])
 
@@ -3237,7 +3467,7 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:85",
-         "launches": srv["full"]["launches"], **kern_flash},
+         "launches": srv["full"]["launches"] + moe["full"]["launches"], **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
     print(card())

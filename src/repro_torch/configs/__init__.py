@@ -2,9 +2,10 @@
 
 Each module defines ``CONFIG`` (the configuration, with source citation) and
 ``REDUCED`` (a smoke-test variant of the same family) registered as
-``<name>-smoke``.  The port carries the FED3R proxy backbone and Qwen2-7B
-(the dense serving path); the reference's other backbones are ported with
-their model families.
+``<name>-smoke``.  The port carries the FED3R proxy backbone, the four
+dense decoders (Qwen2-7B, Command R+, DeepSeek-Coder, Minitron) and the two
+MoE decoders (DeepSeekMoE 16B, Llama-4 Scout); the reference's SSM,
+hybrid, VLM and audio backbones are ported with their model families.
 """
 from repro_torch.configs.base import (  # noqa: F401
     Fed3RConfig,
@@ -16,8 +17,13 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCH_MODULES = [
-    "fed3r_mnv2_proxy",
+    "command_r_plus_104b",
+    "minitron_8b",
+    "deepseek_moe_16b",
     "qwen2_7b",
+    "deepseek_coder_33b",
+    "llama4_scout_17b_a16e",
+    "fed3r_mnv2_proxy",
 ]
 
 _loaded = False

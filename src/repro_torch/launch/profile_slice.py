@@ -6,6 +6,8 @@
 * ``--cell serve``: the dense serving cell (Qwen2-7B at full width, batch
   8 × 2048-token prompts): one prefill and 16 decode steps to warm up, then
   one prefill and 16 decode steps, each profiled on its own;
+* ``--cell serve-moe``: the same for the MoE serving cell (DeepSeekMoE 16B
+  at full width and depth, batch 8 × 2048-token prompts);
 * ``--cell rf``: ``chip_smoke.py``'s ``[rf]`` cell (``run_fed3r`` FED3R-RF
   at D = 5000 on the simulator's 50,000 features, 100 clients, 10 a
   round; both build it with :mod:`repro_torch.configs.simulator`), run
@@ -23,7 +25,7 @@ reads idler here than it runs.  A measurement tool, not a check:
 ``chip_smoke.py`` holds the checks.
 
 Usage (on the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|rf|ft]
+  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|serve-moe|rf|ft]
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ from repro_torch.launch import train
 SLICE_ARCH = "fed3r-mnv2-proxy"
 SLICE = dict(n_samples=8192, seq_len=128, n_classes=100, n_clients=100, clients_per_round=10)
 
-# chip_smoke.py's serve cell
+# chip_smoke.py's serve and serve-moe cells
 SERVE_ARCH = "qwen2-7b"
+MOE_ARCH = "deepseek-moe-16b"
 SERVE = dict(batch=8, prompt_len=2048, gen=64)
 DECODE_STEPS = 16
 
@@ -59,6 +62,8 @@ KERNEL_GROUPS = (
     ("GEMM (cuBLAS: projections, MLPs, attention einsums)",
      ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("softmax", ("softmax",)),
+    ("MoE routing, dispatch and combine (sort, cumsum, scatter, index_put, gather)",
+     ("sort", "scan", "scatter", "index", "gather")),
     ("reductions (norms, mean-pooling, sums)", ("reduce",)),
     ("copies and casts (dtype casts, contiguous layouts)", ("copy",)),
     ("other elementwise (scale, mask, GELU, RoPE, adds)", ("elementwise",)),
@@ -222,10 +227,12 @@ def profile_ft(device="cuda") -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--cell", choices=("slice", "serve", "rf", "ft"), default="slice")
+    ap.add_argument("--cell", choices=("slice", "serve", "serve-moe", "rf", "ft"),
+                    default="slice")
     args = ap.parse_args()
-    if args.cell == "serve":
-        profile_serve(SERVE_ARCH, device=args.device, **SERVE)
+    if args.cell in ("serve", "serve-moe"):
+        profile_serve(SERVE_ARCH if args.cell == "serve" else MOE_ARCH, device=args.device,
+                      **SERVE)
     elif args.cell == "rf":
         profile_rf(device=args.device)
     elif args.cell == "ft":

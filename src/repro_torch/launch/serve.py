@@ -1,11 +1,13 @@
-"""Serving driver of the dense family: batched prefill + autoregressive decode.
+"""Serving entry point of the dense and MoE families: batched prefill + autoregressive decode.
 
 The port of the reference's ``launch/serve.py``: random parameters from a
 seed, random prompt tokens, ONE prefill that builds a KV ring cache of
 capacity ``prompt_len + gen`` (its attention through the CUDA
 ``flash_attention`` kernel on the card, once a layer), then ``gen − 1``
 decode steps at positions ``prompt_len + i``, greedy or sampled.  Prints
-the prefill time, the decode time and tokens a second.
+the prefill time, the decode time and tokens a second; for an MoE model
+also the share of (token, choice) entries the prefill's expert capacity
+dropped, counted on the card and read once, after the timed steps.
 
 Parameters stay fp32 and every product casts its weight to the activation
 dtype, as in every layer of the port: a decode step re-reads and re-casts
@@ -14,6 +16,8 @@ all of them.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b-smoke \
       --batch 4 --prompt-len 32 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+      --batch 8 --prompt-len 2048 --gen 64
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.federated.dist import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from repro_torch.models import build_model
+from repro_torch.models import moe
 
 
 @dataclass
@@ -41,6 +46,7 @@ class ServeResult:
     prefill_launches: int  # flash_attention kernel launches in the prefill
     decode_launches: int  # ... and in the decode steps
     peak_bytes: Optional[int]  # torch.cuda.max_memory_allocated over the run (None on the CPU)
+    prefill_drop_share: Optional[float] = None  # MoE: (token, choice) entries dropped / routed
 
 
 def serve(
@@ -94,8 +100,9 @@ def serve(
         torch.cuda.reset_peak_memory_stats(dev)
     sync()
     n0 = ops.flash_attention.launches
+    drops = moe.DropTally() if cfg.arch_type == "moe" else None
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, {"tokens": prompts}, drops)
     tok = pick(logits)
     sync()
     t_prefill = time.perf_counter() - t0
@@ -116,11 +123,14 @@ def serve(
         tokens_per_s=(gen - 1) * batch / max(t_decode, 1e-9),
         prefill_launches=n1 - n0, decode_launches=ops.flash_attention.launches - n1,
         peak_bytes=torch.cuda.max_memory_allocated(dev) if on_card else None,
+        prefill_drop_share=drops.share() if drops is not None else None,
     )
     if verbose:
+        dropped = ("" if res.prefill_drop_share is None
+                   else f"  prefill drop share {res.prefill_drop_share:.4f}")
         print(f"[{arch}] prefill({batch}x{prompt_len}): {t_prefill * 1e3:.1f}ms  "
               f"decode {gen - 1} steps: {t_decode * 1e3:.1f}ms "
-              f"({res.tokens_per_s:.1f} tok/s)  on {dev}")
+              f"({res.tokens_per_s:.1f} tok/s)  on {dev}{dropped}")
         print("generated:", toks[0].tolist())
     return res
 

@@ -101,10 +101,11 @@ def make_cls_per_example_loss(cfg: ModelConfig) -> Callable:
 
 
 def make_prefill_step(cfg: ModelConfig, cache_capacity: int) -> Callable:
-    """(params, batch) -> (last position's logits (B, V), caches)."""
+    """(params, batch[, drops]) -> (last position's logits (B, V), caches);
+    an MoE model adds its dropped entries to ``drops``."""
 
-    def prefill_step(params, batch):
-        return model_lib.prefill(cfg, params, batch, cache_capacity)
+    def prefill_step(params, batch, drops=None):
+        return model_lib.prefill(cfg, params, batch, cache_capacity, drops)
 
     return prefill_step
 

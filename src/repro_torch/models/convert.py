@@ -3,7 +3,8 @@
 :func:`params_from_jax` takes the reference's parameter pytree with numpy
 leaves (``jax.tree.map(np.asarray, params)`` on the reference side) and
 returns the port's parameter dict on ``device``: the same names and
-layouts (``lm_head``, Qwen2's ``bq``/``bk``/``bv`` included), with the
+layouts (``lm_head``, Qwen2's ``bq``/``bk``/``bv`` included; an MoE layer's
+``router``, ``(E, …)`` expert stacks and fused ``shared`` MLP), with the
 stacked ``(n_layers, …)`` layer leaves sliced into a list of per-layer
 dicts.  :func:`cache_from_jax` does the same for a KV ring cache, keeping
 each leaf's dtype (bf16, fp32, int8, int32).  :func:`tree_from_jax` carries
@@ -23,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.algorithms import ServerState
 from repro_torch.federated.dist import resolve_device
+from repro_torch.models.model import FAMILIES
 from repro_torch.tree import tree_leaves
 
 
@@ -51,8 +53,9 @@ def params_from_jax(
     cfg: ModelConfig, params_np: dict, device: Union[str, torch.device] = "cuda"
 ) -> dict:
     """The reference's ``init_params`` pytree (numpy leaves) → port params."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(f"{cfg.arch_type!r} models: the port has the dense path only")
+    if cfg.arch_type not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_type!r} models: the port has the dense and MoE paths only")
     dev = resolve_device(device)
     out = {k: _to_torch(v, dev) for k, v in params_np.items() if k != "layers"}
     stacked = params_np["layers"]
@@ -65,8 +68,9 @@ def cache_from_jax(
 ) -> List[dict]:
     """The reference's stacked ring cache (numpy leaves, ``(n_layers, …)``) →
     the port's list of per-layer cache dicts, dtypes kept."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(f"{cfg.arch_type!r} caches: the port has the dense path only")
+    if cfg.arch_type not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_type!r} caches: the port has the dense and MoE paths only")
     dev = resolve_device(device)
     return [{k: _leaf(np.asarray(v)[i], dev) for k, v in cache_np.items()}
             for i in range(cfg.n_layers)]

@@ -1,21 +1,24 @@
-"""Model facade of the dense path: init / forward / loss / prefill / decode / features.
+"""Model facade of the dense and MoE paths: init / forward / loss / prefill / decode / features.
 
-The port of the reference's ``models/model.py`` for ``arch_type ==
-"dense"``.  ``build_model(cfg)`` returns a :class:`Model` of plain functions
+The port of the reference's ``models/model.py`` for ``arch_type`` "dense"
+and "moe".  ``build_model(cfg)`` returns a :class:`Model` of plain functions
 over a parameter dict:
 
     {"embed": {"embedding": (padded_vocab, d)},
      "final_norm": {...},
      "layers": [per-layer dict, ...]}
 
-with the reference's names and layouts (the reference's stacked
+(an MoE layer holds ``"moe"`` where a dense one holds ``"mlp"``) with the
+reference's names and layouts (the reference's stacked
 ``(n_layers, …)`` leaves are a list here; :mod:`repro_torch.models.convert`
 turns one into the other).
 
 Batch dict contract: ``tokens`` (B, S) int — always present (decode: (B, 1)).
 
 Caches are a list of per-layer ring-cache dicts (``make_cache``); decode
-updates them in place.  MoE, SSM, hybrid, VLM and audio models raise
+updates them in place.  The forward returns the MoE load-balance loss
+summed over the layers (0 for a dense model), which ``lm_loss`` adds at
+``router_aux_coef``.  SSM, hybrid, VLM and audio models raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
@@ -27,18 +30,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.dist import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_apply, norm_apply, norm_init, rope_angles, unembed_apply
 from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-_FAMILIES_LATER = "MoE, SSM, hybrid, VLM and audio models are ROADMAP Queue 1 item 11"
+FAMILIES = ("dense", "moe")  # the arch_types the port runs
+_FAMILIES_LATER = "SSM, hybrid, VLM and audio models are ROADMAP Queue 1 item 11"
 
 
 class ForwardOut(NamedTuple):
     hidden: torch.Tensor  # (B, S, d) post-final-norm hidden states
     logits: Optional[torch.Tensor]
     cache: Optional[List[dict]] = None  # per-layer ring caches (prefill / decode)
+    aux_loss: Optional[torch.Tensor] = None  # MoE load-balance scalar, fp32 (0 for dense)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -47,9 +53,10 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn on the generator's device."""
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_type!r} models: the port has the dense path only ({_FAMILIES_LATER})")
+            f"{cfg.arch_type!r} models: the port has the dense and MoE paths only "
+            f"({_FAMILIES_LATER})")
     params: Dict[str, Any] = {
         "embed": {
             "embedding": 0.02 * torch.randn(
@@ -78,13 +85,15 @@ def forward(
     decode_pos: Optional[int] = None,
     cache_capacity: Optional[int] = None,
     return_logits: bool = True,
+    drops: Optional[moe_mod.DropTally] = None,
 ) -> ForwardOut:
-    """The dense forward in ``mode`` "train" (also the feature pass),
+    """The forward in ``mode`` "train" (also the feature pass),
     "prefill" (returns the filled caches) or "decode" (one token at absolute
-    position ``decode_pos``; ``cache`` is updated in place and returned)."""
-    if cfg.arch_type != "dense":
+    position ``decode_pos``; ``cache`` is updated in place and returned).
+    ``drops`` sums the entries the MoE layers' capacity dropped."""
+    if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
-            f"forward of a {cfg.arch_type!r} model: the port has the dense path only "
+            f"forward of a {cfg.arch_type!r} model: the port has the dense and MoE paths only "
             f"({_FAMILIES_LATER})")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -103,19 +112,19 @@ def forward(
     capacity = cache_capacity
     if capacity is not None and window is not None:
         capacity = min(capacity, window)
-    h, new_cache = tfm.apply_stack(
+    h, new_cache, aux = tfm.apply_stack(
         cfg, "attn", params["layers"], x, angles=angles, window=window, mode=mode,
-        cache=cache, decode_pos=decode_pos, cache_capacity=capacity,
+        cache=cache, decode_pos=decode_pos, cache_capacity=capacity, drops=drops,
     )
     h = norm_apply(cfg, params["final_norm"], h)
     logits = unembed_apply(cfg, params, h) if return_logits else None
-    return ForwardOut(h, logits, new_cache)
+    return ForwardOut(h, logits, new_cache, aux)
 
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int,
                device: Union[str, torch.device] = "cuda") -> List[dict]:
     """Empty per-layer ring caches (capacity clamped to the sliding window)."""
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(f"caches of a {cfg.arch_type!r} model ({_FAMILIES_LATER})")
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)
@@ -124,12 +133,15 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def prefill(
-    cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor], cache_capacity: int
+    cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor], cache_capacity: int,
+    drops: Optional[moe_mod.DropTally] = None,
 ) -> Tuple[torch.Tensor, List[dict]]:
-    """(last position's logits (B, V), the filled caches)."""
+    """(last position's logits (B, V), the filled caches); ``drops`` sums
+    the entries the MoE layers' capacity dropped."""
     out = forward(
         cfg, params, batch, mode="prefill", cache_capacity=cache_capacity,
         return_logits=False,  # unembed only the last position (B·V, not B·S·V)
+        drops=drops,
     )
     logits = unembed_apply(cfg, params, out.hidden[:, -1:, :])
     return logits[:, 0, :], out.cache
@@ -149,11 +161,12 @@ def decode_step(
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token cross-entropy, fp32 log-softmax (``batch["labels"]``
-    (B, S) int)."""
-    logits = forward(cfg, params, batch, mode="train").logits.to(torch.float32)
+    (B, S) int), plus ``router_aux_coef`` times the MoE load-balance loss."""
+    out = forward(cfg, params, batch, mode="train")
+    logits = out.logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-    return (lse - picked).mean()
+    return (lse - picked).mean() + cfg.router_aux_coef * out.aux_loss
 
 
 def extract_features(

@@ -245,5 +245,8 @@ def test_port_imports_without_jax_or_the_reference_package():
                  "core.probe", "federated.engine", "models.model", "launch.train",
                  "models.convert", "tree", "federated.async_engine", "federated.tiers",
                  "launch.mesh", "launch.obs_report", "launch.world", "launch.dist_check",
-                 "sharding", "sharding.specs"):
+                 "sharding", "sharding.specs", "models.moe", "models.transformer",
+                 "configs.deepseek_moe_16b", "configs.llama4_scout_17b_a16e",
+                 "configs.command_r_plus_104b", "configs.deepseek_coder_33b",
+                 "configs.minitron_8b"):
         assert "repro_torch." + name in names
