@@ -142,7 +142,25 @@ counts just after.
                 decode step under sync-debug "error"; one layer's
                 ``moe_apply`` in fp32 against the dense oracle (every expert
                 on every token) over 1024 tokens.
-20. kernel    -- each kernel against its plain PyTorch version at the shapes
+20. serve-ssm, serve-hybrid, serve-vlm -- ``launch/serve.py`` at full width
+                and depth, bf16, random fp32 weights from seed 0, cold and
+                warm: ``mamba2-1.3b`` (48 SSD layers, d_model 2048) at batch
+                8 x 2048 + 64 tokens, no flash launch; ``recurrentgemma-9b``
+                (26 RG-LRU and 12 local-attention layers, d_model 4096, MQA
+                16/1 x 256, window 2048) at batch 2 x 4096 + 64, 12 flash
+                launches a prefill (the prompt longer than the window);
+                ``qwen2-vl-2b`` (28 layers, GQA 12/2 x 128, M-RoPE) at batch 8
+                x (256 patches + 2048 tokens) + 64, 28 a prefill; none in
+                decode; a decode step under sync-debug "error".
+21. ssm-, hybrid-, vlm-consistency -- at full width in bf16 and fp32,
+                prefill + 64 decode steps against one train forward within
+                twice one sound run's gap, a planted fault outside it (the
+                SSM's decode without the state decay, the hybrid's prefill
+                attention without its window, the VLM's text positions from
+                n_patches); layer 0 in fp32 against a float64 oracle (the
+                SSM and RG-LRU recurrences a step at a time, the attention
+                with its M-RoPE streams).
+22. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
                 bitwise, on all-zero tiles and exact half-way inputs too;
                 flash attention in bf16 and fp32, with and without a
@@ -164,8 +182,8 @@ counts just after.
                 path's shape the times of kernel, plain version and library
                 call, and the device time alone of kernel and library call
                 (a CUDA graph of the calls replayed) beside the call time
-                (flash attention at the serve, long, hd-256 and serve-moe
-                shapes;
+                (flash attention at the serve, long, hd-256, serve-moe,
+                serve-hybrid (window 2048) and serve-vlm shapes;
                 quantize_tiles and dequant_acc also at 5000 x 5000, where
                 no one PyTorch call computes them).
 
@@ -339,19 +357,77 @@ MOE_CONSIST = {"bfloat16": (2.23e-2, 0.80), "float32": (6.1e-6, 0.97)}
 # over 1024 tokens with no drops; the reference test's rtol = atol
 MOE_ORACLE_TOKENS = 1024
 MOE_ORACLE_TOL = 2e-4
+# the SSM, hybrid and VLM serving paths (launch/serve.py) at full width and
+# depth, bf16 activations, fp32 weights from seed 0, cold then warm: the
+# hybrid's prompt is longer than its 2048-token local window, so the
+# windowed prefill and the window-sized ring cache both run; the VLM's
+# prompt is 256 patch embeddings and 2048 text tokens.  Flash launches a
+# prefill: one an attention layer (none for the SSM).
+FAMILY_SERVE = {
+    "ssm": ("mamba2-1.3b", dict(batch=8, prompt_len=2048, gen=64), 0),
+    "hybrid": ("recurrentgemma-9b", dict(batch=2, prompt_len=4096, gen=64), 12),
+    "vlm": ("qwen2-vl-2b", dict(batch=8, prompt_len=2048, gen=64), 28),
+}
+# prefill + T decode steps against one train forward, B 2.  The SSM's
+# sequence mode takes whole 256-step chunks, so its prefill is 7 of them and
+# its train forward runs over 8 (the logits compared do not see the tokens
+# after S + T: the forward is causal); the hybrid's S is longer than its
+# window; the VLM's 256 patches + S + T are 2048 positions, which the train
+# forward's plain attention takes in one piece (past 2048 it needs whole
+# 1024-query chunks, as the reference's)
+FAMILY_CONSIST = {"ssm": dict(B=2, S=1792, T=64), "hybrid": dict(B=2, S=4032, T=64),
+                  "vlm": dict(B=2, S=1728, T=64)}
+# (max|dlogit|/max|logit|, least share of equal argmaxes) in bf16 and fp32:
+# twice one sound run and twice its flipped argmaxes (at most 3 of 130 in
+# fp32, as the dense path's), never to be loosened.  Measured once on the
+# card (PERF.md §6, PR 24; NVIDIA H100 80GB HBM3, 700 W): ssm bf16 5.5063e-1
+# and 54 of 130 argmaxes equal, fp32 3.9854e-4 and 130; hybrid bf16
+# 1.2921e-2 and 128, fp32 5.3521e-6 and 130; vlm bf16 8.7891e-3 and 124,
+# fp32 2.2612e-6 and 130.  The random 48-layer SSM amplifies any rounding:
+# its fp32 prefill position, the same chunked algorithm on the same tokens
+# but GEMMs of another length, is already 1.7192e-4 apart, so in bf16 the
+# chunked and recurrent forms read 0.55 apart and its bf16 argmax share
+# carries no bound; its fp32 gate is the contract.  The reference's two
+# forms round apart alike (tests/test_torch_ssm.py::
+# test_bf16_decode_gap_is_the_references holds the port's gap within twice
+# the reference's on the CPU).
+# A planted fault must read above each: the SSM's decode skipping the state
+# decay dA (read 1.3608), the hybrid's prefill attention run with no window
+# (0.7115, 0.7123), the VLM's text positions starting at n_patches instead
+# of g (7.0312e-2, 6.9231e-2)
+FAMILY_CONSIST_LIMITS = {
+    "ssm": {"bfloat16": (1.1, 0.0), "float32": (8.0e-4, 0.97)},
+    "hybrid": {"bfloat16": (2.58e-2, 0.96), "float32": (1.07e-5, 0.97)},
+    "vlm": {"bfloat16": (1.75e-2, 0.90), "float32": (4.5e-6, 0.97)},
+}
+FAMILY_FAULTS = {"ssm": "decode skips the state decay dA",
+                 "hybrid": "prefill attention with window None",
+                 "vlm": "text positions start at n_patches"}
+# one layer at full width in fp32 against a float64 oracle written apart
+# from the port's algorithm: the SSM mixer and the RG-LRU block by their
+# recurrences a step at a time, the VLM's attention by its M-RoPE streams
+# and a softmax over the causal keys; tokens, and the limit on
+# max|dy| / max|y| (the reference's SSD test's 1e-4; read 2.381e-6,
+# 4.795e-6 and 4.078e-7 on the card)
+FAMILY_ORACLE = {"ssm": (512, 1e-4), "hybrid": (2048, 1e-4), "vlm": (512, 1e-4)}
 # flash attention: the reference test's tolerances (tests/test_kernels.py),
 # at the serve shape, a long one, the reference test's MHA/GQA/MQA shapes,
 # ragged lengths, recurrentgemma-9b's attention (hd 256, one KV head; its
 # local window 2048, and 128), a width that runs on a wider instance (hd
-# 96 on the 128-column one) and serve-moe's MHA 16/16 prefill; times (bf16,
-# causal, no window) at the shapes FLASH_TIMED names
+# 96 on the 128-column one), serve-moe's MHA 16/16 prefill and serve-vlm's
+# GQA 12/2 over 256 patches + 2048 tokens; times (bf16, causal) at the
+# shapes and windows FLASH_TIMED names
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
                 (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64),
-                (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96), (8, 2048, 16, 16, 128)]
+                (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96), (8, 2048, 16, 16, 128),
+                (8, 2304, 12, 2, 128)]
 FLASH_WINDOWS = {(2, 4096, 16, 1, 256): (None, 2048, 128)}  # else (None, 128)
-FLASH_TIMED = {(8, 2048, 28, 4, 128): "serve", (1, 8192, 28, 4, 128): "long",
-               (2, 4096, 16, 1, 256): "hd-256", (8, 2048, 16, 16, 128): "serve-moe"}
+FLASH_TIMED = {((8, 2048, 28, 4, 128), None): "serve", ((1, 8192, 28, 4, 128), None): "long",
+               ((2, 4096, 16, 1, 256), None): "hd-256",
+               ((8, 2048, 16, 16, 128), None): "serve-moe",
+               ((2, 4096, 16, 1, 256), 2048): "serve-hybrid",
+               ((8, 2304, 12, 2, 128), None): "serve-vlm"}
 # the bf16 kernel's row log-sum-exp m + log l against an fp32 logsumexp of
 # the scaled, masked scores: max |difference| over the rows.  The sound
 # kernel read at most 1.907e-6 (measured on one H100: ex2.approx and the fp32
@@ -3230,6 +3306,298 @@ def _cast_matrices(tree, dtype):
     return tree.to(dtype) if tree.dim() >= 2 else tree
 
 
+def _family_batch(torch, cfg, B, S, gen) -> dict:
+    """Random tokens (B, S) and, for a VLM, 0.1·N(0, 1) patch embeddings."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")}
+    if cfg.arch_type == "vlm":
+        batch["patch_embeds"] = 0.1 * torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen,
+                                                  device="cuda")
+    return batch
+
+
+def phase_serve_family(torch, ops, family) -> dict:
+    """launch/serve.py at the SSM, hybrid or VLM config's full width and
+    depth: the main configuration cold (the first prefill after emptying the
+    allocator's cache) and warm; then a decode step with no host sync."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    arch, kw, flash = FAMILY_SERVE[family]
+    tag = f"[serve-{family}]"
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    kinds = cfg.pattern_for(cfg.n_layers)
+    shape = {
+        "ssm": f"d_inner={cfg.d_inner} ssm heads={cfg.ssm_nheads}x{cfg.ssm_headdim} "
+               f"state={cfg.ssm_state} chunk={cfg.ssm_chunk}",
+        "hybrid": f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+                  f"lru_width={cfg.lru_width} local_window={cfg.local_window}",
+        "vlm": f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+               f"n_patches={cfg.n_patches} mrope={cfg.mrope_sections}",
+    }[family]
+    log(f"{tag} {arch}: d_model={cfg.d_model} layers={cfg.n_layers} "
+        f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}) {shape} "
+        f"vocab={cfg.vocab_size} dtype={cfg.dtype}, fp32 weights from seed 0, random prompts; "
+        f"{held:.3f} GiB held by earlier phases")
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    log(f"{tag} {n_params:,} parameters ({4 * n_params / 2**30:.3f} GiB fp32) drawn in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if len(params["layers"]) != cfg.n_layers or kinds.count("attn") != flash:
+        raise AssertionError(f"{tag} is not at {arch}'s full depth")
+    out = {}
+    for label in ("cold", "full"):
+        if label == "cold":
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = serve(arch, verbose=False, device="cuda", seed=0, params=params, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        toks = res.tokens
+        step_ms = res.decode_s * 1e3 / (kw["gen"] - 1)
+        patches = f"{cfg.n_patches} patches + " if family == "vlm" else ""
+        log(f"{tag} {label} batch {kw['batch']} x prompt {patches}{kw['prompt_len']}, gen "
+            f"{kw['gen']}: prefill {res.prefill_s * 1e3:.1f} ms  decode {step_ms:.2f} ms a step "
+            f"({kw['gen'] - 1} steps, {res.tokens_per_s:.1f} tok/s)  peak memory "
+            f"{res.peak_bytes / 2**30:.3f} GiB  wall {wall:.2f}s  flash_attention launches: "
+            f"prefill {res.prefill_launches}, decode {res.decode_launches}  (all counts {counts})")
+        log(f"{tag} {label} generated[0]: {toks[0, :16].tolist()}")
+        others = {k: v for k, v in counts.items() if k != "flash_attention" and v}
+        if (res.prefill_launches != flash or res.decode_launches != 0 or others
+                or counts["flash_attention"] != flash):
+            raise AssertionError(f"{tag} launched {res.prefill_launches} flash_attention kernels "
+                                 f"in the prefill (not {flash}), {res.decode_launches} in "
+                                 f"decode, {others}")
+        if tuple(toks.shape) != (kw["batch"], kw["gen"]) or not (
+                int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"tokens of shape {tuple(toks.shape)} outside [0, vocab)")
+        if not bool(torch.isfinite(res.logits).all()):
+            raise AssertionError(f"{tag} logits not finite")
+        out[label] = {"launches": counts["flash_attention"], "prefill_ms": res.prefill_s * 1e3,
+                      "decode_step_ms": step_ms, "tok_s": res.tokens_per_s,
+                      "peak_gib": res.peak_bytes / 2**30, "wall_s": wall}
+        del res, toks
+    # a full-width decode step never waits on the card
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    off = cfg.n_patches if family == "vlm" else 0
+    batch = _family_batch(torch, cfg, kw["batch"], 64, gen)
+    _, cache = model.prefill(params, batch, cache_capacity=off + 64 + 1)
+    tok = batch["tokens"][:, -1:]
+    no_sync(torch, model.decode_step, params, cache, tok, off + 64)
+    del cache
+    log(f"{tag} a full-width decode step under sync-debug 'error': no host sync")
+    out["params"] = params
+    return out
+
+
+def _family_prefill_decode(model, params, batch, S, T, off):
+    """Prefill the first S tokens (after a VLM's patches), then T decode
+    steps fed tokens S .. S+T-1 at positions off + S + i: the logits of text
+    positions S-1 .. S+T-1, (B, T + 1, V) in fp32."""
+    import torch
+
+    toks = batch["tokens"]
+    logits, cache = model.prefill(params, dict(batch, tokens=toks[:, :S]),
+                                  cache_capacity=off + S + T)
+    got = [logits]
+    for i in range(T):
+        logits, cache = model.decode_step(params, cache, toks[:, S + i:S + i + 1], off + S + i)
+        got.append(logits)
+    return torch.stack(got, dim=1).float()
+
+
+def _family_fault(family):
+    """(module, attribute, stand-in) for the family's planted fault."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import ssm as ssm_mod
+
+    if family == "ssm":
+        return ssm_mod, "_state_step", lambda state, dA, dBx: state.add_(dBx)
+    if family == "hybrid":
+        real = ops.flash_attention
+        return ops, "flash_attention", lambda q, k, v, *, causal=True, window=None: real(
+            q, k, v, causal=causal, window=None)
+    real = model_lib.vlm_positions_3d
+
+    def wrong(cfg, seq_idx):  # a text token's three streams at its flat index
+        import torch
+
+        return torch.where(seq_idx >= cfg.n_patches, seq_idx, real(cfg, seq_idx))
+
+    return model_lib, "vlm_positions_3d", wrong
+
+
+def phase_family_consistency(torch, ops, family, params) -> dict:
+    """Full width, in bf16 and in fp32: prefill + decode against the train
+    forward within the bounds, the planted fault outside them; one layer in
+    fp32 against a float64 oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    arch, _, flash = FAMILY_SERVE[family]
+    tag = f"[{family}-consistency]"
+    base = get_config(arch)
+    B, S, T = (FAMILY_CONSIST[family][k] for k in ("B", "S", "T"))
+    off = base.n_patches if family == "vlm" else 0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    n = S + T if family != "ssm" else -(-(S + T) // base.ssm_chunk) * base.ssm_chunk
+    batch = _family_batch(torch, base, B, n, gen)
+    module, name, wrong = _family_fault(family)
+    out = {}
+    for dtype, (rel_limit, argmax_limit) in FAMILY_CONSIST_LIMITS[family].items():
+        model = build_model(base.replace(dtype=dtype))
+        torch.cuda.empty_cache()
+        reset_counts(ops)
+        # the real vocabulary: mamba2's 50,280 pad to 50,304 columns of -1e30
+        V = base.vocab_size
+        got = _family_prefill_decode(model, params, batch, S, T, off)[..., :V]
+        launches = read_counts(ops)["flash_attention"]
+        with torch.no_grad():
+            ref = model.forward(params, batch).logits[:, off + S - 1:off + S + T, :V].float()
+        rel = max_rel_err(got, ref)
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        pre_rel = max_rel_err(got[:, 0], ref[:, 0])
+        # an argmax can flip only where the reference's top-2 gap is under
+        # twice the largest logit gap
+        top2 = ref.topk(2, dim=-1).values
+        near = int((top2[..., 0] - top2[..., 1] < 2 * float((got - ref).abs().max())).sum())
+        del got
+        real = getattr(module, name)
+        setattr(module, name, wrong)
+        try:
+            bad = _family_prefill_decode(model, params, batch, S, T, off)[..., :V]
+        finally:
+            setattr(module, name, real)
+        frel = max_rel_err(bad, ref)
+        fagree = float((bad.argmax(-1) == ref.argmax(-1)).float().mean())
+        del bad
+        log(f"{tag} {arch} {dtype}, B={B} S={S}{f' (after {off} patches)' if off else ''} T={T}: "
+            f"prefill + {T} decode steps vs one train forward over {off + n} positions: "
+            f"max|dlogit|/max|logit| {rel:.4e} (prefill position {pre_rel:.4e}; limit "
+            f"{rel_limit:g})  equal argmax {agree:.4f} of {ref.shape[0] * ref.shape[1]} (limit >= "
+            f"{argmax_limit:g}; {near} positions with a top-2 gap under twice max|dlogit|)  "
+            f"max|logit| {float(ref.abs().max()):.3f}  flash_attention launches {launches}; "
+            f"planted fault, {FAMILY_FAULTS[family]}: {frel:.4e} (must exceed {rel_limit:g})  "
+            f"equal argmax {fagree:.4f}")
+        del ref
+        if launches != flash:
+            raise AssertionError(f"the {family} consistency prefill launched flash_attention "
+                                 f"{launches} times, not {flash}")
+        if not (rel <= rel_limit and agree >= argmax_limit):
+            raise AssertionError(f"{family} prefill + decode disagree with the full forward in "
+                                 f"{dtype}: {rel}, {agree}")
+        if not frel > rel_limit:
+            raise AssertionError(f"the {dtype} {family} consistency bound cannot see the planted "
+                                 f"fault ({FAMILY_FAULTS[family]}): {frel}")
+        out[dtype] = {"rel": rel, "agree": agree, "fault_rel": frel}
+    torch.cuda.empty_cache()
+    out["oracle"] = family_oracle(torch, family, base, params, gen)
+    return out
+
+
+def family_oracle(torch, family, cfg, params, gen) -> float:
+    """One layer in fp32 at full width against a float64 oracle written
+    apart from the port's algorithm; raises outside FAMILY_ORACLE's limit."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention, layers, rglru, ssm
+    from repro_torch.models import model as model_lib
+    from repro_torch.tree import tree_map
+
+    n, limit = FAMILY_ORACLE[family]
+    cfg = cfg.replace(dtype="float32")
+    x = 0.5 * torch.randn((1, n, cfg.d_model), generator=gen, device="cuda")
+    x64 = x.double()
+    if family == "ssm":
+        p = params["layers"][0]["ssm"]
+        y, _ = ssm.ssm_apply(cfg, p, x)
+        p = tree_map(lambda t: t.double(), p)
+        H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+        zxbcdt = x64[0] @ p["in_proj"]
+        z, xBC, dtr = ssm._split_zxbcdt(cfg, zxbcdt)
+        xBC = F.silu(layers.causal_conv1d_apply(p["conv"], xBC[None])[0])
+        xs, Bm, Cm = ssm._split_xbc(cfg, xBC)
+        dt = F.softplus(dtr + p["dt_bias"])  # (n, H)
+        A = -torch.exp(p["A_log"])
+        h = torch.zeros((H, P, N), dtype=torch.float64, device="cuda")
+        ys = []
+        for t in range(n):  # the recurrence, a step at a time (ngroups = 1)
+            xt = xs[t].reshape(H, P)
+            h = (h * torch.exp(dt[t] * A)[:, None, None]
+                 + (dt[t][:, None] * xt)[:, :, None] * Bm[t][None, None, :])
+            ys.append((h @ Cm[t]) + xt * p["D"][:, None])
+        yy = torch.stack(ys).reshape(n, H * P) * F.silu(z)
+        yy = yy * torch.rsqrt(yy.square().mean(-1, keepdim=True) + 1e-6) * p["norm_scale"]
+        want = (yy @ p["out_proj"])[None]
+        what = "layer 0's ssm_apply (the chunked SSD scan)"
+    elif family == "hybrid":
+        p = params["layers"][0]["rec"]
+        y, _ = rglru.rglru_apply(cfg, p, x)
+        p = tree_map(lambda t: t.double(), p)
+        gate = F.gelu(x64[0] @ p["proj_gate"], approximate="tanh")
+        m = layers.causal_conv1d_apply(p["conv"], (x64[0] @ p["proj_main"])[None])[0]
+        r = torch.sigmoid(m @ p["w_a"] + p["b_a"])
+        i = torch.sigmoid(m @ p["w_x"] + p["b_x"])
+        a = torch.exp(-8.0 * F.softplus(p["lambda"]) * r)
+        b = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-12)) * i * m
+        h = torch.zeros(cfg.lru_width, dtype=torch.float64, device="cuda")
+        hs = []
+        for t in range(n):  # the recurrence, a step at a time
+            h = a[t] * h + b[t]
+            hs.append(h)
+        want = ((torch.stack(hs) * gate) @ p["proj_out"])[None]
+        what = "layer 0's rglru_apply (the doubling scan)"
+    else:
+        p = params["layers"][0]["attn"]
+        seq = torch.arange(n, device="cuda")  # the patch grid, then text
+        angles = model_lib._angles_for(cfg, seq)
+        y, _ = attention.attn_apply(cfg, p, x, angles=angles, build_cache=True, cache_capacity=n)
+        p = tree_map(lambda t: t.double(), p)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = torch.einsum("sd,dhk->shk", x64[0], p["wq"]) + p["bq"]
+        k = torch.einsum("sd,dhk->shk", x64[0], p["wk"]) + p["bk"]
+        v = torch.einsum("sd,dhk->shk", x64[0], p["wv"]) + p["bv"]
+        # the three streams' positions, and each rotary pair's stream
+        g = int(round(cfg.n_patches ** 0.5))
+        img = seq < cfg.n_patches
+        streams = torch.stack([torch.where(img, 0, seq - cfg.n_patches + g),
+                               torch.where(img, seq // g, seq - cfg.n_patches + g),
+                               torch.where(img, seq % g, seq - cfg.n_patches + g)]).double()
+        owner = torch.repeat_interleave(torch.arange(3, device="cuda"),
+                                        torch.tensor(cfg.mrope_sections, device="cuda"))
+        inv = cfg.rope_theta ** (-torch.arange(0, hd, 2, dtype=torch.float64, device="cuda") / hd)
+        ang = streams[owner].T * inv  # (n, hd/2)
+        cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+
+        def rot(t):
+            t1, t2 = t[..., :hd // 2], t[..., hd // 2:]
+            return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], -1)
+
+        q, k = rot(q), rot(k)
+        k, v = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+        s = torch.einsum("qhk,shk->hqs", q, k) / math.sqrt(hd)
+        s = s.masked_fill(torch.ones((n, n), dtype=torch.bool, device="cuda").triu(1), -math.inf)
+        o = torch.einsum("hqs,shk->qhk", torch.softmax(s, -1), v)
+        want = (o.reshape(n, H * hd) @ p["wo"].reshape(H * hd, -1))[None]
+        what = "layer 0's attn_apply prefill (the fp32 flash kernel, M-RoPE over the patch grid)"
+    rel = float((y.double() - want).abs().max() / want.abs().max())
+    log(f"[{family}-consistency] {what} over {n} tokens in fp32 vs a float64 oracle: "
+        f"max|dy|/max|y| {rel:.3e} (limit {limit:g})")
+    if not rel <= limit:
+        raise AssertionError(f"{family}: one layer disagrees with its float64 oracle: {rel}")
+    return rel
+
+
 def flash_bound(B, S, H, KV, hd, window, elem_bytes, peak) -> dict:
     """4·hd FLOPs a (query, key) pair the causal (and window) mask keeps, a
     head; q, k, v read and o written once."""
@@ -3306,10 +3674,35 @@ def flash_lse(torch, fa_mod, q, k, v, window):
     return float((lse - want).abs().max()), float((once - want).abs().max())
 
 
+def flash_timed(torch, F, ops, ref, q, k, v, window, label) -> dict:
+    """Kernel, plain-version and SDPA times (bf16, causal, the window) with
+    the bound; SDPA takes a window as a boolean mask of the kept keys."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_label = "library_ms (F.scaled_dot_product_attention, is_causal, enable_gqa)"
+    else:
+        pos = torch.arange(S, device=q.device)
+        keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, enable_gqa=True)
+        lib_label = ("library_ms (F.scaled_dot_product_attention, the window as attn_mask, "
+                     "enable_gqa)")
+    return timed("flash_attention",
+                 f"{label} shape {(B, S, H, KV, hd)} bf16 causal window {window}",
+                 lambda: ops.flash_attention(q, k, v, window=window),
+                 lambda: ref.flash_attention_ref(q, k, v, window=window), library, lib_label,
+                 flash_bound(B, S, H, KV, hd, window, 2, BF16_FLOPS))
+
+
 def phase_kernel_flash(torch, ops, ref) -> dict:
     """flash_attention against its plain version at every shape, window and
     type, its bf16 row log-sum-exp against fp32; kernel, plain and SDPA times
-    at the shapes FLASH_TIMED names (bf16)."""
+    at the shapes and windows FLASH_TIMED names (bf16)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_mod
 
@@ -3366,16 +3759,9 @@ def phase_kernel_flash(torch, ops, ref) -> dict:
                     raise AssertionError(f"the lse limit cannot see p rounded before the row sum "
                                          f"at {shape} window {window}: {lse_once}")
                 del o
-            if shape in FLASH_TIMED and dtype == "bfloat16":
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                out[FLASH_TIMED[shape]] = timed(
-                    "flash_attention", f"{FLASH_TIMED[shape]} shape {shape} bf16 causal",
-                    lambda: ops.flash_attention(q, k, v),
-                    lambda: ref.flash_attention_ref(q, k, v),
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                           enable_gqa=True),
-                    "library_ms (F.scaled_dot_product_attention, is_causal, enable_gqa)",
-                    flash_bound(B, S, H, KV, hd, None, 2, BF16_FLOPS))
+                label = FLASH_TIMED.get((shape, window))
+                if label is not None and dtype == "bfloat16":
+                    out[label] = flash_timed(torch, F, ops, ref, q, k, v, window, label)
             del q, k, v
             torch.cuda.empty_cache()
     return {"max_abs_err": abs_err, **out["serve"]}
@@ -3421,6 +3807,11 @@ def main() -> int:
     moe = phase_serve_moe(torch, ops)
     phase_serve_moe_consistency(torch, ops, moe.pop("params"))
     torch.cuda.empty_cache()
+    fams = {}
+    for family in FAMILY_SERVE:
+        fams[family] = phase_serve_family(torch, ops, family)
+        phase_family_consistency(torch, ops, family, fams[family].pop("params"))
+        torch.cuda.empty_cache()
     t_phases = time.perf_counter() - t_all
     gates = phase_heads_gates(torch, heads["lru strict"])
 
@@ -3467,7 +3858,8 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:85",
-         "launches": srv["full"]["launches"] + moe["full"]["launches"], **kern_flash},
+         "launches": srv["full"]["launches"] + moe["full"]["launches"]
+         + sum(f["full"]["launches"] for f in fams.values()), **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
     print(card())

@@ -3,9 +3,10 @@
 Each module defines ``CONFIG`` (the configuration, with source citation) and
 ``REDUCED`` (a smoke-test variant of the same family) registered as
 ``<name>-smoke``.  The port carries the FED3R proxy backbone, the four
-dense decoders (Qwen2-7B, Command R+, DeepSeek-Coder, Minitron) and the two
-MoE decoders (DeepSeekMoE 16B, Llama-4 Scout); the reference's SSM,
-hybrid, VLM and audio backbones are ported with their model families.
+dense decoders (Qwen2-7B, Command R+, DeepSeek-Coder, Minitron), the two
+MoE decoders (DeepSeekMoE 16B, Llama-4 Scout), the SSM (Mamba2 1.3B), the
+hybrid (RecurrentGemma 9B) and the VLM (Qwen2-VL 2B); the reference's
+audio backbone (Whisper) is ported with its model family.
 """
 from repro_torch.configs.base import (  # noqa: F401
     Fed3RConfig,
@@ -24,6 +25,9 @@ ARCH_MODULES = [
     "deepseek_coder_33b",
     "llama4_scout_17b_a16e",
     "fed3r_mnv2_proxy",
+    "mamba2_1_3b",
+    "recurrentgemma_9b",
+    "qwen2_vl_2b",
 ]
 
 _loaded = False

@@ -4,7 +4,7 @@ Every architecture is described by a single frozen ``ModelConfig``
 dataclass.  Configs are plain data — importing a config module imports no
 framework and touches no device.  The fields are the reference package's,
 unchanged, so one config means the same model in both packages; the port's
-model code reads the dense-path fields only (``models/``).
+model code reads every family's fields but the audio ones (``models/``).
 """
 from __future__ import annotations
 

@@ -8,6 +8,10 @@
   one prefill and 16 decode steps, each profiled on its own;
 * ``--cell serve-moe``: the same for the MoE serving cell (DeepSeekMoE 16B
   at full width and depth, batch 8 × 2048-token prompts);
+* ``--cell serve-ssm``, ``serve-hybrid``, ``serve-vlm``: the same for the
+  SSM, hybrid and VLM serving cells at full width and depth (Mamba2 1.3B at
+  8 × 2048, RecurrentGemma 9B at 2 × 4096, Qwen2-VL 2B at 8 × (256 patches
+  + 2048));
 * ``--cell rf``: ``chip_smoke.py``'s ``[rf]`` cell (``run_fed3r`` FED3R-RF
   at D = 5000 on the simulator's 50,000 features, 100 clients, 10 a
   round; both build it with :mod:`repro_torch.configs.simulator`), run
@@ -25,7 +29,7 @@ reads idler here than it runs.  A measurement tool, not a check:
 ``chip_smoke.py`` holds the checks.
 
 Usage (on the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|serve-moe|rf|ft]
+  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|serve-moe|rf|ft|...]
 """
 from __future__ import annotations
 
@@ -46,6 +50,10 @@ SERVE_ARCH = "qwen2-7b"
 MOE_ARCH = "deepseek-moe-16b"
 SERVE = dict(batch=8, prompt_len=2048, gen=64)
 DECODE_STEPS = 16
+# chip_smoke.py's serve-ssm, serve-hybrid and serve-vlm cells
+FAMILY_CELLS = {"serve-ssm": ("mamba2-1.3b", SERVE),
+                "serve-hybrid": ("recurrentgemma-9b", dict(batch=2, prompt_len=4096, gen=64)),
+                "serve-vlm": ("qwen2-vl-2b", SERVE)}
 
 RF_WALLS = 3
 
@@ -62,7 +70,7 @@ KERNEL_GROUPS = (
     ("GEMM (cuBLAS: projections, MLPs, attention einsums)",
      ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
     ("softmax", ("softmax",)),
-    ("MoE routing, dispatch and combine (sort, cumsum, scatter, index_put, gather)",
+    ("sort, scan, scatter, index, gather (MoE routing, dispatch and combine; the SSD's cumsum)",
      ("sort", "scan", "scatter", "index", "gather")),
     ("reductions (norms, mean-pooling, sums)", ("reduce",)),
     ("copies and casts (dtype casts, contiguous layouts)", ("copy",)),
@@ -148,16 +156,20 @@ def profile_serve(arch: str, *, batch: int, prompt_len: int, gen: int, device="c
     gen_.manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len + DECODE_STEPS), generator=gen_,
                          device=dev)
+    fed, off = {"tokens": toks[:, :prompt_len]}, 0
+    if cfg.arch_type == "vlm":  # serve's patch prefix, and the positions it takes
+        off = cfg.n_patches
+        fed["patch_embeds"] = 0.1 * torch.randn((batch, off, cfg.d_model), generator=gen_,
+                                                device=dev)
     state = {}
 
     def prefill():
-        state["cache"] = model.prefill(params, {"tokens": toks[:, :prompt_len]},
-                                       cache_capacity=prompt_len + gen)[1]
+        state["cache"] = model.prefill(params, fed, cache_capacity=off + prompt_len + gen)[1]
 
     def decode():
         for i in range(DECODE_STEPS):
             p = prompt_len + i
-            model.decode_step(params, state["cache"], toks[:, p:p + 1], p)
+            model.decode_step(params, state["cache"], toks[:, p:p + 1], off + p)
 
     prefill()
     decode()
@@ -227,12 +239,15 @@ def profile_ft(device="cuda") -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--cell", choices=("slice", "serve", "serve-moe", "rf", "ft"),
+    ap.add_argument("--cell", choices=("slice", "serve", "serve-moe", "rf", "ft", *FAMILY_CELLS),
                     default="slice")
     args = ap.parse_args()
     if args.cell in ("serve", "serve-moe"):
         profile_serve(SERVE_ARCH if args.cell == "serve" else MOE_ARCH, device=args.device,
                       **SERVE)
+    elif args.cell in FAMILY_CELLS:
+        arch, shape = FAMILY_CELLS[args.cell]
+        profile_serve(arch, device=args.device, **shape)
     elif args.cell == "rf":
         profile_rf(device=args.device)
     elif args.cell == "ft":

@@ -1,13 +1,16 @@
-"""Serving entry point of the dense and MoE families: batched prefill + autoregressive decode.
+"""Serving entry point of the decoder-only families: batched prefill + autoregressive decode.
 
 The port of the reference's ``launch/serve.py``: random parameters from a
-seed, random prompt tokens, ONE prefill that builds a KV ring cache of
-capacity ``prompt_len + gen`` (its attention through the CUDA
-``flash_attention`` kernel on the card, once a layer), then ``gen − 1``
-decode steps at positions ``prompt_len + i``, greedy or sampled.  Prints
-the prefill time, the decode time and tokens a second; for an MoE model
-also the share of (token, choice) entries the prefill's expert capacity
-dropped, counted on the card and read once, after the timed steps.
+seed, random prompt tokens (a VLM's also 0.1·N(0, 1) patch embeddings of
+(batch, n_patches, d) before them), ONE prefill that builds the caches
+(KV rings of capacity ``off + prompt_len + gen``, where ``off`` is a VLM's
+n_patches and 0 otherwise, clamped to a hybrid's local window; SSM and
+RG-LRU states), its attention through the CUDA ``flash_attention`` kernel
+on the card, once an attention layer (an SSM launches none), then
+``gen − 1`` decode steps at positions ``off + prompt_len + i``, greedy or
+sampled.  Prints the prefill time, the decode time and tokens a second; for
+an MoE model also the share of (token, choice) entries the prefill's expert
+capacity dropped, counted on the card and read once, after the timed steps.
 
 Parameters stay fp32 and every product casts its weight to the activation
 dtype, as in every layer of the port: a decode step re-reads and re-casts
@@ -18,6 +21,7 @@ Usage:
       --batch 4 --prompt-len 32 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
       --batch 8 --prompt-len 2048 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b-smoke --device cpu
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ class ServeResult:
     prefill_s: float  # host clock around the prefill, synchronised on the card
     decode_s: float  # the same around the gen − 1 decode steps
     tokens_per_s: float  # (gen − 1)·batch / decode_s
-    prefill_launches: int  # flash_attention kernel launches in the prefill
+    prefill_launches: int  # flash_attention kernel launches in the prefill (0 for an SSM)
     decode_launches: int  # ... and in the decode steps
     peak_bytes: Optional[int]  # torch.cuda.max_memory_allocated over the run (None on the CPU)
     prefill_drop_share: Optional[float] = None  # MoE: (token, choice) entries dropped / routed
@@ -62,12 +66,14 @@ def serve(
     dtype: Optional[str] = None,
     params: Optional[dict] = None,
     prompts: Optional[torch.Tensor] = None,
+    patch_embeds: Optional[torch.Tensor] = None,
 ) -> ServeResult:
-    """Prefill ``prompts`` (random (batch, prompt_len) tokens unless given)
-    and decode ``gen`` tokens a sequence.  ``params`` (the port's layout, on
+    """Prefill ``prompts`` (random (batch, prompt_len) tokens unless given;
+    a VLM's ``patch_embeds`` (batch, n_patches, d) likewise) and decode
+    ``gen`` tokens a sequence.  ``params`` (the port's layout, on
     ``device``) default to ``Model.init(seed)``; ``dtype`` overrides the
-    config's activation dtype; sampling (``greedy=False``) draws from a
-    ``torch.Generator`` seeded ``seed + 1``."""
+    config's activation dtype; the random prompts, patches and samples
+    (``greedy=False``) draw from a ``torch.Generator`` seeded ``seed + 1``."""
     cfg = get_config(arch)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
@@ -82,7 +88,14 @@ def serve(
     else:
         prompts = torch.as_tensor(prompts, device=dev)
         batch, prompt_len = prompts.shape
-    prefill = steps.make_prefill_step(cfg, cache_capacity=prompt_len + gen)
+    fed = {"tokens": prompts}
+    off = 0
+    if cfg.arch_type == "vlm":
+        off = cfg.n_patches
+        fed["patch_embeds"] = (
+            0.1 * torch.randn((batch, off, cfg.d_model), generator=rng, device=dev)
+            if patch_embeds is None else torch.as_tensor(patch_embeds, device=dev))
+    prefill = steps.make_prefill_step(cfg, cache_capacity=off + prompt_len + gen)
     decode = steps.make_decode_step(cfg)
     on_card = dev.type == "cuda"
 
@@ -102,7 +115,7 @@ def serve(
     n0 = ops.flash_attention.launches
     drops = moe.DropTally() if cfg.arch_type == "moe" else None
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts}, drops)
+    logits, cache = prefill(params, fed, drops)
     tok = pick(logits)
     sync()
     t_prefill = time.perf_counter() - t0
@@ -111,7 +124,7 @@ def serve(
     out, seen = [tok], [logits]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = decode(params, cache, tok, prompt_len + i)
+        logits, cache = decode(params, cache, tok, off + prompt_len + i)
         tok = pick(logits)
         out.append(tok)
         seen.append(logits)

@@ -1,4 +1,4 @@
-"""Step functions of the dense path: train, classification loss, statistics,
+"""Step functions of the backbones: train, classification loss, statistics,
 prefill and decode.
 
 The port of the reference's ``launch/steps.py``:
@@ -11,8 +11,9 @@ The port of the reference's ``launch/steps.py``:
   cohort round engine (:mod:`repro_torch.federated.round_engine`) consumes.
 * ``fed3r_stats_step`` — the paper's statistics pass on the engine's core:
   backbone features → one ``fed3r_stats`` launch → (A, b) accumulation.
-* ``prefill_step`` — forward + KV ring-cache construction (the attention
-  through ``ops.flash_attention``, once a layer);
+* ``prefill_step`` — forward + cache construction (KV rings, SSM and
+  RG-LRU states; the attention through ``ops.flash_attention``, once an
+  attention layer);
 * ``decode_step`` — one token against the caches, updated in place.
 
 PyTorch runs eagerly, so a step is a plain closure over the config (the

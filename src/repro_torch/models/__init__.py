@@ -1,4 +1,4 @@
-"""Backbones of the port: the dense transformer path in PyTorch."""
+"""Backbones of the port in PyTorch: the dense, MoE, SSM, hybrid and VLM families."""
 from repro_torch.models.model import (  # noqa: F401
     Model,
     build_model,

@@ -1,4 +1,4 @@
-"""Attention of the dense path: GQA/MHA, position masks, KV ring caches.
+"""Attention: GQA/MHA/MQA, position masks, sliding windows, KV ring caches.
 
 The port of the reference's ``models/attention.py``.  Layout: q
 ``(B, Sq, H, hd)``, k/v ``(B, Sk, KV, hd)``; projection weights ``wq``

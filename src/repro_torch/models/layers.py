@@ -1,4 +1,4 @@
-"""Common layers of the dense path: norms, MLPs, embeddings, rotary.
+"""Common layers: norms, MLPs, embeddings, rotary (and M-RoPE), causal conv.
 
 The port of the reference's ``models/layers.py``, with its conventions:
 
@@ -14,7 +14,7 @@ reference's in distribution, not in bits.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,7 +83,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None)
     }
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
 
@@ -91,11 +91,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp_type in ("swiglu", "geglu"):
-        act = F.silu if cfg.mlp_type == "swiglu" else _gelu
+        act = F.silu if cfg.mlp_type == "swiglu" else gelu
         g = act(x @ p["w_gate"].to(dt))
         u = x @ p["w_up"].to(dt)
         return (g * u) @ p["w_down"].to(dt)
-    h = _gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
+    h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
     return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
@@ -127,6 +127,62 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angles)[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dtype)
+
+
+def mrope_angles(positions_3d: torch.Tensor, head_dim: int, theta: float,
+                 sections: Sequence[int]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): three position streams share the rotary dims.
+
+    positions_3d: (3, ..., S) — temporal / height / width position ids;
+    sections: how many of the head_dim//2 rotary dims each stream owns, e.g.
+    (16, 24, 24) for head_dim 128.  Returns angles (..., S, head_dim//2),
+    fp32, which :func:`apply_rope` takes as it takes :func:`rope_angles`'.
+    """
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim//2 = "
+                         f"{head_dim // 2}")
+    inv = rope_frequencies(head_dim, theta, positions_3d.device)
+    ang = positions_3d.to(torch.float32)[..., None] * inv  # (3, ..., S, hd//2)
+    pieces, start = [], 0
+    for i, sec in enumerate(sections):
+        pieces.append(ang[i, ..., start:start + sec])
+        start += sec
+    return torch.cat(pieces, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (Mamba2 / RG-LRU temporal conv)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d_init(gen: torch.Generator, channels: int, width: int) -> dict:
+    return {
+        "kernel": dense_init(gen, (width, channels), in_axis=0),
+        "bias": torch.zeros((channels,), dtype=torch.float32, device=gen.device),
+    }
+
+
+def causal_conv1d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv in x's dtype. x: (B, S, C) -> (B, S, C)."""
+    width = p["kernel"].shape[0]
+    dt, S = x.dtype, x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    ker = p["kernel"].to(dt)
+    out = torch.zeros_like(x)
+    for i in range(width):  # width is small (4): unrolled taps
+        out = out + pad[:, i:i + S, :] * ker[i]
+    return out + p["bias"].to(dt)
+
+
+def causal_conv1d_step(p: dict, conv_state: torch.Tensor, x_t: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step. conv_state: (B, width-1, C), shifted IN PLACE by one
+    token; x_t: (B, C).  Returns (conv_state, y_t (B, C))."""
+    dt = x_t.dtype
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B, width, C)
+    y = torch.einsum("bwc,wc->bc", window, p["kernel"].to(dt)) + p["bias"].to(dt)
+    conv_state.copy_(window[:, 1:, :])
+    return conv_state, y
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,30 @@
-"""Model facade of the dense and MoE paths: init / forward / loss / prefill / decode / features.
+"""Model facade of the decoder-only families: init / forward / loss / prefill / decode / features.
 
-The port of the reference's ``models/model.py`` for ``arch_type`` "dense"
-and "moe".  ``build_model(cfg)`` returns a :class:`Model` of plain functions
-over a parameter dict:
+The port of the reference's ``models/model.py`` for ``arch_type`` "dense",
+"moe", "ssm", "hybrid" and "vlm".  ``build_model(cfg)`` returns a
+:class:`Model` of plain functions over a parameter dict:
 
     {"embed": {"embedding": (padded_vocab, d)},
      "final_norm": {...},
      "layers": [per-layer dict, ...]}
 
-(an MoE layer holds ``"moe"`` where a dense one holds ``"mlp"``) with the
-reference's names and layouts (the reference's stacked
-``(n_layers, …)`` leaves are a list here; :mod:`repro_torch.models.convert`
-turns one into the other).
+(an MoE layer holds ``"moe"`` where a dense one holds ``"mlp"``; an SSM
+layer ``"ssm"``; a hybrid's layers are ``"rec"`` and ``"attn"`` blocks in
+the order of ``cfg.pattern_for``) with the reference's names and layouts
+(the reference's stacked ``(n_layers, …)`` leaves, and the hybrid's
+super-block and remainder trees, are a list here;
+:mod:`repro_torch.models.convert` turns one into the other).
 
-Batch dict contract: ``tokens`` (B, S) int — always present (decode: (B, 1)).
+Batch dict contract:
+  * ``tokens``        (B, S) int — always present (decode: (B, 1));
+  * ``labels``        (B, S) int — ``lm_loss`` (next-token targets);
+  * ``patch_embeds``  (B, n_patches, d) — VLM only, prepended to the text
+    outside decode (the stub vision frontend), with 3-D M-RoPE positions.
 
-Caches are a list of per-layer ring-cache dicts (``make_cache``); decode
-updates them in place.  The forward returns the MoE load-balance loss
-summed over the layers (0 for a dense model), which ``lm_loss`` adds at
-``router_aux_coef``.  SSM, hybrid, VLM and audio models raise
+Caches are a list of per-layer dicts (``make_cache``): KV rings, SSM
+states, RG-LRU states; decode updates them in place.  The forward returns
+the MoE load-balance loss summed over the layers (0 for any other model),
+which ``lm_loss`` adds at ``router_aux_coef``.  Audio models raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
@@ -32,18 +38,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.dist import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_apply, norm_apply, norm_init, rope_angles, unembed_apply
+from repro_torch.models.layers import (
+    embed_apply,
+    mrope_angles,
+    norm_apply,
+    norm_init,
+    rope_angles,
+    unembed_apply,
+)
 from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-FAMILIES = ("dense", "moe")  # the arch_types the port runs
-_FAMILIES_LATER = "SSM, hybrid, VLM and audio models are ROADMAP Queue 1 item 11"
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")  # the arch_types the port runs
+_FAMILIES_LATER = "audio models are ROADMAP Queue 1 item 11"
 
 
 class ForwardOut(NamedTuple):
     hidden: torch.Tensor  # (B, S, d) post-final-norm hidden states
     logits: Optional[torch.Tensor]
-    cache: Optional[List[dict]] = None  # per-layer ring caches (prefill / decode)
+    cache: Optional[List[dict]] = None  # per-layer caches (prefill / decode)
     aux_loss: Optional[torch.Tensor] = None  # MoE load-balance scalar, fp32 (0 for dense)
 
 
@@ -51,12 +64,17 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random parameters drawn on the generator's device."""
+def check_family(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not run yet."""
     if cfg.arch_type not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_type!r} models: the port has the dense and MoE paths only "
-            f"({_FAMILIES_LATER})")
+            f"{what} of a {cfg.arch_type!r} model: the port runs the {', '.join(FAMILIES)} "
+            f"families ({_FAMILIES_LATER})")
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random parameters drawn on the generator's device."""
+    check_family(cfg, "models")
     params: Dict[str, Any] = {
         "embed": {
             "embedding": 0.02 * torch.randn(
@@ -71,8 +89,38 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                 (cfg.d_model, cfg.padded_vocab), generator=gen, device=gen.device
             )
         }
-    params["layers"] = tfm.stacked_block_init(gen, cfg, "attn", cfg.n_layers)
+    if cfg.arch_type == "hybrid":
+        params["layers"] = tfm.hybrid_init(gen, cfg)
+    else:
+        kind = "ssm" if cfg.arch_type == "ssm" else "attn"
+        params["layers"] = tfm.stacked_block_init(gen, cfg, kind, cfg.n_layers)
     return params
+
+
+def vlm_positions_3d(cfg: ModelConfig, seq_idx: torch.Tensor) -> torch.Tensor:
+    """Map flat sequence indices to Qwen2-VL (t, h, w) M-RoPE positions, (3, S).
+
+    Image tokens occupy indices [0, n_patches) on a g×g grid with t = 0;
+    a text token at index i ≥ n_patches gets ``g + (i − n_patches)`` in all
+    three streams (text positions continue after the spatial extent).
+    """
+    g = int(round(cfg.n_patches ** 0.5))
+    is_img = seq_idx < cfg.n_patches
+    text = g + (seq_idx - cfg.n_patches)
+    t = torch.where(is_img, 0, text)
+    h = torch.where(is_img, seq_idx // g, text)
+    w = torch.where(is_img, seq_idx % g, text)
+    return torch.stack([t, h, w], dim=0)
+
+
+def _angles_for(cfg: ModelConfig, seq_idx: torch.Tensor) -> Optional[torch.Tensor]:
+    """Rotary angles for a run of sequence indices (S,): None for an SSM."""
+    if cfg.arch_type == "ssm":
+        return None
+    if cfg.arch_type == "vlm":
+        return mrope_angles(vlm_positions_3d(cfg, seq_idx), cfg.hd, cfg.rope_theta,
+                            cfg.mrope_sections)
+    return rope_angles(seq_idx, cfg.hd, cfg.rope_theta)
 
 
 def forward(
@@ -90,14 +138,21 @@ def forward(
     """The forward in ``mode`` "train" (also the feature pass),
     "prefill" (returns the filled caches) or "decode" (one token at absolute
     position ``decode_pos``; ``cache`` is updated in place and returned).
-    ``drops`` sums the entries the MoE layers' capacity dropped."""
-    if cfg.arch_type not in FAMILIES:
-        raise NotImplementedError(
-            f"forward of a {cfg.arch_type!r} model: the port has the dense and MoE paths only "
-            f"({_FAMILIES_LATER})")
+    A VLM's ``batch["patch_embeds"]`` precede its text outside decode, and
+    its decode positions count them.  ``drops`` sums the entries the MoE
+    layers' capacity dropped."""
+    check_family(cfg, "forward")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = embed_apply(params["embed"], batch["tokens"], compute_dtype(cfg))
+    dtype = compute_dtype(cfg)
+    x = embed_apply(params["embed"], batch["tokens"], dtype)
+    if cfg.arch_type == "hybrid":
+        # gemma-style scaling by √d rounded to the compute dtype first (the
+        # reference's jnp.asarray(d ** 0.5, dtype)); a Python scalar, so no
+        # host-to-device copy
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device="cpu").item()
+    if cfg.arch_type == "vlm" and mode != "decode":
+        x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
     S = x.shape[1]
     if mode == "decode":
         if decode_pos is None:
@@ -106,16 +161,24 @@ def forward(
         seq_idx = torch.full((1,), decode_pos, device=x.device)
     else:
         seq_idx = torch.arange(S, device=x.device)
-    angles = rope_angles(seq_idx, cfg.hd, cfg.rope_theta)
+    angles = _angles_for(cfg, seq_idx)
 
     window = cfg.sliding_window
     capacity = cache_capacity
     if capacity is not None and window is not None:
         capacity = min(capacity, window)
-    h, new_cache, aux = tfm.apply_stack(
-        cfg, "attn", params["layers"], x, angles=angles, window=window, mode=mode,
-        cache=cache, decode_pos=decode_pos, cache_capacity=capacity, drops=drops,
-    )
+    if cfg.arch_type == "hybrid":
+        h, new_cache, aux = tfm.apply_hybrid(
+            cfg, params["layers"], x, angles=angles, mode=mode, cache=cache,
+            decode_pos=decode_pos,
+            cache_capacity=min(capacity, cfg.local_window) if capacity else None,
+        )
+    else:
+        kind = "ssm" if cfg.arch_type == "ssm" else "attn"
+        h, new_cache, aux = tfm.apply_stack(
+            cfg, kind, params["layers"], x, angles=angles, window=window, mode=mode,
+            cache=cache, decode_pos=decode_pos, cache_capacity=capacity, drops=drops,
+        )
     h = norm_apply(cfg, params["final_norm"], h)
     logits = unembed_apply(cfg, params, h) if return_logits else None
     return ForwardOut(h, logits, new_cache, aux)
@@ -123,13 +186,17 @@ def forward(
 
 def make_cache(cfg: ModelConfig, batch: int, capacity: int,
                device: Union[str, torch.device] = "cuda") -> List[dict]:
-    """Empty per-layer ring caches (capacity clamped to the sliding window)."""
-    if cfg.arch_type not in FAMILIES:
-        raise NotImplementedError(f"caches of a {cfg.arch_type!r} model ({_FAMILIES_LATER})")
+    """Empty per-layer caches: KV rings of ``capacity`` slots (clamped to the
+    sliding window; a hybrid's to its local window), SSM or RG-LRU states."""
+    check_family(cfg, "caches")
+    dtype, dev = compute_dtype(cfg), resolve_device(device)
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)
-    return tfm.stacked_attn_cache(cfg, cfg.n_layers, batch, capacity, compute_dtype(cfg),
-                                  resolve_device(device))
+    if cfg.arch_type == "ssm":
+        return tfm.stacked_ssm_cache(cfg, cfg.n_layers, batch, dtype, dev)
+    if cfg.arch_type == "hybrid":
+        return tfm.hybrid_cache(cfg, batch, min(capacity, cfg.local_window), dtype, dev)
+    return tfm.stacked_attn_cache(cfg, cfg.n_layers, batch, capacity, dtype, dev)
 
 
 def prefill(
@@ -161,9 +228,12 @@ def decode_step(
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token cross-entropy, fp32 log-softmax (``batch["labels"]``
-    (B, S) int), plus ``router_aux_coef`` times the MoE load-balance loss."""
+    (B, S) int, over a VLM's text positions), plus ``router_aux_coef`` times
+    the MoE load-balance loss."""
     out = forward(cfg, params, batch, mode="train")
     logits = out.logits.to(torch.float32)
+    if cfg.arch_type == "vlm":  # logits cover [patches | text]; labels cover text
+        logits = logits[:, cfg.n_patches:, :]
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
     return (lse - picked).mean() + cfg.router_aux_coef * out.aux_loss
@@ -172,9 +242,12 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor]) -> t
 def extract_features(
     cfg: ModelConfig, params: dict, batch: Dict[str, torch.Tensor]
 ) -> torch.Tensor:
-    """φ(x): pooled final hidden state, (B, d_feat) fp32 — the FED3R feature map."""
+    """φ(x): pooled final hidden state, (B, d_feat) fp32 — the FED3R feature
+    map (a VLM pools its text positions only)."""
     h = forward(cfg, params, batch, mode="train", return_logits=False).hidden
     h = h.to(torch.float32)
+    if cfg.arch_type == "vlm":
+        h = h[:, cfg.n_patches:, :]
     if cfg.feature_pooling == "last":
         return h[:, -1, :]
     return h.mean(dim=1)

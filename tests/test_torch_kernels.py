@@ -874,6 +874,35 @@ def test_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "recurrentgemma-9b-smoke",
+                                  "qwen2-vl-2b-smoke"])
+def test_family_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_device, arch):
+    """The SSM, hybrid and VLM smoke configs in fp32 (the hybrid's prompt
+    longer than its local window): the card's prefill and decode give the
+    CPU's plain path's greedy tokens, the prefill launching flash_attention
+    once an attention layer (none for the SSM), decode none."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).replace(dtype="float32")
+    params = build_model(cfg).init(seed=0, device="cpu")
+    r = np.random.default_rng(6)
+    prompts = torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 64)))
+    patches = (torch.from_numpy((0.1 * r.standard_normal((2, cfg.n_patches, cfg.d_model))
+                                 ).astype(np.float32)) if cfg.arch_type == "vlm" else None)
+    kw = dict(gen=6, verbose=False, dtype="float32", prompts=prompts, patch_embeds=patches)
+    cpu = serve(arch, device="cpu", params=params, **kw)
+    card = serve(arch, device=cuda_device, params=tree_map(lambda t: t.to(cuda_device), params),
+                 **kw)
+    attn_layers = sum(k == "attn" for k in cfg.pattern_for(cfg.n_layers))  # an SSM's: 0
+    assert card.prefill_launches == attn_layers and card.decode_launches == 0
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("algo", ["fedavg", "scaffold", "fedyogi"])
 def test_round_step_makes_no_host_sync_on_card(cuda_device, algo):
     """The cohort round engine's step, its cohort already on the card, syncs

@@ -41,7 +41,7 @@ from repro_torch.models.layers import mlp_apply  # noqa: E402
 
 MOE_ARCHS = ["deepseek-moe-16b-smoke", "llama4-scout-17b-a16e-smoke"]
 COPIED = ["deepseek-moe-16b", "llama4-scout-17b-a16e", "command-r-plus-104b",
-          "deepseek-coder-33b", "minitron-8b"]
+          "deepseek-coder-33b", "minitron-8b", "mamba2-1.3b", "recurrentgemma-9b", "qwen2-vl-2b"]
 REL = {"float32": 2e-4, "bfloat16": 2.0 ** -6}
 B, S, T = 2, 16, 4
 
@@ -96,7 +96,7 @@ def _model_setup(arch, dtype="float32", **kw):
 def test_copied_config_equals_reference(arch, smoke):
     name = arch + "-smoke" if smoke else arch
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jget_config(name))
-    assert arch.replace("-", "_") in ARCH_MODULES
+    assert arch.replace("-", "_").replace(".", "_") in ARCH_MODULES
 
 
 # ---------------------------------------------------------------------------

@@ -232,12 +232,12 @@ def test_make_cache_and_the_families_still_to_port():
     assert cache[0]["k"].dtype == torch.bfloat16 and bool((cache[0]["pos"] == -1).all())
     q = build_model(get_config(ARCH).replace(kv_cache_quant=True)).make_cache(1, 4, device="cpu")
     assert q[0]["k"].dtype == torch.int8 and q[0]["k_scale"].shape == (1, 4, cfg.n_kv_heads, 1)
-    ssm = get_config(ARCH).replace(arch_type="ssm")
+    audio = get_config(ARCH).replace(arch_type="audio")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model_lib.forward(ssm, {}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
+        model_lib.forward(audio, {}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
                           mode="prefill")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model_lib.make_cache(ssm, 1, 4, device="cpu")
+        model_lib.make_cache(audio, 1, 4, device="cpu")
 
 
 def test_serve_defaults_to_the_card():

@@ -248,5 +248,6 @@ def test_port_imports_without_jax_or_the_reference_package():
                  "sharding", "sharding.specs", "models.moe", "models.transformer",
                  "configs.deepseek_moe_16b", "configs.llama4_scout_17b_a16e",
                  "configs.command_r_plus_104b", "configs.deepseek_coder_33b",
-                 "configs.minitron_8b"):
+                 "configs.minitron_8b", "models.ssm", "models.rglru", "configs.mamba2_1_3b",
+                 "configs.recurrentgemma_9b", "configs.qwen2_vl_2b"):
         assert "repro_torch." + name in names
