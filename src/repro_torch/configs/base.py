@@ -3,8 +3,9 @@
 Every architecture is described by a single frozen ``ModelConfig``
 dataclass.  Configs are plain data — importing a config module imports no
 framework and touches no device.  The fields are the reference package's,
-unchanged, so one config means the same model in both packages; the port's
-model code reads every family's fields but the audio ones (``models/``).
+unchanged, so one config means the same model in both packages.  So are the
+input shapes (``ShapeConfig`` and the four assigned ones), which
+``launch/shapes.py`` turns into (shape, dtype) specs.
 """
 from __future__ import annotations
 
@@ -172,6 +173,27 @@ class ModelConfig:
             assert self.is_encoder_decoder and self.n_audio_frames > 0
         if self.arch_type == "vlm":
             assert self.mrope_sections and self.n_patches > 0
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,8 @@ prefill attention:
   ``flash_attention.launches`` counts kernel launches.
 
 ``models/attention.py`` calls it for the attention of a prefill (every
-layer, once); decode and the train / feature forward keep the plain
-attention.
+layer, once; an encoder layer's with causal off); decode and the train /
+feature forward keep the plain attention.
 """
 from __future__ import annotations
 

@@ -8,10 +8,11 @@
   one prefill and 16 decode steps, each profiled on its own;
 * ``--cell serve-moe``: the same for the MoE serving cell (DeepSeekMoE 16B
   at full width and depth, batch 8 × 2048-token prompts);
-* ``--cell serve-ssm``, ``serve-hybrid``, ``serve-vlm``: the same for the
-  SSM, hybrid and VLM serving cells at full width and depth (Mamba2 1.3B at
-  8 × 2048, RecurrentGemma 9B at 2 × 4096, Qwen2-VL 2B at 8 × (256 patches
-  + 2048));
+* ``--cell serve-ssm``, ``serve-hybrid``, ``serve-vlm``, ``serve-audio``:
+  the same for the SSM, hybrid, VLM and audio serving cells at full width
+  and depth (Mamba2 1.3B at 8 × 2048, RecurrentGemma 9B at 2 × 4096,
+  Qwen2-VL 2B at 8 × (256 patches + 2048), Whisper large-v3 at 16 × (1500
+  frames + 224 tokens));
 * ``--cell rf``: ``chip_smoke.py``'s ``[rf]`` cell (``run_fed3r`` FED3R-RF
   at D = 5000 on the simulator's 50,000 features, 100 clients, 10 a
   round; both build it with :mod:`repro_torch.configs.simulator`), run
@@ -29,7 +30,7 @@ reads idler here than it runs.  A measurement tool, not a check:
 ``chip_smoke.py`` holds the checks.
 
 Usage (on the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|serve-moe|rf|ft|...]
+  PYTHONPATH=src python -m repro_torch.launch.profile_slice [--cell serve|serve-audio|rf|ft|...]
 """
 from __future__ import annotations
 
@@ -50,10 +51,11 @@ SERVE_ARCH = "qwen2-7b"
 MOE_ARCH = "deepseek-moe-16b"
 SERVE = dict(batch=8, prompt_len=2048, gen=64)
 DECODE_STEPS = 16
-# chip_smoke.py's serve-ssm, serve-hybrid and serve-vlm cells
+# chip_smoke.py's serve-ssm, serve-hybrid, serve-vlm and serve-audio cells
 FAMILY_CELLS = {"serve-ssm": ("mamba2-1.3b", SERVE),
                 "serve-hybrid": ("recurrentgemma-9b", dict(batch=2, prompt_len=4096, gen=64)),
-                "serve-vlm": ("qwen2-vl-2b", SERVE)}
+                "serve-vlm": ("qwen2-vl-2b", SERVE),
+                "serve-audio": ("whisper-large-v3", dict(batch=16, prompt_len=224, gen=64))}
 
 RF_WALLS = 3
 
@@ -161,6 +163,9 @@ def profile_serve(arch: str, *, batch: int, prompt_len: int, gen: int, device="c
         off = cfg.n_patches
         fed["patch_embeds"] = 0.1 * torch.randn((batch, off, cfg.d_model), generator=gen_,
                                                 device=dev)
+    if cfg.arch_type == "audio":  # serve's encoder frames
+        fed["audio_frames"] = 0.1 * torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
+                                                generator=gen_, device=dev)
     state = {}
 
     def prefill():

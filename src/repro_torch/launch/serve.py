@@ -1,15 +1,18 @@
-"""Serving entry point of the decoder-only families: batched prefill + autoregressive decode.
+"""Serving entry point of every family: batched prefill + autoregressive decode.
 
 The port of the reference's ``launch/serve.py``: random parameters from a
 seed, random prompt tokens (a VLM's also 0.1·N(0, 1) patch embeddings of
-(batch, n_patches, d) before them), ONE prefill that builds the caches
-(KV rings of capacity ``off + prompt_len + gen``, where ``off`` is a VLM's
-n_patches and 0 otherwise, clamped to a hybrid's local window; SSM and
-RG-LRU states), its attention through the CUDA ``flash_attention`` kernel
-on the card, once an attention layer (an SSM launches none), then
-``gen − 1`` decode steps at positions ``off + prompt_len + i``, greedy or
-sampled.  Prints the prefill time, the decode time and tokens a second; for
-an MoE model also the share of (token, choice) entries the prefill's expert
+(batch, n_patches, d) before them; an audio model's 0.1·N(0, 1) encoder
+frames of (batch, n_audio_frames, d) beside them), ONE prefill that builds
+the caches (KV rings of capacity ``off + prompt_len + gen``, where ``off``
+is a VLM's n_patches and 0 otherwise, clamped to a hybrid's local window;
+SSM and RG-LRU states; a decoder layer's cross-attention (k, v) of the
+frames), its attention through the CUDA ``flash_attention`` kernel on the
+card, once an attention layer (an SSM launches none; Whisper once an
+encoder layer, causal off, and once a decoder layer), then ``gen − 1``
+decode steps at positions ``off + prompt_len + i``, greedy or sampled.
+Prints the prefill time, the decode time and tokens a second; for an MoE
+model also the share of (token, choice) entries the prefill's expert
 capacity dropped, counted on the card and read once, after the timed steps.
 
 Parameters stay fp32 and every product casts its weight to the activation
@@ -22,6 +25,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
       --batch 8 --prompt-len 2048 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b-smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+      --batch 16 --prompt-len 224 --gen 64
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ class ServeResult:
     prefill_s: float  # host clock around the prefill, synchronised on the card
     decode_s: float  # the same around the gen − 1 decode steps
     tokens_per_s: float  # (gen − 1)·batch / decode_s
-    prefill_launches: int  # flash_attention kernel launches in the prefill (0 for an SSM)
+    prefill_launches: int  # flash_attention launches in the prefill (0 for an SSM; Whisper's
+    #                        encoder and decoder layers both)
     decode_launches: int  # ... and in the decode steps
     peak_bytes: Optional[int]  # torch.cuda.max_memory_allocated over the run (None on the CPU)
     prefill_drop_share: Optional[float] = None  # MoE: (token, choice) entries dropped / routed
@@ -67,12 +73,14 @@ def serve(
     params: Optional[dict] = None,
     prompts: Optional[torch.Tensor] = None,
     patch_embeds: Optional[torch.Tensor] = None,
+    audio_frames: Optional[torch.Tensor] = None,
 ) -> ServeResult:
     """Prefill ``prompts`` (random (batch, prompt_len) tokens unless given;
-    a VLM's ``patch_embeds`` (batch, n_patches, d) likewise) and decode
+    a VLM's ``patch_embeds`` (batch, n_patches, d) and an audio model's
+    ``audio_frames`` (batch, n_audio_frames, d) likewise) and decode
     ``gen`` tokens a sequence.  ``params`` (the port's layout, on
     ``device``) default to ``Model.init(seed)``; ``dtype`` overrides the
-    config's activation dtype; the random prompts, patches and samples
+    config's activation dtype; the random prompts, patches, frames and samples
     (``greedy=False``) draw from a ``torch.Generator`` seeded ``seed + 1``."""
     cfg = get_config(arch)
     if dtype is not None:
@@ -95,6 +103,10 @@ def serve(
         fed["patch_embeds"] = (
             0.1 * torch.randn((batch, off, cfg.d_model), generator=rng, device=dev)
             if patch_embeds is None else torch.as_tensor(patch_embeds, device=dev))
+    if cfg.arch_type == "audio":
+        fed["audio_frames"] = (
+            0.1 * torch.randn((batch, cfg.n_audio_frames, cfg.d_model), generator=rng, device=dev)
+            if audio_frames is None else torch.as_tensor(audio_frames, device=dev))
     prefill = steps.make_prefill_step(cfg, cache_capacity=off + prompt_len + gen)
     decode = steps.make_decode_step(cfg)
     on_card = dev.type == "cuda"

@@ -12,8 +12,9 @@ The port of the reference's ``launch/steps.py``:
 * ``fed3r_stats_step`` — the paper's statistics pass on the engine's core:
   backbone features → one ``fed3r_stats`` launch → (A, b) accumulation.
 * ``prefill_step`` — forward + cache construction (KV rings, SSM and
-  RG-LRU states; the attention through ``ops.flash_attention``, once an
-  attention layer);
+  RG-LRU states, a decoder's cross-attention (k, v); the attention through
+  ``ops.flash_attention``, once an attention layer: an encoder layer's with
+  causal off);
 * ``decode_step`` — one token against the caches, updated in place.
 
 PyTorch runs eagerly, so a step is a plain closure over the config (the

@@ -17,9 +17,17 @@ Modes of :func:`attn_apply`:
 * train / feature: the plain attention above (the FED3R feature pass);
 * prefill: the attention over positions 0..S−1 goes through
   ``ops.flash_attention`` (the CUDA kernel on the card, once a layer), and
-  the keys and values fill a KV ring cache;
+  the keys and values fill a KV ring cache; an encoder's bidirectional
+  prefill goes through the kernel with causal off and keeps no cache
+  (the reference runs its encoder through the plain attention even in a
+  prefill);
 * decode: one query against the ring buffer (``k_pos`` −1 on empty slots)
   through the plain attention, as in the reference.
+
+:func:`cross_attn_apply` is Whisper's decoder-over-encoder attention: the
+plain bidirectional attention of Sq decoder tokens over the encoder's
+frames (the kernel takes Sq = Sk only), its k and v projected from the
+encoder states once, in the prefill, and read from the cache in decode.
 
 The KV cache is a ring buffer of capacity ``Scap`` (the window for
 sliding-window configs): slot j holds the latest position p with
@@ -75,7 +83,10 @@ def _scores_softmax_values(q, k, v, q_pos, k_pos, window, bidirectional):
     returns (B, Sq, KV, G, hd)
     """
     hd = q.shape[-1]
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * hd ** -0.5  # (B,KV,G,Sq,Sk)
+    # the scale rounded to q's dtype first, as JAX multiplies by a weakly
+    # typed Python scalar (a Python scalar: no host-to-device copy)
+    scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale  # (B,KV,G,Sq,Sk)
     scores = scores.to(torch.float32)
     valid = k_pos[None, :] >= 0  # (1, Sk)
     if not bidirectional:
@@ -222,6 +233,23 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
+def _project_q(p: dict, x: torch.Tensor) -> torch.Tensor:
+    q = _project(x, p["wq"])
+    return q + p["bq"].to(x.dtype) if "bq" in p else q
+
+
+def _project_kv(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    k, v = _project(x, p["wk"]), _project(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"].to(x.dtype), v + p["bv"].to(x.dtype)
+    return k, v
+
+
+def _out_project(p: dict, y: torch.Tensor) -> torch.Tensor:
+    H, hd, d = p["wo"].shape
+    return y.reshape(*y.shape[:2], H * hd) @ p["wo"].to(y.dtype).reshape(H * hd, d)
+
+
 def attn_apply(
     cfg: ModelConfig,
     p: dict,
@@ -241,18 +269,14 @@ def attn_apply(
       * train/feature: ``cache=None, build_cache=False`` -> (y, None), plain
         attention;
       * prefill: ``build_cache=True`` -> (y, filled cache), the attention
-        through ``ops.flash_attention``;
+        through ``ops.flash_attention``; with ``bidirectional`` (an
+        encoder's prefill) -> (y, None), the kernel with causal off;
       * decode: ``cache`` set, x is (B, 1, d), ``decode_pos`` the token's
         absolute position -> (y, the cache updated in place).
     """
     B, S, _ = x.shape
-    q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+    q = _project_q(p, x)
+    k, v = _project_kv(p, x)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
@@ -268,14 +292,38 @@ def attn_apply(
             q_pos, cache["pos"], window=window, bidirectional=False,
         )
     elif build_cache:  # prefill
-        if bidirectional:
-            raise ValueError("prefill is causal")
-        y = ops.flash_attention(q, k, v, causal=True, window=window)
-        cap = cache_capacity or (window if window else S)
-        cache = fill_cache_from_prefill(init_cache(cfg, B, cap, k.dtype, x.device), k, v, S)
+        y = ops.flash_attention(q, k, v, causal=not bidirectional, window=window)
+        if not bidirectional:  # an encoder's keys serve this pass only
+            cap = cache_capacity or (window if window else S)
+            cache = fill_cache_from_prefill(init_cache(cfg, B, cap, k.dtype, x.device), k, v, S)
     else:
         pos = torch.arange(S, device=x.device)
         y = multihead_attention(q, k, v, pos, pos, window=window, bidirectional=bidirectional)
+    return _out_project(p, y), cache
 
-    H, hd, d = p["wo"].shape
-    return y.reshape(*y.shape[:2], H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d), cache
+
+def cross_attn_apply(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,
+    *,
+    enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    enc_states: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Encoder-decoder cross-attention (Whisper): x (B, Sq, d) over the
+    encoder's frames, bidirectional, through the plain attention.
+
+    Either ``enc_states`` (B, F, d) (the first pass: k and v projected with
+    their biases, and returned for the cache) or ``enc_kv``, the cached
+    (k, v) (B, F, KV, hd), read as they are.  Returns (y, (k, v)).
+    """
+    if enc_kv is None:
+        if enc_states is None:
+            raise ValueError("cross-attention needs enc_states or the cached enc_kv")
+        enc_kv = _project_kv(p, enc_states)
+    k, v = enc_kv
+    q = _project_q(p, x)
+    q_pos = torch.arange(x.shape[1], device=x.device)
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    y = multihead_attention(q, k.to(x.dtype), v.to(x.dtype), q_pos, k_pos, bidirectional=True)
+    return _out_project(p, y), enc_kv

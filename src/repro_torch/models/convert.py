@@ -8,9 +8,12 @@ included; an MoE layer's ``router``, ``(E, …)`` expert stacks and fused
 ``shared`` MLP; an SSM layer's ``A_log``, ``dt_bias``, ``D`` and
 ``norm_scale``), with the stacked ``(n_layers, …)`` layer leaves sliced into
 a list of per-layer dicts; a hybrid's ``{"super": {"b{i}_{kind}": stacked},
-"rem": {"rem{i}_{kind}": layer}}`` becomes one list in layer order.
-:func:`cache_from_jax` does the same for the caches (KV rings, SSM and
-RG-LRU states), keeping each leaf's dtype (bf16, fp32, int8, int32).
+"rem": {"rem{i}_{kind}": layer}}`` becomes one list in layer order, and an
+audio model's ``enc_layers`` and ``dec_layers`` two lists (``enc_norm`` and
+``dec_pos`` carried as they are).  :func:`cache_from_jax` does the same for
+the caches (KV rings, SSM and RG-LRU states, and a decoder's ``{"self":
+stacked ring, "cross": (k, v) stacked}``, one ``{"self", "cross"}`` a
+layer), keeping each leaf's dtype (bf16, fp32, int8, int32).
 :func:`tree_from_jax` carries a whole reference tree across — the FT
 params ``{"backbone", "head"}``, the simulator's ``(M, W, bias)``, a
 ``ServerState`` — with a backbone's stacked layers sliced as
@@ -29,20 +32,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.algorithms import ServerState
 from repro_torch.federated.dist import resolve_device
 from repro_torch.models.model import check_family
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
+
+
+_STACKS = ("layers", "enc_layers", "dec_layers")  # stacked (n, …) layer trees
 
 
 def _to_torch(tree: Any, dev: torch.device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_torch(v, dev) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree, dtype=np.float32), device=dev)
+    return tree_map(lambda a: torch.as_tensor(np.array(a, dtype=np.float32), device=dev), tree)
 
 
 def _take(tree: Any, i: int, axis: int = 0) -> Any:
     """Layer ``i`` of a stacked layer tree, the layer axis being ``axis``."""
-    if isinstance(tree, dict):
-        return {k: _take(v, i, axis) for k, v in tree.items()}
-    return np.take(np.asarray(tree), i, axis=axis)
+    return tree_map(lambda a: np.take(np.asarray(a), i, axis=axis), tree)
 
 
 def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
@@ -58,7 +60,7 @@ def _layers(cfg: ModelConfig, stacked: dict) -> List[Any]:
     layer order: a hybrid's super-block ``b{j}_{kind}`` stacks hold layers
     j, j + len(pattern), …, its ``rem{r}_{kind}`` trees the last layers."""
     if cfg.arch_type != "hybrid":
-        return [_take(stacked, i) for i in range(cfg.n_layers)]
+        return _unstack(stacked, 0)
     pat = cfg.block_pattern
     nb = cfg.n_superblocks
     out = []
@@ -75,9 +77,8 @@ def params_from_jax(
     """The reference's ``init_params`` pytree (numpy leaves) → port params."""
     check_family(cfg, "parameters")
     dev = resolve_device(device)
-    out = {k: _to_torch(v, dev) for k, v in params_np.items() if k != "layers"}
-    out["layers"] = [_to_torch(layer, dev) for layer in _layers(cfg, params_np["layers"])]
-    return out
+    return {k: [_to_torch(layer, dev) for layer in _layers(cfg, v)] if k in _STACKS
+            else _to_torch(v, dev) for k, v in params_np.items()}
 
 
 def cache_from_jax(
@@ -88,7 +89,7 @@ def cache_from_jax(
     cache dicts, dtypes kept."""
     check_family(cfg, "caches")
     dev = resolve_device(device)
-    return [{k: _leaf(v, dev) for k, v in layer.items()} for layer in _layers(cfg, cache_np)]
+    return [tree_map(lambda a: _leaf(a, dev), layer) for layer in _layers(cfg, cache_np)]
 
 
 def _unstack(tree: Any, axis: int) -> List[Any]:

@@ -1,4 +1,5 @@
-"""Common layers: norms, MLPs, embeddings, rotary (and M-RoPE), causal conv.
+"""Common layers: norms, MLPs, embeddings, rotary (and M-RoPE), sinusoidal
+positions, causal conv.
 
 The port of the reference's ``models/layers.py``, with its conventions:
 
@@ -148,6 +149,16 @@ def mrope_angles(positions_3d: torch.Tensor, head_dim: int, theta: float,
         pieces.append(ang[i, ..., start:start + sec])
         start += sec
     return torch.cat(pieces, dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (n_pos, d), fp32: the first half
+    sines, the second cosines, of position · exp(−log(10⁴)/(d/2 − 1) · i)."""
+    half = d // 2
+    log_timescale = math.log(10_000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32, device=device))
+    scaled = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Model facade of the decoder-only families: init / forward / loss / prefill / decode / features.
+"""Model facade: init / forward / loss / prefill / decode / features.
 
-The port of the reference's ``models/model.py`` for ``arch_type`` "dense",
-"moe", "ssm", "hybrid" and "vlm".  ``build_model(cfg)`` returns a
-:class:`Model` of plain functions over a parameter dict:
+The port of the reference's ``models/model.py`` for every ``arch_type``:
+"dense", "moe", "ssm", "hybrid", "vlm" and "audio".  ``build_model(cfg)``
+returns a :class:`Model` of plain functions over a parameter dict:
 
     {"embed": {"embedding": (padded_vocab, d)},
      "final_norm": {...},
@@ -10,22 +10,27 @@ The port of the reference's ``models/model.py`` for ``arch_type`` "dense",
 
 (an MoE layer holds ``"moe"`` where a dense one holds ``"mlp"``; an SSM
 layer ``"ssm"``; a hybrid's layers are ``"rec"`` and ``"attn"`` blocks in
-the order of ``cfg.pattern_for``) with the reference's names and layouts
-(the reference's stacked ``(n_layers, …)`` leaves, and the hybrid's
-super-block and remainder trees, are a list here;
-:mod:`repro_torch.models.convert` turns one into the other).
+the order of ``cfg.pattern_for``; an audio model has ``"enc_layers"``,
+``"enc_norm"``, ``"dec_layers"`` and the learned ``"dec_pos"`` table in
+place of ``"layers"``) with the reference's names and layouts (the
+reference's stacked ``(n_layers, …)`` leaves, and the hybrid's super-block
+and remainder trees, are a list here; :mod:`repro_torch.models.convert`
+turns one into the other).
 
 Batch dict contract:
   * ``tokens``        (B, S) int — always present (decode: (B, 1));
   * ``labels``        (B, S) int — ``lm_loss`` (next-token targets);
   * ``patch_embeds``  (B, n_patches, d) — VLM only, prepended to the text
-    outside decode (the stub vision frontend), with 3-D M-RoPE positions.
+    outside decode (the stub vision frontend), with 3-D M-RoPE positions;
+  * ``audio_frames``  (B, n_audio_frames, d) — audio only, outside decode
+    (the stub conv frontend's output): the encoder's input, plus the
+    sinusoidal positions.
 
 Caches are a list of per-layer dicts (``make_cache``): KV rings, SSM
-states, RG-LRU states; decode updates them in place.  The forward returns
-the MoE load-balance loss summed over the layers (0 for any other model),
-which ``lm_loss`` adds at ``router_aux_coef``.  Audio models raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+states, RG-LRU states, or a decoder layer's ``{"self": ring, "cross":
+(k, v)}``; decode updates them in place.  The forward returns the MoE
+load-balance loss summed over the layers (0 for any other model), which
+``lm_loss`` adds at ``router_aux_coef``.
 """
 from __future__ import annotations
 
@@ -44,13 +49,13 @@ from repro_torch.models.layers import (
     norm_apply,
     norm_init,
     rope_angles,
+    sinusoidal_positions,
     unembed_apply,
 )
 from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")  # the arch_types the port runs
-_FAMILIES_LATER = "audio models are ROADMAP Queue 1 item 11"
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")  # the arch_types the port runs
 
 
 class ForwardOut(NamedTuple):
@@ -65,11 +70,10 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig, what: str) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet."""
+    """Raise ``ValueError`` for an ``arch_type`` that is none of ``FAMILIES``."""
     if cfg.arch_type not in FAMILIES:
-        raise NotImplementedError(
-            f"{what} of a {cfg.arch_type!r} model: the port runs the {', '.join(FAMILIES)} "
-            f"families ({_FAMILIES_LATER})")
+        raise ValueError(f"{what} of a {cfg.arch_type!r} model: the arch_types are "
+                         f"{', '.join(FAMILIES)}")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -91,6 +95,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         }
     if cfg.arch_type == "hybrid":
         params["layers"] = tfm.hybrid_init(gen, cfg)
+    elif cfg.arch_type == "audio":
+        params["enc_layers"] = tfm.stacked_block_init(gen, cfg, "enc", cfg.n_encoder_layers)
+        params["enc_norm"] = norm_init(cfg, device=gen.device)
+        params["dec_layers"] = tfm.stacked_block_init(gen, cfg, "dec", cfg.n_layers)
+        params["dec_pos"] = {
+            "embedding": 0.02 * torch.randn(
+                (cfg.n_positions, cfg.d_model), generator=gen, device=gen.device
+            )
+        }
     else:
         kind = "ssm" if cfg.arch_type == "ssm" else "attn"
         params["layers"] = tfm.stacked_block_init(gen, cfg, kind, cfg.n_layers)
@@ -114,8 +127,9 @@ def vlm_positions_3d(cfg: ModelConfig, seq_idx: torch.Tensor) -> torch.Tensor:
 
 
 def _angles_for(cfg: ModelConfig, seq_idx: torch.Tensor) -> Optional[torch.Tensor]:
-    """Rotary angles for a run of sequence indices (S,): None for an SSM."""
-    if cfg.arch_type == "ssm":
+    """Rotary angles for a run of sequence indices (S,): None for an SSM and
+    an audio model (sinusoidal and learned positions instead)."""
+    if cfg.arch_type in ("ssm", "audio"):
         return None
     if cfg.arch_type == "vlm":
         return mrope_angles(vlm_positions_3d(cfg, seq_idx), cfg.hd, cfg.rope_theta,
@@ -139,11 +153,17 @@ def forward(
     "prefill" (returns the filled caches) or "decode" (one token at absolute
     position ``decode_pos``; ``cache`` is updated in place and returned).
     A VLM's ``batch["patch_embeds"]`` precede its text outside decode, and
-    its decode positions count them.  ``drops`` sums the entries the MoE
-    layers' capacity dropped."""
+    its decode positions count them; an audio model's encoder reads
+    ``batch["audio_frames"]`` outside decode.  ``drops`` sums the entries
+    the MoE layers' capacity dropped."""
     check_family(cfg, "forward")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "decode" and decode_pos is None:
+        raise ValueError("decode needs decode_pos")
+    if cfg.arch_type == "audio":
+        return _forward_encdec(cfg, params, batch, mode=mode, cache=cache, decode_pos=decode_pos,
+                               cache_capacity=cache_capacity, return_logits=return_logits)
     dtype = compute_dtype(cfg)
     x = embed_apply(params["embed"], batch["tokens"], dtype)
     if cfg.arch_type == "hybrid":
@@ -155,8 +175,6 @@ def forward(
         x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
     S = x.shape[1]
     if mode == "decode":
-        if decode_pos is None:
-            raise ValueError("decode needs decode_pos")
         decode_pos = int(decode_pos)
         seq_idx = torch.full((1,), decode_pos, device=x.device)
     else:
@@ -184,14 +202,66 @@ def forward(
     return ForwardOut(h, logits, new_cache, aux)
 
 
+def dec_positions(params: dict, start: int, n: int) -> torch.Tensor:
+    """Rows start .. start + n − 1 of the learned decoder position table, a
+    slice at a Python int (indexing with a 0-d tensor would sync the host)."""
+    return params["dec_pos"]["embedding"][start:start + n]
+
+
+def _forward_encdec(
+    cfg: ModelConfig,
+    params: dict,
+    batch: Dict[str, torch.Tensor],
+    *,
+    mode: str,
+    cache: Optional[List[dict]],
+    decode_pos: Optional[int],
+    cache_capacity: Optional[int],
+    return_logits: bool,
+) -> ForwardOut:
+    """The encoder-decoder forward (Whisper).  Outside decode the encoder
+    runs over the frames plus their sinusoidal positions (both rounded to
+    the compute dtype, then added), in ``mode`` (a prefill's attention
+    through the kernel, causal off); the decoder adds its learned position
+    rows (cast before the add) to the token embeddings and attends to the
+    encoder's normed states, or in decode to its cached cross (k, v)."""
+    dtype = compute_dtype(cfg)
+    enc_states = None
+    if mode != "decode":
+        frames = batch["audio_frames"].to(dtype)
+        pos = sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device)
+        enc_x, _, _ = tfm.apply_stack(cfg, "enc", params["enc_layers"], frames + pos.to(dtype),
+                                      mode=mode)
+        enc_states = norm_apply(cfg, params["enc_norm"], enc_x)
+    tokens = batch["tokens"]
+    start = int(decode_pos) if mode == "decode" else 0
+    pos_emb = dec_positions(params, start, tokens.shape[1])
+    x = embed_apply(params["embed"], tokens, dtype) + pos_emb.to(dtype)
+    h, new_cache, aux = tfm.apply_stack(
+        cfg, "dec", params["dec_layers"], x, mode=mode, cache=cache,
+        decode_pos=None if decode_pos is None else int(decode_pos),
+        cache_capacity=cache_capacity, enc_states=enc_states,
+    )
+    h = norm_apply(cfg, params["final_norm"], h)
+    logits = unembed_apply(cfg, params, h) if return_logits else None
+    return ForwardOut(h, logits, new_cache, aux)
+
+
 def make_cache(cfg: ModelConfig, batch: int, capacity: int,
                device: Union[str, torch.device] = "cuda") -> List[dict]:
     """Empty per-layer caches: KV rings of ``capacity`` slots (clamped to the
-    sliding window; a hybrid's to its local window), SSM or RG-LRU states."""
+    sliding window; a hybrid's to its local window), SSM or RG-LRU states;
+    an audio model's decoder layers a ring and zero cross (k, v) of
+    (batch, n_audio_frames, KV, hd)."""
     check_family(cfg, "caches")
     dtype, dev = compute_dtype(cfg), resolve_device(device)
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)
+    if cfg.arch_type == "audio":
+        cross = (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.hd)
+        return [{"self": ring, "cross": (torch.zeros(cross, dtype=dtype, device=dev),
+                                         torch.zeros(cross, dtype=dtype, device=dev))}
+                for ring in tfm.stacked_attn_cache(cfg, cfg.n_layers, batch, capacity, dtype, dev)]
     if cfg.arch_type == "ssm":
         return tfm.stacked_ssm_cache(cfg, cfg.n_layers, batch, dtype, dev)
     if cfg.arch_type == "hybrid":

@@ -1,23 +1,24 @@
-"""Backbone stacks: the ``"attn"``, ``"ssm"`` and ``"rec"`` blocks and their stacks.
+"""Backbone stacks: the ``"attn"``, ``"ssm"``, ``"rec"``, ``"enc"`` and ``"dec"`` blocks.
 
-The port of the reference's ``models/transformer.py`` for the decoder-only
-families: dense and MoE (an MoE block's FFN is
-:func:`repro_torch.models.moe.moe_apply`), VLM (the dense block), SSM (the
-Mamba2 mixer of :mod:`repro_torch.models.ssm`) and hybrid (RecurrentGemma:
-RG-LRU ``"rec"`` blocks of :mod:`repro_torch.models.rglru` and local
-attention ``"attn"`` blocks), in their three modes: ``train`` (causal, no
-cache; also the feature pass), ``prefill`` (build one cache a layer: a KV
-ring, an SSM state or an RG-LRU state) and ``decode`` (one token, consume
-and update the caches in place).  The reference stacks the layer parameters
+The port of the reference's ``models/transformer.py``: dense and MoE (an
+MoE block's FFN is :func:`repro_torch.models.moe.moe_apply`), VLM (the
+dense block), SSM (the Mamba2 mixer of :mod:`repro_torch.models.ssm`),
+hybrid (RecurrentGemma: RG-LRU ``"rec"`` blocks of
+:mod:`repro_torch.models.rglru` and local attention ``"attn"`` blocks) and
+the encoder-decoder (Whisper: ``"enc"`` blocks of bidirectional
+self-attention, ``"dec"`` blocks of causal self-attention, cross-attention
+over the encoder states and a GELU MLP), in their three modes: ``train``
+(causal, no cache; also the feature pass), ``prefill`` (build one cache a
+layer: a KV ring, an SSM state, an RG-LRU state, or a decoder layer's ring
+and its cross-attention (k, v); an encoder layer builds none) and
+``decode`` (one token, consume and update the caches in place; the cross
+(k, v) are read, never projected again).  The reference stacks the layer parameters
 and caches on a leading ``(n_layers, …)`` axis and scans over it (the hybrid
 over 12 ``(rec, rec, attn)`` super-blocks plus an unrolled remainder);
 here every stack is a list of per-layer parameter dicts in layer order
 (``cfg.pattern_for``), the caches a list of per-layer cache dicts, and the
 scan a Python loop.  A block returns its MoE load-balance loss (None for
 any other block) and the stack sums them.
-
-The encoder-decoder stack (audio) is a later slice of the port (ROADMAP
-Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import attn_apply, attn_init
+from repro_torch.models.attention import attn_apply, attn_init, cross_attn_apply
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -55,10 +56,23 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str = "attn") -> di
             "norm2": norm_init(cfg, device=dev),
             "mlp": mlp_init(gen, cfg),
         }
-    raise NotImplementedError(
-        f"block kind {kind!r} of a {cfg.arch_type!r} model: the port has the decoder-only "
-        f"blocks (attn, ssm, rec) only; the encoder-decoder blocks are ROADMAP Queue 1 item 11"
-    )
+    if kind == "enc":
+        return {
+            "norm1": norm_init(cfg, device=dev),
+            "attn": attn_init(gen, cfg),
+            "norm2": norm_init(cfg, device=dev),
+            "mlp": mlp_init(gen, cfg),
+        }
+    if kind == "dec":
+        return {
+            "norm1": norm_init(cfg, device=dev),
+            "self_attn": attn_init(gen, cfg),
+            "norm2": norm_init(cfg, device=dev),
+            "cross_attn": attn_init(gen, cfg),
+            "norm3": norm_init(cfg, device=dev),
+            "mlp": mlp_init(gen, cfg),
+        }
+    raise ValueError(f"unknown block kind {kind!r} of a {cfg.arch_type!r} model")
 
 
 def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, drops: Optional[moe_mod.DropTally]
@@ -81,11 +95,14 @@ def block_apply(
     decode_pos: Optional[int] = None,
     cache_capacity: Optional[int] = None,
     drops: Optional[moe_mod.DropTally] = None,
+    enc_states: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
     """Apply one block (pre-norm residual). Returns (x', the layer's cache,
     its MoE load-balance loss or None for any other block); an MoE block adds
     its dropped entries to ``drops``.  ``angles`` and ``window`` reach the
-    attention block only."""
+    attention block only; ``enc_states`` (B, F, d), the encoder's output,
+    reaches a decoder block's cross-attention outside decode, whose cache
+    ``{"self": ring, "cross": (k, v)}`` holds what decode reads instead."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     decode, build = mode == "decode", mode == "prefill"
@@ -103,8 +120,26 @@ def block_apply(
             y, new_cache = rglru_mod.rglru_apply(cfg, p["rec"], h, build_cache=build)
         x = x + y
         return x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["norm2"], x)), new_cache, None
+    if kind == "enc":
+        a, _ = attn_apply(cfg, p["attn"], h, bidirectional=True, build_cache=build)
+        x = x + a
+        return x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["norm2"], x)), None, None
+    if kind == "dec":
+        a, new_self = attn_apply(
+            cfg, p["self_attn"], h, cache=cache["self"] if decode else None,
+            decode_pos=decode_pos, build_cache=build, cache_capacity=cache_capacity,
+        )
+        x = x + a
+        c, new_cross = cross_attn_apply(
+            cfg, p["cross_attn"], norm_apply(cfg, p["norm2"], x),
+            enc_kv=cache["cross"] if decode else None, enc_states=enc_states,
+        )
+        x = x + c
+        x = x + mlp_apply(cfg, p["mlp"], norm_apply(cfg, p["norm3"], x))
+        new_cache = None if mode == "train" else {"self": new_self, "cross": new_cross}
+        return x, new_cache, None
     if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r}: the port has attn, ssm and rec blocks")
+        raise ValueError(f"unknown block kind {kind!r}")
     a, new_cache = attn_apply(
         cfg, p["attn"], h, angles=angles, window=window,
         cache=cache if decode else None, decode_pos=decode_pos,
@@ -198,9 +233,11 @@ def apply_stack(
     decode_pos: Optional[int] = None,
     cache_capacity: Optional[int] = None,
     drops: Optional[moe_mod.DropTally] = None,
+    enc_states: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[List[dict]], torch.Tensor]:
     """Run the layers in order (the reference's scan over stacked params);
-    ``kind`` is every layer's block kind, or one a layer.
+    ``kind`` is every layer's block kind, or one a layer; ``enc_states``
+    reaches every decoder block's cross-attention.
 
     Returns (x, the per-layer caches, the summed load-balance loss): the
     caches built in ``prefill``, updated in ``decode`` (in place), None in
@@ -218,12 +255,12 @@ def apply_stack(
     aux, caches = None, []
     for i, p in enumerate(layers):
         if recompute:
-            x, a = _recomputed_block(cfg, kinds[i], p, x, angles, window)
+            x, a = _recomputed_block(cfg, kinds[i], p, x, angles, window, enc_states)
         else:
             x, c, a = block_apply(
                 cfg, kinds[i], p, x, angles=angles, window=window, mode=mode,
                 cache=cache[i] if mode == "decode" else None, decode_pos=decode_pos,
-                cache_capacity=cache_capacity, drops=drops,
+                cache_capacity=cache_capacity, drops=drops, enc_states=enc_states,
             )
             caches.append(c)
         if a is not None:
@@ -271,18 +308,23 @@ class _Recompute(torch.autograd.Function):
         return (None, grad_x, None, *grad_params)
 
 
-def _recomputed_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, angles, window):
+def _recomputed_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, angles, window,
+                      enc_states: Optional[torch.Tensor] = None):
     """One train-mode block whose activations are recomputed in the backward:
     a gradient step keeps each block's input, not its internals (a
     fine-tuning round at full width holds 10 clients × 64 × 128 tokens of
-    them at once).  Returns (x', the block's load-balance loss or None)."""
+    them at once).  ``enc_states`` (a decoder block's) goes in after the
+    parameters, so it gets its gradient (the encoder's leaves would get
+    none as ``const``).  Returns (x', the block's load-balance loss or None)."""
     moe = "moe" in p
+    extra = () if enc_states is None else (enc_states,)
 
     def fn(h, angles_, *leaves):
         it = iter(leaves)
         params = tree_map(lambda _: next(it), p)  # p's structure, fn's leaves
-        y, _, aux = block_apply(cfg, kind, params, h, angles=angles_, window=window)
+        y, _, aux = block_apply(cfg, kind, params, h, angles=angles_, window=window,
+                                enc_states=next(it, None))
         return (y, aux) if moe else y
 
-    out = _Recompute.apply(fn, x, angles, *tree_leaves(p))
+    out = _Recompute.apply(fn, x, angles, *tree_leaves(p), *extra)
     return out if moe else (out, None)

@@ -875,12 +875,13 @@ def test_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "recurrentgemma-9b-smoke",
-                                  "qwen2-vl-2b-smoke"])
+                                  "qwen2-vl-2b-smoke", "whisper-large-v3-smoke"])
 def test_family_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_device, arch):
-    """The SSM, hybrid and VLM smoke configs in fp32 (the hybrid's prompt
-    longer than its local window): the card's prefill and decode give the
-    CPU's plain path's greedy tokens, the prefill launching flash_attention
-    once an attention layer (none for the SSM), decode none."""
+    """The SSM, hybrid, VLM and audio smoke configs in fp32 (the hybrid's
+    prompt longer than its local window): the card's prefill and decode give
+    the CPU's plain path's greedy tokens, the prefill launching
+    flash_attention once an attention layer (none for the SSM; Whisper's
+    encoder layers with causal off, then its decoder layers), decode none."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
@@ -893,11 +894,15 @@ def test_family_smoke_serving_path_on_card_gives_the_cpu_tokens_in_fp32(cuda_dev
     prompts = torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 64)))
     patches = (torch.from_numpy((0.1 * r.standard_normal((2, cfg.n_patches, cfg.d_model))
                                  ).astype(np.float32)) if cfg.arch_type == "vlm" else None)
-    kw = dict(gen=6, verbose=False, dtype="float32", prompts=prompts, patch_embeds=patches)
+    frames = (torch.from_numpy((0.1 * r.standard_normal((2, cfg.n_audio_frames, cfg.d_model))
+                                ).astype(np.float32)) if cfg.arch_type == "audio" else None)
+    kw = dict(gen=6, verbose=False, dtype="float32", prompts=prompts, patch_embeds=patches,
+              audio_frames=frames)
     cpu = serve(arch, device="cpu", params=params, **kw)
     card = serve(arch, device=cuda_device, params=tree_map(lambda t: t.to(cuda_device), params),
                  **kw)
     attn_layers = sum(k == "attn" for k in cfg.pattern_for(cfg.n_layers))  # an SSM's: 0
+    attn_layers += cfg.n_encoder_layers  # Whisper's: 2 encoder + 2 decoder
     assert card.prefill_launches == attn_layers and card.decode_launches == 0
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
 

@@ -225,19 +225,23 @@ def test_prefill_routes_attention_through_the_kernel_once_a_layer(monkeypatch):
     assert len(calls) == cfg.n_layers
 
 
-def test_make_cache_and_the_families_still_to_port():
+def test_make_cache_builds_rings_and_whispers_cross_caches():
     cfg = get_config(ARCH).replace(sliding_window=8)
     cache = build_model(cfg).make_cache(3, 40, device="cpu")
     assert len(cache) == cfg.n_layers and cache[0]["k"].shape == (3, 8, cfg.n_kv_heads, cfg.hd)
     assert cache[0]["k"].dtype == torch.bfloat16 and bool((cache[0]["pos"] == -1).all())
     q = build_model(get_config(ARCH).replace(kv_cache_quant=True)).make_cache(1, 4, device="cpu")
     assert q[0]["k"].dtype == torch.int8 and q[0]["k_scale"].shape == (1, 4, cfg.n_kv_heads, 1)
-    audio = get_config(ARCH).replace(arch_type="audio")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model_lib.forward(audio, {}, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                          mode="prefill")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model_lib.make_cache(audio, 1, 4, device="cpu")
+    audio = get_config("whisper-large-v3-smoke")
+    cache = model_lib.make_cache(audio, 3, 40, device="cpu")
+    assert len(cache) == audio.n_layers
+    ring, (k, v) = cache[0]["self"], cache[0]["cross"]
+    assert ring["k"].shape == (3, 40, audio.n_kv_heads, audio.hd)
+    assert bool((ring["pos"] == -1).all())
+    assert k.shape == v.shape == (3, audio.n_audio_frames, audio.n_kv_heads, audio.hd)
+    assert k.dtype == torch.bfloat16 and not bool(k.any())
+    with pytest.raises(ValueError, match="arch_type"):
+        model_lib.make_cache(get_config(ARCH).replace(arch_type="conv"), 1, 4, device="cpu")
 
 
 def test_serve_defaults_to_the_card():

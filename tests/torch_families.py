@@ -1,15 +1,18 @@
-"""Model-level checks of the port's SSM, hybrid and VLM families against the
-reference package, on the CPU: shared by ``tests/test_torch_ssm.py``,
-``test_torch_hybrid.py`` and ``test_torch_vlm.py`` (one file a family, so
-that ``--dist loadfile`` spreads them).
+"""Model-level checks of the port's SSM, hybrid, VLM and audio families
+against the reference package, on the CPU: shared by
+``tests/test_torch_ssm.py``, ``test_torch_hybrid.py``, ``test_torch_vlm.py``
+and ``test_torch_audio.py`` (one file a family, so that ``--dist loadfile``
+spreads them).
 
 Parameters come from the reference's ``init_params`` through
-``params_from_jax``; tokens, labels and patch embeddings are drawn with
-numpy from a seed.  Tolerances, relative to the largest reference value:
+``params_from_jax``; tokens, labels, patch embeddings and audio frames are
+drawn with numpy from a seed.  Tolerances, relative to the largest reference value:
 
 * fp32: 1e-4 (GEMM and scan summation order only);
 * bf16: 3e-2 (both sides round at the same points, but the frameworks'
-  bf16 GEMMs differ inside), and at least 97% of the argmaxes equal.
+  bf16 GEMMs differ inside), and at least 97% of the argmaxes equal;
+  for the configs in ``ARGMAX_NEAR_TIES``, no argmax flipped where the
+  reference's top-2 gap is at least twice the largest logit gap.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,14 @@ from repro_torch.tree import tree_leaves
 
 REL = {"float32": 1e-4, "bfloat16": 3e-2}
 ARGMAX = 0.97
+# Whisper's smoke logits (max ≈ 0.8: a LayerNorm'd state against the
+# 0.02-scale tied table) have a top-2 gap under twice the largest bf16
+# logit gap at 6 of 32 forward and 30 of 80 prefill + decode positions;
+# the reference's own bf16 and fp32 forwards agree on 96% of argmaxes
+# (B 16, S 20), so a share of equal argmaxes measures the near ties, not
+# the port.  Its bf16 check: every argmax equal outside the near ties
+# (measured: 0 flipped there; 3 of 80 flipped inside them).
+ARGMAX_NEAR_TIES = ("whisper-large-v3-smoke",)
 
 
 def np32(x) -> np.ndarray:
@@ -43,11 +54,18 @@ def close(got, want, rel) -> None:
     assert err <= rel * scale, (err, scale)
 
 
-def close_logits(got, want, dtype) -> None:
+def close_logits(got, want, dtype, arch=None) -> None:
     close(got, want, REL[dtype])
-    if dtype == "bfloat16":
-        agree = float((np32(got).argmax(-1) == np32(want).argmax(-1)).mean())
-        assert agree >= ARGMAX, agree
+    if dtype != "bfloat16":
+        return
+    got, want = np32(got), np32(want)
+    flipped = got.argmax(-1) != want.argmax(-1)
+    if arch in ARGMAX_NEAR_TIES:
+        top2 = np.sort(want, -1)[..., -2:]
+        near = top2[..., 1] - top2[..., 0] < 2 * np.abs(got - want).max()
+        assert not (flipped & ~near).any(), (int(flipped.sum()), int(near.sum()))
+    else:
+        assert 1 - float(flipped.mean()) >= ARGMAX, 1 - float(flipped.mean())
 
 
 def setup(arch, dtype="float32", seed=0, **kw):
@@ -66,14 +84,28 @@ def offset(cfg) -> int:
 
 
 def batch_np(cfg, B, S, seed=0) -> dict:
-    """Numpy tokens and labels (B, S), and a VLM's 0.1·N(0, 1) patches."""
+    """Numpy tokens and labels (B, S), and a VLM's 0.1·N(0, 1) patches or an
+    audio model's 0.1·N(0, 1) encoder frames."""
     r = np.random.default_rng(seed)
     b = {"tokens": r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
          "labels": r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
     if cfg.arch_type == "vlm":
         b["patch_embeds"] = (0.1 * r.standard_normal((B, cfg.n_patches, cfg.d_model))
                              ).astype(np.float32)
+    if cfg.arch_type == "audio":
+        b["audio_frames"] = (0.1 * r.standard_normal((B, cfg.n_audio_frames, cfg.d_model))
+                             ).astype(np.float32)
     return b
+
+
+def named_leaves(tree, prefix="") -> dict:
+    """{path: leaf} of a cache tree (dicts, and an audio layer's (k, v))."""
+    if isinstance(tree, dict):
+        return {n: t for k, v in tree.items() for n, t in named_leaves(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {n: t for i, v in enumerate(tree)
+                for n, t in named_leaves(v, f"{prefix}{i}/").items()}
+    return {prefix.rstrip("/"): tree}
 
 
 def jb(batch) -> dict:
@@ -93,7 +125,7 @@ def check_forward(arch, dtype, B, S, **kw):
     got = build_model(cfg).forward(params, tb(batch))
     assert got.logits.dtype == getattr(torch, dtype)
     assert got.logits.shape == (B, offset(cfg) + S, cfg.padded_vocab)
-    close_logits(got.logits, want.logits, dtype)
+    close_logits(got.logits, want.logits, dtype, arch)
     close(got.hidden, want.hidden, REL[dtype])
 
 
@@ -117,10 +149,11 @@ def check_prefill_decode(arch, dtype, B, S, T, **kw):
     ref_cache = cache_from_jax(cfg, jax.tree.map(np.asarray, jcache), device="cpu")
     assert len(cache) == len(ref_cache) == cfg.n_layers
     for c, w in zip(cache, ref_cache):
+        c, w = named_leaves(c), named_leaves(w)
         assert set(c) == set(w)
         for name in c:
             assert c[name].dtype == w[name].dtype and c[name].shape == w[name].shape, name
-            if name == "pos":
+            if name.endswith("pos"):
                 assert torch.equal(c[name], w[name])
             else:
                 close(c[name], w[name], REL[dtype])
@@ -131,8 +164,9 @@ def check_prefill_decode(arch, dtype, B, S, T, **kw):
         logits, cache = model.decode_step(params, cache, torch.from_numpy(tok), off + S + i)
         got.append(logits)
         want.append(jlogits)
-    close_logits(np.stack([np32(g) for g in got]), np.stack([np32(w) for w in want]), dtype)
+    close_logits(np.stack([np32(g) for g in got]), np.stack([np32(w) for w in want]), dtype, arch)
     for c, w in zip(cache, cache_from_jax(cfg, jax.tree.map(np.asarray, jcache), device="cpu")):
+        c, w = named_leaves(c), named_leaves(w)
         for name in c:  # the caches after T in-place updates
             close(c[name], w[name], REL[dtype])
 
@@ -152,7 +186,9 @@ def check_loss_and_features(arch, dtype, B, S):
 
 def check_grad(arch, B, S):
     """One ``torch.autograd`` gradient of ``lm_loss`` against ``jax.grad``
-    in fp32, leaf by leaf within 1e-4 of the largest reference gradient."""
+    in fp32, leaf by leaf within 1e-4 of the largest reference gradient;
+    returns the port's gradients and the reference's, each a {path: leaf}
+    dict over the port's parameter tree."""
     jcfg, cfg, jparams, params = setup(arch)
     batch = batch_np(cfg, B, S)
     jgrads = jax.grad(lambda p: jmodel.lm_loss(jcfg, p, jb(batch)))(jparams)
@@ -167,6 +203,8 @@ def check_grad(arch, B, S):
     for g, w in zip(grads, want):
         assert g.shape == w.shape
         assert float(np.abs(np32(g) - np32(w)).max()) <= REL["float32"] * scale
+    names = list(named_leaves(params))
+    return dict(zip(names, grads)), dict(zip(names, want))
 
 
 def check_own_consistency(arch, B, S, T):
@@ -188,14 +226,14 @@ def check_own_consistency(arch, B, S, T):
 
 def check_serve(arch, B, S, gen):
     """``serve``'s greedy tokens (fp32) are the reference's prefill + decode
-    loop's from the same parameters, prompts and patches."""
+    loop's from the same parameters, prompts, patches and frames."""
     jcfg, cfg, jparams, params = setup(arch)
     batch = batch_np(cfg, B, S, seed=5)
     off = offset(cfg)
+    extra = {k: torch.from_numpy(batch[k]) for k in ("patch_embeds", "audio_frames")
+             if k in batch}
     res = serve_mod.serve(arch, gen=gen, verbose=False, device="cpu", dtype="float32",
-                          params=params, prompts=torch.from_numpy(batch["tokens"]),
-                          patch_embeds=(torch.from_numpy(batch["patch_embeds"])
-                                        if "patch_embeds" in batch else None))
+                          params=params, prompts=torch.from_numpy(batch["tokens"]), **extra)
     fed = jb({k: v for k, v in batch.items() if k != "labels"})
     jlogits, jcache = jmodel.prefill(jcfg, jparams, fed, off + S + gen)
     tok = jnp.argmax(jlogits, -1)[:, None].astype(jnp.int32)
