@@ -108,12 +108,35 @@ counts just after.
                 stream's W in its float64 gate (quant pair 2 a wave a rank
                 under int8), the async ring under a 2-tier mesh tree bitwise
                 merge; walls of each path at world 1 and 4, peak memory a rank.
-16. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
+16. tp       -- tensor and expert parallelism: ``launch/serve.py`` on
+                ``llama4-scout-17b-a16e`` at full width (d_model 5120, GQA
+                40/8, 16 experts of 8192 + 1 shared, vocab 202,048), depth
+                cut to 2 layers (25.9 GB of fp32 weights from
+                ``sharding/shard.py::seeded_factory(0)``), batch 4 x 256 + 8,
+                in fp32 and bf16, unsharded in this process, then on 4 gloo
+                ranks sharing the card over a (data 1, model 4) mesh
+                (``launch/dist_check.py::tp_program``), each rank making
+                only its blocks, each serve timed after a warm-up call:
+                equal digests on every rank, the fp32 serve's greedy tokens
+                equal to the unsharded run's and its logits within
+                TP_FP32_REL (max), the logits (prefill + the unsharded
+                run's greedy tokens teacher-forced) within TP_FP32_REL
+                (max) / TP_BF16_REL (mean) of the unsharded run's and a
+                planted expert fault outside both,
+                the unsharded run's flash launches (2 a prefill, 0 in
+                decode) on every rank, each rank's peak memory at most 0.40
+                of the unsharded run's; prefill ms, decode ms a step and
+                peak memory a rank and unsharded; then deepseek-moe-16b-smoke
+                and qwen2-7b-smoke in fp32 on (data 2, model 2), the card
+                against the CPU, the MoE's capacity groups G = 2 with equal
+                drop shares.  gloo stages CUDA tensors through the host, so
+                no sync-debug gate runs here.
+17. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
                 layers, d_model 3584, GQA 28/4, vocab 152,064), bf16, random
                 weights: batch 8, 2048-token prompts, 64 tokens; flash_attention
                 launches 28 in the prefill and 0 in the decode steps.  Then a
                 ragged 1000-token prompt at batch 1.
-17. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
+18. serve-consistency -- at full width, bf16: prefill (the kernel) + 64
                 decode steps against one train-mode forward over the 2048
                 tokens (the plain attention), the logits' gap and the share
                 of equal argmaxes within the bounds measured once, and
@@ -128,21 +151,21 @@ counts just after.
                 across KV heads); then ``qwen2-7b-smoke`` in fp32, card
                 against CPU: the same greedy tokens, logits within 2e-4 of
                 the largest.
-18. serve-moe -- ``launch/serve.py`` on ``deepseek-moe-16b`` at full width and
+19. serve-moe -- ``launch/serve.py`` on ``deepseek-moe-16b`` at full width and
                 depth (28 layers, d_model 2048, MHA 16/16, 64 routed experts
                 top 6 and 2 shared, d_expert 1408, vocab 102,400), bf16,
                 random fp32 weights (62.9 GiB): batch 8, 2048-token prompts,
                 64 tokens, cold and warm; flash_attention launches 28 in the
                 prefill and 0 in decode; the share of (token, choice)
                 entries the prefill's capacity dropped.
-19. serve-moe-consistency -- at full width, bf16, capacity factor E / top_k
+20. serve-moe-consistency -- at full width, bf16, capacity factor E / top_k
                 (no drop): prefill + 64 decode steps against one train-mode
                 forward within the bounds measured once, no entry dropped,
                 every token's first expert rolled by one outside them; a
                 decode step under sync-debug "error"; one layer's
                 ``moe_apply`` in fp32 against the dense oracle (every expert
                 on every token) over 1024 tokens.
-20. serve-ssm, serve-hybrid, serve-vlm, serve-audio -- ``launch/serve.py``
+21. serve-ssm, serve-hybrid, serve-vlm, serve-audio -- ``launch/serve.py``
                 at full width and depth, bf16, random fp32 weights from seed
                 0, cold and warm: ``mamba2-1.3b`` (48 SSD layers, d_model
                 2048) at batch 8 x 2048 + 64 tokens, no flash launch;
@@ -156,7 +179,7 @@ counts just after.
                 frames + 224 tokens) + 64, 64 a prefill (the encoder's with
                 causal off), its prefill FLOPs by ``launch/flops.py`` and by
                 part; none in decode; a decode step under sync-debug "error".
-21. ssm-, hybrid-, vlm-, audio-consistency -- at full width in bf16 and
+22. ssm-, hybrid-, vlm-, audio-consistency -- at full width in bf16 and
                 fp32, prefill + 64 decode steps against one train forward
                 within twice one sound run's gap, a planted fault outside it
                 (the SSM's decode without the state decay, the hybrid's
@@ -166,7 +189,7 @@ counts just after.
                 float64 oracle (the SSM and RG-LRU recurrences a step at a
                 time, the attention with its M-RoPE streams, Whisper's
                 encoder and decoder layers).
-22. kernel    -- each kernel against its plain PyTorch version at the shapes
+23. kernel    -- each kernel against its plain PyTorch version at the shapes
                 the paths gave it and at ragged ones (the quantization pair
                 bitwise, on all-zero tiles and exact half-way inputs too;
                 flash attention in bf16 and fp32, with and without a
@@ -207,6 +230,7 @@ result where torch sees no CUDA card or the port's sources are missing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -313,6 +337,39 @@ DIST_STREAM_REL = 1e-5
 # grid (one step each; [dist] counts them); a roundtripped SUM, or no wire,
 # read 3.1e-2 to 4.5e-2 on the same run.  The limit sits between.
 DIST_INT8_REL = 1e-2
+# [tp]: tensor and expert parallelism.  llama4-scout-17b-a16e at full width
+# (d_model 5120, GQA 40/8 x 128, 16 experts of 8192 + the shared one, vocab
+# 202,048), depth cut to 2 layers (6.47 B parameters, 25.9 GB fp32: the
+# whole 48 layers are ~103 B and fit no card), batch 4 x prompt 256 + 8
+# decode steps, weights from sharding/shard.py's seeded_factory(0); served
+# unsharded in this process, then on TP_WORLD gloo ranks sharing the card
+# over a (data 1, model 4) mesh, each rank making only its blocks
+TP_ARCH = "llama4-scout-17b-a16e"
+TP_LAYERS = 2
+TP_SERVE = dict(batch=4, prompt_len=256, gen=8)
+TP_WORLD = 4
+TP_TIMEOUT_S = 600
+# the sharded logits (prefill + 7 teacher-forced decode steps) against the
+# unsharded run's.  fp32: max|d logit| / max|logit|, partial products summed
+# in another order.  bf16: mean|d logit| / mean|logit|: each rank rounds its
+# partial sums to bf16 before the fp32 all-reduce, so the router's inputs
+# move by a bf16 ulp and a token whose top two experts nearly tie goes to
+# the other one, which a max over entries reads near a fault's size.  Read
+# once on an H100 (PERF.md §6): fp32 max 1.7001e-6; bf16 mean
+# 6.1712e-3 (max 1.7206e-2).  The bf16 limit is twice the sound mean.  A
+# planted fault (model rank 1 holding the experts one to the right of its
+# block) must read above both limits in both metrics: it read fp32 7.4220e-2
+# / 2.6580e-2 and bf16 7.1356e-2 / 2.7076e-2 (max / mean).
+TP_FP32_REL = 1e-4
+TP_BF16_REL = 1.25e-2
+# each rank's peak memory against the unsharded run's (a quarter of the
+# weights, the activations and casts of its heads and experts)
+TP_PEAK_SHARE = 0.40
+# smoke widths on (data 2, model 2) in fp32, the card against the CPU's
+# plain path (the same rank program on CPU tensors): the MoE's capacity
+# groups G = 2, its drop share equal
+TP_SMOKE = ("deepseek-moe-16b-smoke", "qwen2-7b-smoke")
+TP_SMOKE_SHAPE = dict(B=4, S=20, S0=15, T=4)
 # the dense serving path (launch/serve.py) at Qwen2-7B's full width, bf16
 SERVE_ARCH = "qwen2-7b"
 SERVE_FULL = dict(batch=8, prompt_len=2048, gen=64)
@@ -455,14 +512,15 @@ FAMILY_ORACLE = {"ssm": (512, 1e-4), "hybrid": (2048, 1e-4), "vlm": (512, 1e-4),
 # GQA 12/2 over 256 patches + 2048 tokens, and serve-audio's two layouts:
 # the encoder's bidirectional MHA 20/20 x 64 over 1500 frames (a ragged
 # last key tile: 1500 = 11 x 128 + 92), at its batch of 16 and of 2, and
-# the decoder's causal self-attention over the 224-token prompt; times
-# (bf16) at the shapes and windows FLASH_TIMED names
+# the decoder's causal self-attention over the 224-token prompt, and
+# [tp]'s rank-local heads of llama4-scout (GQA 10/2, ratio 5, over 256
+# tokens); times (bf16) at the shapes and windows FLASH_TIMED names
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
                 (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64),
                 (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96), (8, 2048, 16, 16, 128),
                 (8, 2304, 12, 2, 128), (16, 1500, 20, 20, 64), (2, 1500, 20, 20, 64),
-                (16, 224, 20, 20, 64)]
+                (16, 224, 20, 20, 64), (4, 256, 10, 2, 128)]
 # the (causal, window) runs of a shape; else causal with no window and with 128
 FLASH_MODES = {(2, 4096, 16, 1, 256): ((True, None), (True, 2048), (True, 128)),
                (3, 77, 4, 1, 64): ((True, None), (True, 128), (False, None)),
@@ -473,7 +531,8 @@ FLASH_TIMED = {((8, 2048, 28, 4, 128), None): "serve", ((1, 8192, 28, 4, 128), N
                ((2, 4096, 16, 1, 256), 2048): "serve-hybrid",
                ((8, 2304, 12, 2, 128), None): "serve-vlm",
                ((16, 1500, 20, 20, 64), None): "serve-audio encoder",
-               ((16, 224, 20, 20, 64), None): "serve-audio decoder"}
+               ((16, 224, 20, 20, 64), None): "serve-audio decoder",
+               ((4, 256, 10, 2, 128), None): "tp"}
 # the bf16 kernel's row log-sum-exp m + log l against an fp32 logsumexp of
 # the scaled, masked scores: max |difference| over the rows.  The sound
 # kernel read at most 1.907e-6 (measured on one H100: ex2.approx and the fp32
@@ -2735,6 +2794,201 @@ def phase_dist(torch, ops, sl, ft, stream) -> dict:
     return {"launches": launches, "wall1_s": wall1, "wall4_s": wall4}
 
 
+# ---------------------------------------------------------------------------
+# [tp]: tensor and expert parallelism on the one card
+# ---------------------------------------------------------------------------
+
+
+def _tp_rel(got, want, mean=False) -> float:
+    """max|got - want| / max|want| over the stacked logits (numpy), or with
+    ``mean`` mean|got - want| / mean|want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if mean:
+        return float(np.abs(got - want).mean() / np.abs(want).mean())
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _tp_logits(res, vocab: int) -> np.ndarray:
+    """serve's logits (gen, B, V) over the real vocab (the padded columns
+    are −1e30) as numpy fp32 on the host."""
+    return res.logits[..., :vocab].float().cpu().numpy()
+
+
+def phase_tp(torch, ops) -> dict:
+    """TP_ARCH at full width cut to TP_LAYERS layers, served unsharded here
+    (fp32, bf16), then over a (data 1, model 4) mesh on TP_WORLD gloo ranks
+    sharing the card through launch/dist_check.py::tp_program: equal digests
+    on every rank, the fp32 serve's tokens equal to the unsharded run's and
+    its logits within TP_FP32_REL, teacher-forced logits against the
+    unsharded run's within TP_FP32_REL / TP_BF16_REL and a planted expert
+    fault outside both, the unsharded run's flash launches on every rank,
+    each rank's peak memory at most TP_PEAK_SHARE of the unsharded run's;
+    then the TP_SMOKE configs in fp32 on (data 2, model 2), the card
+    against the CPU.  Each serve is timed after a warm-up call.  gloo
+    stages CUDA tensors through the host, so no sync-debug gate runs
+    here."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist_check import tp_program
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import build_model
+    from repro_torch.sharding.shard import full_params, seeded_factory
+
+    cfg = get_config(TP_ARCH).replace(n_layers=TP_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    params = full_params(cfg, seeded_factory(0), "cuda")
+    torch.cuda.synchronize()
+    nbytes = 4 * build_model(cfg).param_count(params)
+    log(f"[tp] {TP_ARCH} at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}x{cfg.hd}, {cfg.n_experts} experts of {cfg.d_expert} + "
+        f"{cfg.n_shared_experts} shared, top {cfg.top_k}, vocab {cfg.vocab_size}), {TP_LAYERS} "
+        f"layers: {nbytes // 4:,} parameters ({nbytes / 2**30:.3f} GiB fp32) from "
+        f"seeded_factory(0) in {time.perf_counter() - t0:.2f}s; {held:.3f} GiB held by "
+        f"earlier phases")
+    if cfg.d_model != 5120 or cfg.n_experts != 16 or len(params["layers"]) != TP_LAYERS:
+        raise AssertionError("[tp] is not at llama4-scout's full width")
+    prompts = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (TP_SERVE["batch"], TP_SERVE["prompt_len"])).astype(np.int64)
+    one, launches = {}, 0
+    for dtype in ("float32", "bfloat16"):
+        run = functools.partial(serve, TP_ARCH, verbose=False, device="cuda", dtype=dtype,
+                                params=params, prompts=torch.from_numpy(prompts).cuda(),
+                                n_layers=TP_LAYERS)
+        run(gen=2)  # warm, as every rank's serve is (launch/dist_check.py::tp_job)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        res = run(gen=TP_SERVE["gen"])
+        counts = read_counts(ops)
+        launches += counts["flash_attention"]
+        one[dtype] = {"logits": _tp_logits(res, cfg.vocab_size),
+                      "tokens": res.tokens.cpu().numpy(),
+                      "prefill_ms": res.prefill_s * 1e3,
+                      "decode_ms": res.decode_s * 1e3 / (TP_SERVE["gen"] - 1),
+                      "peak_bytes": res.peak_bytes, "prefill_launches": res.prefill_launches,
+                      "decode_launches": res.decode_launches}
+        others = {k: v for k, v in counts.items() if k != "flash_attention" and v}
+        if res.prefill_launches != TP_LAYERS or res.decode_launches != 0 or others:
+            raise AssertionError(f"[tp] unsharded {dtype}: flash launches "
+                                 f"{res.prefill_launches} / {res.decode_launches}, {others}")
+        if not np.isfinite(one[dtype]["logits"]).all():
+            raise AssertionError(f"[tp] unsharded {dtype} logits not finite")
+        del res
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the sharded runs: serve (times, launches, peak, its logits and tokens:
+    # fp32 gated on them) and the unsharded run's greedy tokens teacher-forced
+    # (the logits compared, where a bf16 near-tie may flip a served token);
+    # the planted fault teacher-forced alone
+    base = dict(arch=TP_ARCH, data=1, model=TP_WORLD, seed=0, prompts=prompts)
+    jobs = []
+    for dtype in ("float32", "bfloat16"):
+        forced = one[dtype]["tokens"][:, :TP_SERVE["gen"] - 1]
+        jobs.append(dict(base, name=dtype, overrides={"n_layers": TP_LAYERS}, decode=forced,
+                         serve={"gen": TP_SERVE["gen"], "dtype": dtype}))
+        jobs.append(dict(base, name=f"{dtype} fault", decode=forced, fault="experts offset",
+                         overrides={"n_layers": TP_LAYERS, "dtype": dtype}))
+    rng = np.random.default_rng(12)
+    sh = TP_SMOKE_SHAPE
+    for arch in TP_SMOKE:
+        toks = rng.integers(0, get_config(arch).vocab_size, (sh["B"], sh["S"])).astype(np.int64)
+        x = toks[:, :sh["S0"] + sh["T"]]
+        for on_cpu in (False, True):
+            jobs.append(dict(name=f"{arch} {'cpu' if on_cpu else 'card'}", arch=arch, data=2,
+                             model=2, overrides={"dtype": "float32"}, seed=0, tokens=toks,
+                             prompts=x[:, :sh["S0"]], decode=x[:, sh["S0"]:], on_cpu=on_cpu))
+    t0 = time.perf_counter()
+    ranks = run_world(tp_program, TP_WORLD, backend="gloo", device="cuda",
+                      timeout_s=TP_TIMEOUT_S, args=(jobs,))
+    wall = time.perf_counter() - t0
+
+    checks, gaps = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        got = [r[dtype] for r in ranks]
+        ref = one[dtype]["logits"]
+        V = cfg.vocab_size
+        sharded = np.concatenate([got[0]["prefill"][None], got[0]["decode"]])[..., :V]
+        fault = ranks[0][f"{dtype} fault"]
+        faulty = np.concatenate([fault["prefill"][None], fault["decode"]])[..., :V]
+        for tag, mean in (("max", False), ("mean", True)):
+            gaps[f"{dtype} {tag}"] = _tp_rel(sharded, ref, mean)
+            gaps[f"{dtype} fault {tag}"] = _tp_rel(faulty, ref, mean)
+        metric = "max" if dtype == "float32" else "mean"
+        gaps[dtype], gaps[f"{dtype} fault"] = gaps[f"{dtype} {metric}"], \
+            gaps[f"{dtype} fault {metric}"]
+        limit = TP_FP32_REL if dtype == "float32" else TP_BF16_REL
+        peak1 = one[dtype]["peak_bytes"]
+        served = got[0]["served"][..., :V]
+        gaps[f"{dtype} served max"] = _tp_rel(served, ref)
+        agree = float(np.mean(got[0]["tokens"] == one[dtype]["tokens"]))
+        if dtype == "float32":
+            checks.update({
+                "float32: the sharded serve's greedy tokens equal the unsharded run's":
+                    agree == 1.0,
+                f"float32: the sharded serve's logits (max) within {limit:g} of the unsharded "
+                "run's": gaps[f"{dtype} served max"] <= limit,
+            })
+        checks.update({
+            f"{dtype}: every rank's digests equal": all(g["digest"] == got[0]["digest"]
+                                                      for g in got),
+            f"{dtype}: logits ({metric}) within {limit:g} of the unsharded run's":
+                gaps[dtype] <= limit,
+            f"{dtype}: the planted expert fault reads above both limits, both metrics":
+                min(gaps[f"{dtype} fault max"], gaps[f"{dtype} fault mean"])
+                > max(TP_FP32_REL, TP_BF16_REL),
+            f"{dtype}: flash launches a rank = unsharded ({TP_LAYERS} a prefill, 0 in decode)":
+                all(g["serve"]["prefill_launches"] == one[dtype]["prefill_launches"]
+                    and g["serve"]["decode_launches"] == one[dtype]["decode_launches"]
+                    for g in got),
+            f"{dtype}: each rank's peak <= {TP_PEAK_SHARE} of the unsharded run's":
+                all(g["serve"]["peak_bytes"] <= TP_PEAK_SHARE * peak1 for g in got),
+        })
+        launches += sum(g["serve"]["prefill_launches"] + g["serve"]["decode_launches"]
+                        for g in got)
+        log(f"[tp] {dtype}: unsharded prefill {one[dtype]['prefill_ms']:.1f} ms, decode "
+            f"{one[dtype]['decode_ms']:.2f} ms a step, peak {peak1 / 2**30:.3f} GiB; by rank "
+            "prefill " + " ".join(f"{g['serve']['prefill_s'] * 1e3:.1f}" for g in got)
+            + " ms, decode " + " ".join(
+                f"{g['serve']['decode_s'] * 1e3 / (TP_SERVE['gen'] - 1):.2f}" for g in got)
+            + " ms a step, peak " + " ".join(f"{g['serve']['peak_bytes'] / 2**30:.3f}"
+                                               for g in got)
+            + f" GiB ({max(g['serve']['peak_bytes'] for g in got) / peak1:.3f} of unsharded); "
+            f"max|logit| {np.abs(ref).max():.4f}; "
+            f"teacher-forced max|d logit|/max|logit| {gaps[f'{dtype} max']:.4e}, "
+            f"mean|d logit|/mean|logit| {gaps[f'{dtype} mean']:.4e} (gate: {metric}, limit "
+            f"{limit:g}); planted fault {gaps[f'{dtype} fault max']:.4e} / "
+            f"{gaps[f'{dtype} fault mean']:.4e}; the sharded serve: greedy tokens equal to "
+            f"unsharded {agree:.3f}, max|d logit|/max|logit| {gaps[f'{dtype} served max']:.4e}")
+    for arch in TP_SMOKE:
+        card_, cpu_ = [r[f"{arch} card"] for r in ranks], [r[f"{arch} cpu"] for r in ranks]
+        rel = max(_tp_rel(np.concatenate([card_[d * 2][k] for d in range(2)], axis=a),
+                          np.concatenate([cpu_[d * 2][k] for d in range(2)], axis=a))
+                  for k, a in (("logits", 0), ("features", 0), ("prefill", 0), ("decode", 1)))
+        share = card_[0]["drop_share"]
+        checks.update({
+            f"{arch}: card within {SMOKE_SERVE['rel']:g} of the CPU": rel <= SMOKE_SERVE["rel"],
+            f"{arch}: model ranks of a data group equal": all(
+                card_[r]["digest"] == card_[r - r % 2]["digest"] for r in range(TP_WORLD)),
+        })
+        if get_config(arch).arch_type == "moe":
+            checks[f"{arch}: drop share (G = 2) equal to the CPU's"] = (
+                share is not None and share == cpu_[0]["drop_share"])
+        log(f"[tp] {arch} on (data 2, model 2), fp32: card vs CPU {rel:.3e} (limit "
+            f"{SMOKE_SERVE['rel']:g}), drop share {share} (CPU {cpu_[0]['drop_share']})")
+    log(f"[tp] {TP_WORLD} gloo ranks on one card in {wall:.1f}s; the phase in "
+        f"{time.perf_counter() - t_all:.1f}s on {card()}")
+    for name, ok in checks.items():
+        log(f"[tp] {'ok  ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError(f"[tp] failed: {[n for n, ok in checks.items() if not ok]}")
+    return {"launches": launches, "gaps": gaps}
+
+
 def half_way_matrix(tiles_down, tiles_across, tile, seed):
     """An fp32 matrix whose every entry but one a tile sits exactly half-way
     between two integers of its tile's quantization grid (x/s = k + 1/2, no
@@ -4027,6 +4281,7 @@ def main() -> int:
     tiers = phase_tiers(torch, ops)
     dist = phase_dist(torch, ops, sl, ft, stream["arrival"])
     del ft
+    tp = phase_tp(torch, ops)
     srv = phase_serve(torch, ops)
     phase_serve_consistency(torch, ops)
     moe = phase_serve_moe(torch, ops)
@@ -4084,7 +4339,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:85",
          "launches": srv["full"]["launches"] + moe["full"]["launches"]
-         + sum(f["full"]["launches"] for f in fams.values()), **kern_flash},
+         + sum(f["full"]["launches"] for f in fams.values()) + tp["launches"], **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
     print(card())

@@ -21,12 +21,17 @@ tests' sizes, made to run on the port's one-process-a-rank model.
   through ``mesh_tree`` trees), the int8 wire's psum form, and the pod mesh.
 * :func:`train_program` — ``launch/train.py``'s ``run`` over the world's
   host mesh: phase 1, one FT round and its checkpoint, then a resume.
+* :func:`tp_program` — dense and MoE models tensor- and expert-parallel
+  over a ``(data, model)`` host mesh: the train forward, the features, a
+  prefill and teacher-forced decode steps, ``serve`` with its times and
+  peak memory, phase 1 of ``train.run``, and the refusals.
 
 The programs import nothing of the reference package: spawned ranks import
 this module by name.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -54,13 +59,25 @@ from repro_torch.federated.simulator import linear_head_task, pack_round
 from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
 from repro_torch.federated.tiers import TierSpec, AggregationTree, mesh_tree
 from repro_torch.configs.base import FederatedConfig
-from repro_torch.launch import train
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as serve_mod
+from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import (
     data_axes,
     data_parallel_size,
     make_host_mesh,
     make_tier_host_mesh,
     n_chips,
+)
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.moe import DropTally
+from repro_torch.sharding import hints
+from repro_torch.sharding.shard import (
+    local_rows,
+    seeded_factory,
+    shard_params,
+    shard_params_from,
 )
 from repro_torch.tree import tree_leaves
 
@@ -189,9 +206,6 @@ def layer_program(rank: int, world: int, device: torch.device) -> dict:
         "model_parallel=0": _raises(make_host_mesh, 0, device_type=dt),
         "pods=0": _raises(make_host_mesh, pods=0, device_type=dt),
         "pods=world+1": _raises(make_host_mesh, pods=world + 1, device_type=dt),
-        "model_parallel=2": _raises(make_host_mesh, 2, device_type=dt),
-        "tier model_parallel=2": _raises(make_tier_host_mesh, (world // 2,), (), 2,
-                                         device_type=dt),
         "tier shape": _raises(make_tier_host_mesh, (world + 1,), device_type=dt),
         "tier model name": _raises(make_tier_host_mesh, (world,), ("model",), device_type=dt),
         "tier names": _raises(make_tier_host_mesh, (2, world // 2), ("edge",), device_type=dt),
@@ -199,6 +213,16 @@ def layer_program(rank: int, world: int, device: torch.device) -> dict:
     mesh = make_host_mesh(device_type=dt)
     pods = make_host_mesh(pods=2, device_type=dt)
     tiers = make_tier_host_mesh((2, world // 2), device_type=dt)
+    # a "model" axis of 2: the meshes build, and a family whose sharded
+    # layers are not ported refuses to run under it
+    tp = make_host_mesh(2, device_type=dt)
+    tp_tiers = make_tier_host_mesh((world // 2,), (), 2, device_type=dt)
+    out["model_parallel=2"] = {
+        "host": (tp.mesh_dim_names, data_axes(tp), tuple(tp.mesh.shape)),
+        "tiers": (tp_tiers.mesh_dim_names, data_axes(tp_tiers), tuple(tp_tiers.mesh.shape)),
+        "ssm": _raises(serve_mod.serve, "mamba2-1.3b-smoke", batch=2, prompt_len=4, gen=2,
+                       verbose=False, device=device, mesh=tp),
+    }
     out["layouts"] = {
         "host": (mesh.mesh_dim_names, data_axes(mesh), data_parallel_size(mesh),
                  tuple(mesh.mesh.shape)),
@@ -414,3 +438,158 @@ def digest(tree: Any) -> List[bytes]:
     """The bytes of every array leaf (for equal-bits checks across ranks)."""
     return [np.ascontiguousarray(x).tobytes() for x in tree_leaves(tree)
             if isinstance(x, np.ndarray)]
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def _expert_offset_factory(factory, model_rank: int):
+    """``factory`` with the expert blocks of one model rank cut one expert
+    late (a planted fault: that rank runs its neighbour's experts)."""
+    def planted(path, shape, index, device):
+        if hints.model_rank() == model_rank and path.endswith(("moe/w_gate", "moe/w_up",
+                                                               "moe/w_down")):
+            e = index[0]
+            lo = (e.start or 0) + 1
+            if lo + (e.stop - e.start) <= shape[0]:
+                index = (slice(lo, lo + e.stop - e.start),) + tuple(index[1:])
+        return factory(path, shape, index, device)
+
+    return planted
+
+
+def _tp_params(cfg, mesh, dev, params_np, seed, fault):
+    if params_np is not None:
+        return shard_params(cfg, params_from_jax(cfg, params_np, dev), mesh)
+    factory = seeded_factory(seed)
+    if fault == "experts offset":
+        with hints.use_mesh(mesh):  # the factory reads the rank's model coordinate
+            return shard_params_from(cfg, _expert_offset_factory(factory, 1), mesh, dev)
+    return shard_params_from(cfg, factory, mesh, dev)
+
+
+def _forced(cfg, params, prompts, decode, dev) -> Dict[str, Any]:
+    """A prefill of ``prompts`` and one decode step a column of ``decode``
+    (teacher-forced): the logits, gathered over the vocab, and the prefill's
+    drop share."""
+    T = 0 if decode is None else decode.shape[1]
+    S = prompts.shape[1]
+    drops = DropTally() if cfg.arch_type == "moe" else None
+    logits, cache = steps.make_prefill_step(cfg, cache_capacity=S + T)(
+        params, {"tokens": prompts}, drops)
+    share = None if drops is None else drops.share()
+    dec = []
+    step = steps.make_decode_step(cfg)
+    for t in range(T):
+        lg, cache = step(params, cache, decode[:, t:t + 1], S + t)
+        dec.append(lg)
+    return {"prefill": logits, "decode": torch.stack(dec) if dec else None, "drop_share": share}
+
+
+def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
+           overrides: Dict[str, Any] = None, params: Any = None, seed: int = 0,
+           tokens: np.ndarray = None, prompts: np.ndarray = None, decode: np.ndarray = None,
+           serve: Dict[str, Any] = None, fault: str = None, on_cpu: bool = False) -> dict:
+    """One model on a ``(data, model)`` host mesh of the world: its blocks
+    of the reference's weights (``params``, numpy, through
+    ``params_from_jax``) or of ``seeded_factory(seed)``; the rank's rows of
+    ``tokens`` (the train forward's logits, its features and load-balance
+    loss, under ``torch.no_grad``) and of ``prompts`` (a prefill, then the
+    columns of ``decode`` teacher-forced); with ``serve`` (``gen`` and
+    ``dtype``), ``launch/serve.py``'s ``serve`` on the whole ``prompts``,
+    timed after a warm-up call (its times, flash launches, peak memory,
+    greedy tokens and logits, ``served``).  Returns
+    numpy arrays (the rank's rows, logits gathered over the vocab) and a
+    digest of them."""
+    dev = torch.device("cpu") if on_cpu else device
+    mesh = make_host_mesh(model, device_type=dev.type)
+    if hints.axis_sizes(mesh)["data"] != data:
+        raise ValueError(f"a world of {dist.get_world_size()} ranks has no (data {data}, "
+                         f"model {model}) mesh")
+    cfg = get_config(arch).replace(**(overrides or {}))
+    blocks = _tp_params(cfg, mesh, dev, params, seed, fault)
+    mdl = build_model(cfg)
+    out: Dict[str, Any] = {"coords": hints.coords(mesh)}
+
+    def rows(x):
+        return local_rows(torch.as_tensor(x, device=dev), mesh)
+
+    with hints.use_mesh(mesh), torch.no_grad():
+        if tokens is not None:
+            toks = rows(tokens)
+            fw = mdl.forward(blocks, {"tokens": toks})
+            out["logits"], out["aux"] = fw.logits, fw.aux_loss
+            out["features"] = mdl.extract_features(blocks, {"tokens": toks})
+        if prompts is not None and serve is None:
+            out.update(_forced(cfg, blocks, rows(prompts),
+                               None if decode is None else rows(decode), dev))
+    if serve is not None:
+        run = functools.partial(serve_mod.serve, arch, verbose=False, device=dev,
+                                dtype=serve.get("dtype"), params=blocks,
+                                prompts=torch.as_tensor(prompts, device=dev), mesh=mesh,
+                                n_layers=cfg.n_layers)
+        run(gen=2)  # a rank's first call loads the card's libraries and kernels: not timed
+        res = run(gen=serve["gen"])
+        out["served"] = res.logits
+        out["serve"] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                        "prefill_launches": res.prefill_launches,
+                        "decode_launches": res.decode_launches, "peak_bytes": res.peak_bytes,
+                        "drop_share": res.prefill_drop_share}
+        out["tokens"] = res.tokens
+        if decode is not None:
+            with hints.use_mesh(mesh), torch.no_grad():
+                out.update(_forced(cfg.replace(dtype=serve.get("dtype") or cfg.dtype), blocks,
+                                   rows(prompts), rows(decode), dev))
+    del blocks
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = np_({k: (v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+               for k, v in out.items()})
+    out["digest"] = digest({k: v for k, v in out.items() if k not in ("serve", "coords")})
+    return out
+
+
+def tp_refusals(rank: int, device: torch.device) -> dict:
+    """What the sharded layers refuse, as (exception type, message): serving
+    qwen2-7b-smoke at (1, 4), where its 2 kv heads make ``cache_specs`` pick
+    the sequence-sharded cache; mamba2-1.3b-smoke under "model" 2; and
+    ``train.run``'s phase 2 under "model" 2."""
+    dt = device.type
+    mesh4, mesh2 = make_host_mesh(4, device_type=dt), make_host_mesh(2, device_type=dt)
+    return {
+        "sequence cache": _raises(serve_mod.serve, "qwen2-7b-smoke", batch=2, prompt_len=12,
+                                  gen=4, verbose=False, device=device, mesh=mesh4),
+        "ssm": _raises(serve_mod.serve, "mamba2-1.3b-smoke", batch=2, prompt_len=8, gen=2,
+                       verbose=False, device=device, mesh=mesh2),
+        "train phase 2": _raises(train.run, TRAIN_ARCH, rounds=1, use_fed3r_init=False,
+                                 device=device, mesh=mesh2, verbose=False, **{
+                                     k: v for k, v in TRAIN.items()}),
+    }
+
+
+def tp_train_phase1(rank: int, device: torch.device, model: int) -> dict:
+    """``train.run``'s phase 1 over a host mesh with a "model" axis: the
+    feature pass tensor-parallel, the statistics over the data axis."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    got = train.run(TRAIN_ARCH, device=device, mesh=mesh, verbose=False, **TRAIN)
+    return np_({"A": got["stats"].A, "b": got["stats"].b, "W": got["W"],
+                "acc": got["fed3r_acc"]})
+
+
+def tp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict],
+               refusals: bool = False, train_model: int = 0) -> dict:
+    """Each job of ``jobs`` (keyword arguments of :func:`tp_job`, plus its
+    ``name``) on this rank; with ``refusals`` :func:`tp_refusals`, with
+    ``train_model`` > 0 :func:`tp_train_phase1` at that model axis."""
+    out: Dict[str, Any] = {}
+    for job in jobs:
+        job = dict(job)
+        name = job.pop("name")
+        out[name] = tp_job(rank, device, **job)
+    if refusals:
+        out["refusals"] = tp_refusals(rank, device)
+    if train_model:
+        out["train"] = tp_train_phase1(rank, device, train_model)
+    return out

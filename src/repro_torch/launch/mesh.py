@@ -11,14 +11,16 @@ world, built by ``init_device_mesh``.  The layouts are the reference's:
   the dist layer reduces innermost first;
 * :func:`make_tier_host_mesh` — one axis per aggregation tier, outermost
   (cloud) first, the leaf (edge) tier innermost, plus ``"model"``;
+* :func:`make_production_mesh` — the reference's production axis sizes;
 * :func:`data_axes` (every axis but ``"model"``), :func:`data_parallel_size`
   (the way count the packers pad to) and :func:`n_chips`.
 
-The ``"model"`` axis is always 1: tensor parallelism (ROADMAP Queue 1 item
-13) is not ported, and ``model_parallel > 1`` raises.  A mesh's
-``device_type`` is the card's by default (``"cpu"`` for gloo worlds on the
-CPU, as the tests run them); the backend is whatever the world was
-initialized with, and nothing here picks one.
+The ``"model"`` axis carries tensor and expert parallelism: the engines
+shard only over the data axes, and a dense or MoE model served under the
+mesh (:func:`repro_torch.sharding.hints.use_mesh`) splits its layers over
+``"model"``.  A mesh's ``device_type`` is the card's by default (``"cpu"``
+for gloo worlds on the CPU, as the tests run them); the backend is
+whatever the world was initialized with, and nothing here picks one.
 
 The bandwidth constants are the reference's pricing inputs for the tiers of
 an aggregation tree (:class:`repro_torch.federated.tiers.TierSpec`,
@@ -29,7 +31,7 @@ not measurements of any device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -46,11 +48,6 @@ TIER_BANDWIDTHS = {"ici": ICI_BW, "dcn": DCN_BW, "wan": WAN_BW}
 # The leaf tier keeps the name "edge"; a 1-tier mesh degenerates to it.
 _TIER_AXIS_NAMES = ("cloud", "region", "edge")
 
-_TENSOR_PARALLEL_LATER = (
-    "tensor parallelism over a 'model' axis > 1 is ROADMAP Queue 1 item 13"
-)
-
-
 def _world_size() -> int:
     if not dist.is_initialized():
         raise RuntimeError(
@@ -60,11 +57,18 @@ def _world_size() -> int:
     return dist.get_world_size()
 
 
-def _no_tensor_parallel(model_parallel: int) -> None:
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: {_TENSOR_PARALLEL_LATER}"
-        )
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production mesh as axis sizes only: ``{"data": 16,
+    "model": 16}``, with ``"pod": 2`` in front for the multi-pod layout.
+
+    The reference lays it over a 16 × 16 TPU pod (two over DCN); no card
+    host has that topology, so the port keeps the sizes, which the sharding
+    rules (:func:`repro_torch.sharding.specs.param_specs`) take as their
+    default, and builds no mesh from them.
+    """
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
 
 
 def make_host_mesh(
@@ -73,9 +77,9 @@ def make_host_mesh(
     """A mesh over every rank of the world, in the reference's layouts.
 
     ``pods=1`` builds ("data", "model"); ``pods > 1`` adds the leading
-    "pod" axis: ("pod", "data", "model").  Raises ``ValueError`` when the
-    world size does not factor as pods × data × model_parallel, and
-    ``NotImplementedError`` for ``model_parallel > 1``.
+    "pod" axis: ("pod", "data", "model").  Ranks are laid out row-major, so
+    a data group's model ranks are consecutive.  Raises ``ValueError`` when
+    the world size does not factor as pods × data × model_parallel.
     """
     n = _world_size()
     if model_parallel < 1 or pods < 1:
@@ -87,7 +91,6 @@ def make_host_mesh(
             f"{n} ranks do not factor as pods={pods} × data × "
             f"model_parallel={model_parallel}"
         )
-    _no_tensor_parallel(model_parallel)
     data = n // (model_parallel * pods)
     if pods > 1:
         return init_device_mesh(
@@ -110,7 +113,7 @@ def make_tier_host_mesh(
     are drawn from ("cloud", "region", "edge") right-aligned; deeper trees
     must name their axes.  Raises ``ValueError`` when the world size does
     not factor as prod(tier_shape) × model_parallel or names and shape
-    disagree, and ``NotImplementedError`` for ``model_parallel > 1``.
+    disagree.
     """
     if not tier_shape or any(s < 1 for s in tier_shape):
         raise ValueError(f"tier_shape must be non-empty positive ints, got {tier_shape}")
@@ -134,7 +137,6 @@ def make_tier_host_mesh(
             f"{n} ranks do not factor as tiers {tier_shape} × "
             f"model_parallel={model_parallel}"
         )
-    _no_tensor_parallel(model_parallel)
     return init_device_mesh(
         device_type,
         tuple(tier_shape) + (model_parallel,),

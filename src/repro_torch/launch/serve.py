@@ -19,6 +19,16 @@ Parameters stay fp32 and every product casts its weight to the activation
 dtype, as in every layer of the port: a decode step re-reads and re-casts
 all of them.
 
+With ``mesh`` (a host mesh whose ``"model"`` axis is larger than 1, one
+process a rank) a dense or MoE model is served tensor- and
+expert-parallel: each rank holds its block of every parameter (by default
+drawn leaf by leaf from ``sharding.shard.seeded_factory(seed)``, so no
+rank ever holds the whole model), its rows of the batch over the data
+axes, and its kv heads of the caches; the prefill runs the kernel on the
+rank's heads.  Under ``torchrun``, ``--model-parallel`` sets the axis and
+``--backend`` names the collective backend (required with more than one
+rank); rank 0 prints the times and every rank its peak memory.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b-smoke \
       --batch 4 --prompt-len 32 --gen 16 --device cpu
@@ -27,22 +37,31 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b-smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
       --batch 16 --prompt-len 224 --gen 64
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --backend gloo --model-parallel 4 \
+      --arch llama4-scout-17b-a16e --layers 2 --batch 4 --prompt-len 256 --gen 8
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.federated.dist import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.world import BACKENDS, init_world
 from repro_torch.models import build_model
 from repro_torch.models import moe
+from repro_torch.sharding import hints
+from repro_torch.sharding.shard import local_rows, seeded_factory, shard_params_from
 
 
 @dataclass
@@ -74,6 +93,8 @@ def serve(
     prompts: Optional[torch.Tensor] = None,
     patch_embeds: Optional[torch.Tensor] = None,
     audio_frames: Optional[torch.Tensor] = None,
+    mesh: Any = None,
+    n_layers: Optional[int] = None,
 ) -> ServeResult:
     """Prefill ``prompts`` (random (batch, prompt_len) tokens unless given;
     a VLM's ``patch_embeds`` (batch, n_patches, d) and an audio model's
@@ -81,14 +102,36 @@ def serve(
     ``gen`` tokens a sequence.  ``params`` (the port's layout, on
     ``device``) default to ``Model.init(seed)``; ``dtype`` overrides the
     config's activation dtype; the random prompts, patches, frames and samples
-    (``greedy=False``) draw from a ``torch.Generator`` seeded ``seed + 1``."""
+    (``greedy=False``) draw from a ``torch.Generator`` seeded ``seed + 1``.
+
+    With ``mesh``, ``params`` are the rank's blocks (by default
+    ``shard_params_from(cfg, seeded_factory(seed), mesh)``), the prompts
+    and inputs the whole batch, of which the rank serves its rows; the
+    result holds the rank's rows, the logits gathered over the vocab.
+    ``n_layers`` cuts the config's depth (a config too large for the host
+    served at its full width)."""
+    kw = dict(device=device, seed=seed, dtype=dtype, params=params, prompts=prompts,
+              patch_embeds=patch_embeds, audio_frames=audio_frames, mesh=mesh,
+              n_layers=n_layers)
+    if mesh is None:
+        return _serve(arch, batch, prompt_len, gen, greedy, verbose, **kw)
+    with hints.use_mesh(mesh):
+        return _serve(arch, batch, prompt_len, gen, greedy, verbose, **kw)
+
+
+def _serve(arch, batch, prompt_len, gen, greedy, verbose, *, device, seed, dtype, params,
+           prompts, patch_embeds, audio_frames, mesh, n_layers) -> ServeResult:
     cfg = get_config(arch)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    hints.check_family(cfg, "serving")
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
-        params = model.init(seed, dev)
+        params = (model.init(seed, dev) if mesh is None
+                  else shard_params_from(cfg, seeded_factory(seed), mesh, dev))
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed + 1)
     if prompts is None:
@@ -107,6 +150,9 @@ def serve(
         fed["audio_frames"] = (
             0.1 * torch.randn((batch, cfg.n_audio_frames, cfg.d_model), generator=rng, device=dev)
             if audio_frames is None else torch.as_tensor(audio_frames, device=dev))
+    if mesh is not None:  # this rank's rows
+        fed = {k: local_rows(v, mesh) for k, v in fed.items()}
+        batch = fed["tokens"].shape[0]
     prefill = steps.make_prefill_step(cfg, cache_capacity=off + prompt_len + gen)
     decode = steps.make_decode_step(cfg)
     on_card = dev.type == "cuda"
@@ -150,7 +196,7 @@ def serve(
         peak_bytes=torch.cuda.max_memory_allocated(dev) if on_card else None,
         prefill_drop_share=drops.share() if drops is not None else None,
     )
-    if verbose:
+    if verbose and (mesh is None or dist.get_rank() == 0):
         dropped = ("" if res.prefill_drop_share is None
                    else f"  prefill drop share {res.prefill_drop_share:.4f}")
         print(f"[{arch}] prefill({batch}x{prompt_len}): {t_prefill * 1e3:.1f}ms  "
@@ -167,8 +213,31 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None, help="cut the config's depth")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="collective backend when torchrun starts more than one rank")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the mesh's 'model' axis (the rest of the world is 'data')")
     args = ap.parse_args()
-    serve(args.arch, args.batch, args.prompt_len, args.gen, device=args.device)
+    device, mesh = args.device, None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.backend is None:
+            ap.error("more than one rank: name the collective backend with --backend")
+        device = init_world(args.backend, args.device)
+        mesh = make_host_mesh(args.model_parallel, device_type=device.type)
+    elif args.model_parallel > 1:
+        ap.error("--model-parallel > 1 needs one rank a model block: start the ranks with "
+                 "torchrun")
+    try:
+        res = serve(args.arch, args.batch, args.prompt_len, args.gen, device=device, mesh=mesh,
+                    n_layers=args.layers)
+        if mesh is not None:
+            peak = "n/a" if res.peak_bytes is None else f"{res.peak_bytes / 2**30:.3f} GiB"
+            print(f"[rank {dist.get_rank()}] peak memory {peak}  flash launches "
+                  f"prefill {res.prefill_launches} decode {res.decode_launches}", flush=True)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

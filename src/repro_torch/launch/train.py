@@ -29,7 +29,11 @@ phases under ``DistConfig(aggregation="psum", mesh=...)``: phase 1's shards
 and phase 2's cohort are split over the ranks, the statistics and the
 weighted deltas all-reduced.  Rank 0's parameters are broadcast first, so
 every rank starts from the same weights; only rank 0 prints and writes
-checkpoints.  With one rank the driver runs as a single process.
+checkpoints.  With one rank the driver runs as a single process.  With
+``--model-parallel`` > 1 the mesh has a "model" axis: phase 1's feature
+pass runs tensor-parallel over it (each rank its block of the backbone,
+:mod:`repro_torch.sharding.hints`), and phase 2, whose backward is not
+sharded, raises ``NotImplementedError``.
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch fed3r-mnv2-proxy \\
@@ -61,10 +65,12 @@ from repro_torch.federated.dist import DistConfig, broadcast_tree, resolve_devic
 from repro_torch.federated.engine import AccumulationEngine, EngineConfig
 from repro_torch.federated.round_engine import RoundConfig, RoundEngine
 from repro_torch.federated.sampling import sample_round
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import axis_size, make_host_mesh
 from repro_torch.launch.steps import make_cls_per_example_loss
 from repro_torch.launch.world import BACKENDS, init_world
 from repro_torch.models import build_model
+from repro_torch.sharding import hints
+from repro_torch.sharding.shard import shard_params
 from repro_torch.tree import tree_map
 
 RIDGE_LAMBDA = 0.01
@@ -80,6 +86,10 @@ def _partition(labels_np: np.ndarray, n_clients: int):
 def _dist(mesh: Any) -> DistConfig:
     """The engines' backend: merge in one process, psum over ``mesh``."""
     return DistConfig() if mesh is None else DistConfig(aggregation="psum", mesh=mesh)
+
+
+def _model_parallel(mesh: Any) -> int:
+    return 1 if mesh is None or "model" not in mesh.mesh_dim_names else axis_size(mesh, "model")
 
 
 def _writer(mesh: Any) -> bool:
@@ -115,10 +125,22 @@ def fed3r_phase(
     Every client contributes exactly once: the clients (a one-class-per-
     client split of ``ds``) are packed ``clients_per_round`` to a shard and
     folded by the engine (with ``mesh``, each rank folds its block of the
-    shards and the statistics are all-reduced).  The first fifth of ``ds`` is the test set; the
+    shards and the statistics are all-reduced; with a "model" axis the
+    features are extracted tensor-parallel, each rank from its block of
+    ``params``).  The first fifth of ``ds`` is the test set; the
     temperature is calibrated on the next 512 samples.  Returns the
     classifier, its calibrated form, the statistics and what was measured.
     """
+    kw = dict(n_clients=n_clients, clients_per_round=clients_per_round, device=device,
+              mesh=mesh, verbose=verbose)
+    if _model_parallel(mesh) > 1:  # the feature pass on the "model" axis alone: the data
+        with hints.use_mesh(mesh["model"]):  # shards stay apart, as one process folds them
+            return _fed3r_phase(cfg, shard_params(cfg, params, mesh), ds, **kw)
+    return _fed3r_phase(cfg, params, ds, **kw)
+
+
+def _fed3r_phase(cfg: ModelConfig, params: dict, ds: TokenDataset, *, n_clients: int,
+                 clients_per_round: int, device, mesh: Any, verbose: bool) -> dict:
     dev = resolve_device(device)
     model = build_model(cfg)
     tokens_np = ds.tokens.cpu().numpy()
@@ -242,8 +264,13 @@ def ft_phase(
     synchronize) with the real tokens its local training read.  With
     ``mesh`` each rank trains its block of the cohort, and only global rank
     0 reads and writes checkpoints: a resumed state travels from it by
-    broadcast.
+    broadcast.  A mesh with a "model" axis larger than 1 raises
+    ``NotImplementedError``: the backward is not sharded.
     """
+    if _model_parallel(mesh) > 1:
+        raise NotImplementedError(
+            f"fine-tuning (phase 2, the backward) under a 'model' axis of "
+            f"{_model_parallel(mesh)}: not implemented, {hints.ROADMAP_ITEM}")
     dev = resolve_device(device)
     model = build_model(cfg)
     clients = FtClients(ds, n_clients, clients_per_round, local_batch_size)
@@ -377,13 +404,15 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", choices=BACKENDS, default=None,
                     help="collective backend when torchrun starts more than one rank")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="size of the mesh's 'model' axis (phase 1 only)")
     args = ap.parse_args()
     device, mesh, verbose = args.device, None, True
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         if args.backend is None:
             ap.error("more than one rank: name the collective backend with --backend")
         device = init_world(args.backend, args.device)
-        mesh = make_host_mesh(device_type=device.type)
+        mesh = make_host_mesh(args.model_parallel, device_type=device.type)
         verbose = dist.get_rank() == 0
     try:
         run(

@@ -39,16 +39,29 @@ a layer instead of a copy of the whole cache a step); both return the cache.
 No step makes a device tensor from host data (``torch.tensor(..., device=)``
 blocks the host until the card drains its queue): positions are filled on
 the card and the mask value is a scalar.
+
+Under an ambient mesh with a ``"model"`` axis larger than 1
+(:mod:`repro_torch.sharding.hints`), each rank holds its block of the
+projections in the layout ``param_specs`` picks (:func:`tp_layout`): q, k
+and v column-parallel over their head axes, or row-parallel over d_model
+where the heads do not divide (the rank's slice of x times its rows, then
+an all-reduce, and the rank picks the kv heads its q heads need); ``wo``
+row-parallel over the heads (one all-reduce), or split over d_model where
+the heads do not divide.  The prefill runs the kernel on the rank's heads,
+and the KV cache holds the rank's kv heads, or every kv head where
+``cache_specs`` replicates it; the sequence-sharded cache is refused.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.sharding import hints
+from repro_torch.sharding.specs import kv_cache_layout
 
 Q_CHUNK = 1024  # query-chunk size of long sequences
 
@@ -111,7 +124,10 @@ def multihead_attention(
     """Exact GQA attention, query-chunked beyond ``2·Q_CHUNK``.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); q_pos: (Sq,); k_pos: (Sk,).
-    Returns (B, Sq, H, hd).
+    Returns (B, Sq, H, hd).  Queries that run chunk by chunk sit at
+    ``q_pos == arange(Sq)``, as every caller builds them: a windowed chunk's
+    key range starts from the chunk's offset, a Python int (reading it off
+    ``q_pos`` on the card would block the host once a chunk).
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -133,7 +149,7 @@ def multihead_attention(
         qc, pc = qg[:, s0 : s0 + Q_CHUNK], q_pos[s0 : s0 + Q_CHUNK]
         kc, vc, kpc = k, v, k_pos
         if use_slice:
-            start = min(max(int(pc[0]) - (window - 1), 0), Sk - slice_len)
+            start = min(max(s0 - (window - 1), 0), Sk - slice_len)
             kc = k[:, start : start + slice_len]
             vc = v[:, start : start + slice_len]
             kpc = k_pos[start : start + slice_len]
@@ -163,10 +179,27 @@ def dequantize_kv(cache: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
     return arr.to(dtype)
 
 
+def cache_kv_heads(cfg: ModelConfig, batch: int, capacity: int) -> int:
+    """The kv heads a rank's ring of ``capacity`` slots holds for its
+    ``batch`` rows: all of them without a "model" axis, else as
+    ``cache_specs`` lays the cache out (the rank's kv heads, or all where it
+    replicates the cache; the sequence-sharded cache is refused)."""
+    m = hints.model_size()
+    if m == 1:
+        return cfg.n_kv_heads
+    layout = kv_cache_layout(batch * hints.data_shards(), capacity, cfg.n_kv_heads, cfg.hd,
+                             hints.data_axes(), hints.axis_sizes())
+    if layout == "sequence":
+        hints.refuse(f"the sequence-sharded (context-parallel) KV cache of {capacity} slots "
+                     f"and {cfg.n_kv_heads} kv heads")
+    return cfg.n_kv_heads // m if layout == "heads" else cfg.n_kv_heads
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype: torch.dtype,
                device=None) -> dict:
-    """An empty ring cache: zeros, every slot's position −1."""
-    KV, hd = cfg.n_kv_heads, cfg.hd
+    """An empty ring cache: zeros, every slot's position −1 (under a "model"
+    axis, the rank's kv heads of it: :func:`cache_kv_heads`)."""
+    KV, hd = cache_kv_heads(cfg, batch, capacity), cfg.hd
     shape = (batch, capacity, KV, hd)
     pos = torch.full((capacity,), -1, dtype=torch.int32, device=device)
     if cfg.kv_cache_quant:
@@ -250,6 +283,65 @@ def _out_project(p: dict, y: torch.Tensor) -> torch.Tensor:
     return y.reshape(*y.shape[:2], H * hd) @ p["wo"].to(y.dtype).reshape(H * hd, d)
 
 
+class TPLayout(NamedTuple):
+    """How a rank's attention runs under a "model" axis: each projection
+    ``"heads"`` (split over its head axis), ``"rows"`` (over d_model: a
+    partial sum) or ``"full"`` (replicated); ``wo`` ``"heads"``, ``"cols"``
+    (its d_model outputs split) or ``"full"``; ``kv_sel`` the heads of the
+    rank's k and v that its q heads read (None: all of them)."""
+
+    q: str
+    kv: str
+    o: str
+    kv_sel: Optional[slice]
+
+
+def tp_layout(cfg: ModelConfig) -> Optional[TPLayout]:
+    """The rank's attention layout under the ambient mesh (None without a
+    "model" axis), from the rules of ``param_specs``."""
+    m = hints.model_size()
+    if m == 1:
+        return None
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def proj(name, heads):
+        spec = hints.layout(f"attn/{name}", (d, heads, hd))
+        return "heads" if spec[1] == "model" else "rows" if spec[0] == "model" else "full"
+
+    q, kv = proj("wq", H), proj("wk", KV)
+    wo = hints.layout("attn/wo", (H, hd, d))
+    o = "heads" if wo[0] == "model" else "cols" if wo[2] == "model" else "full"
+    kv_sel = None
+    if q == "heads" and kv != "heads":  # every kv head here: pick the rank's q heads' own
+        Hl, G = H // m, H // KV
+        h0 = hints.model_rank() * Hl
+        if Hl % G and G % Hl:
+            hints.refuse(f"{Hl} q heads a rank in kv groups of {G}")
+        kv_sel = slice(h0 // G, h0 // G + max(Hl // G, 1))
+    return TPLayout(q, kv, o, kv_sel)
+
+
+def _tp_project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], mode: str
+                ) -> torch.Tensor:
+    """A projection in ``mode``: a row-parallel one takes the rank's slice
+    of x's d_model and all-reduces its partial product (then the replicated
+    bias); otherwise the rank's (or every) head of it."""
+    if mode == "rows":
+        dl = w.shape[0]
+        r = hints.model_rank()
+        y = hints.reduce_model(_project(x[..., r * dl:(r + 1) * dl], w))
+    else:
+        y = _project(x, w)
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _tp_out(tp: TPLayout, p: dict, y: torch.Tensor, reduce: bool) -> torch.Tensor:
+    out = _out_project(p, y)
+    if tp.o == "cols":  # this rank's d_model outputs, the others' zero in its sum
+        return hints.finish(hints.pad_block(out, -1), partial=True, reduce=reduce)
+    return hints.finish(out, partial=tp.o == "heads", reduce=reduce)
+
+
 def attn_apply(
     cfg: ModelConfig,
     p: dict,
@@ -262,6 +354,7 @@ def attn_apply(
     decode_pos: Optional[int] = None,
     build_cache: bool = False,
     cache_capacity: Optional[int] = None,
+    reduce: bool = True,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention layer.
 
@@ -273,13 +366,25 @@ def attn_apply(
         encoder's prefill) -> (y, None), the kernel with causal off;
       * decode: ``cache`` set, x is (B, 1, d), ``decode_pos`` the token's
         absolute position -> (y, the cache updated in place).
+
+    Under a "model" axis, ``reduce=False`` returns the rank's partial sum
+    of y (``hints.finish``) for a block that all-reduces several at once.
     """
     B, S, _ = x.shape
-    q = _project_q(p, x)
-    k, v = _project_kv(p, x)
+    tp = tp_layout(cfg)
+    if tp is None:
+        q = _project_q(p, x)
+        k, v = _project_kv(p, x)
+    else:
+        q = _tp_project(x, p["wq"], p.get("bq"), tp.q)
+        k = _tp_project(x, p["wk"], p.get("bk"), tp.kv)
+        v = _tp_project(x, p["wv"], p.get("bv"), tp.kv)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
+
+    def sel(t: torch.Tensor) -> torch.Tensor:  # the kv heads this rank's q heads read
+        return t if tp is None or tp.kv_sel is None else t[:, :, tp.kv_sel].contiguous()
 
     if cache is not None:  # decode: one new token against the ring buffer
         if S != 1 or decode_pos is None:
@@ -288,18 +393,21 @@ def attn_apply(
         cache = cache_decode_update(cache, k, v, decode_pos)
         q_pos = torch.full((1,), decode_pos, dtype=torch.int32, device=x.device)
         y = multihead_attention(
-            q, dequantize_kv(cache, "k", x.dtype), dequantize_kv(cache, "v", x.dtype),
+            q, sel(dequantize_kv(cache, "k", x.dtype)), sel(dequantize_kv(cache, "v", x.dtype)),
             q_pos, cache["pos"], window=window, bidirectional=False,
         )
     elif build_cache:  # prefill
-        y = ops.flash_attention(q, k, v, causal=not bidirectional, window=window)
+        y = ops.flash_attention(q, sel(k), sel(v), causal=not bidirectional, window=window)
         if not bidirectional:  # an encoder's keys serve this pass only
             cap = cache_capacity or (window if window else S)
             cache = fill_cache_from_prefill(init_cache(cfg, B, cap, k.dtype, x.device), k, v, S)
     else:
         pos = torch.arange(S, device=x.device)
-        y = multihead_attention(q, k, v, pos, pos, window=window, bidirectional=bidirectional)
-    return _out_project(p, y), cache
+        y = multihead_attention(q, sel(k), sel(v), pos, pos, window=window,
+                                bidirectional=bidirectional)
+    if tp is None:
+        return _out_project(p, y), cache
+    return _tp_out(tp, p, y, reduce), cache
 
 
 def cross_attn_apply(

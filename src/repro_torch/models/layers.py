@@ -11,6 +11,12 @@ The port of the reference's ``models/layers.py``, with its conventions:
 
 Randomness comes from a ``torch.Generator``; the draws match the
 reference's in distribution, not in bits.
+
+Under an ambient mesh with a ``"model"`` axis larger than 1
+(:mod:`repro_torch.sharding.hints`) the MLP runs column-parallel up and
+row-parallel down, the embedding looks up its vocab rows, and the LM head
+produces the rank's vocab columns; each holds only its block of its
+parameters.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import hints
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -89,7 +96,20 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+    """The MLP of hidden width ``cfg.d_ff``.  Under a "model" axis its
+    hidden axis is split (``w_gate``/``w_up`` by columns, ``w_down`` by
+    rows) and the rank's partial sums are all-reduced; without ``reduce``
+    the rank's partial sum is returned (see ``hints.finish``)."""
+    if hints.model_size() == 1:
+        return _mlp(cfg, p, x, bias_down=True)
+    split = hints.layout("mlp/w_up", (cfg.d_model, cfg.d_ff))[1] == "model"
+    # b_down is replicated: it joins one rank's partial sum only
+    y = _mlp(cfg, p, x, bias_down=not split or hints.model_rank() == 0)
+    return hints.finish(y, partial=split, reduce=reduce)
+
+
+def _mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, bias_down: bool) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp_type in ("swiglu", "geglu"):
         act = F.silu if cfg.mlp_type == "swiglu" else gelu
@@ -97,7 +117,8 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         u = x @ p["w_up"].to(dt)
         return (g * u) @ p["w_down"].to(dt)
     h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+    y = h @ p["w_down"].to(dt)
+    return y + p["b_down"].to(dt) if bias_down else y
 
 
 # ---------------------------------------------------------------------------
@@ -208,12 +229,46 @@ def embed_apply(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     return F.embedding(tokens.long(), p["embedding"]).to(dtype)
 
 
+def _vocab_split(cfg: ModelConfig, tied_table: bool) -> bool:
+    """Whether the embedding table (``tied_table``) or the LM head is split
+    on its vocab axis under the ambient mesh; a d_model split is refused."""
+    V, d = cfg.padded_vocab, cfg.d_model
+    if tied_table:
+        spec, vocab_dim, what = hints.layout("embed/embedding", (V, d)), 0, "embedding"
+    else:
+        spec, vocab_dim, what = hints.layout("lm_head/kernel", (d, V)), 1, "LM head"
+    if spec.is_replicated():
+        return False
+    if spec[vocab_dim] != "model":
+        hints.refuse(f"a d_model-sharded {what} ({spec!r})")
+    return True
+
+
+def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """:func:`embed_apply` of ``cfg``'s table; under a "model" axis that
+    splits the vocab, the rank looks up its own rows, zeroes the others and
+    the ranks' rows are summed (exact: one rank holds each row)."""
+    if hints.model_size() == 1 or not _vocab_split(cfg, tied_table=True):
+        return embed_apply(p, tokens, dtype)
+    table = p["embedding"]
+    n = table.shape[0]
+    local = tokens.long() - hints.model_rank() * n
+    hit = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table)
+    rows = torch.where(hit[..., None], rows, 0.0)  # a scalar: no host-to-device copy
+    return hints.reduce_model(rows).to(dtype)  # the fp32 rows, summed exactly
+
+
 def unembed_apply(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Project hidden states to vocab logits (tied or separate head).
 
     The table is padded to ``cfg.padded_vocab``; padded columns are masked
-    to −1e30 so softmax/CE semantics are unchanged.
+    to −1e30 so softmax/CE semantics are unchanged.  Under a "model" axis
+    that splits the vocab each rank computes its own columns (masked by
+    their global index) and the ranks' columns are concatenated.
     """
+    split = hints.model_size() > 1 and _vocab_split(cfg, tied_table=cfg.tie_embeddings)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["embedding"].to(x.dtype).T
     else:
@@ -222,7 +277,9 @@ def unembed_apply(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tens
         cap = cfg.attn_logit_softcap
         logits = cap * torch.tanh(logits / cap)
     if cfg.padded_vocab > cfg.vocab_size:
-        col = torch.arange(logits.shape[-1], device=logits.device)
+        n = logits.shape[-1]
+        col0 = hints.model_rank() * n if split else 0
+        col = torch.arange(col0, col0 + n, device=logits.device)
         # a Python scalar: a tensor built here would be a blocking host-to-device copy
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
-    return logits
+    return hints.gather_model(logits, -1) if split else logits

@@ -31,6 +31,15 @@ states, RG-LRU states, or a decoder layer's ``{"self": ring, "cross":
 (k, v)}``; decode updates them in place.  The forward returns the MoE
 load-balance loss summed over the layers (0 for any other model), which
 ``lm_loss`` adds at ``router_aux_coef``.
+
+Under an ambient mesh (:func:`repro_torch.sharding.hints.use_mesh`) with a
+``"model"`` axis larger than 1, a dense or MoE model runs tensor- and
+expert-parallel on the rank's blocks of the parameters
+(:func:`repro_torch.sharding.shard.shard_params`) and the rank's rows of
+the batch (its block over the data axes): the logits it returns are
+gathered over the vocab, the hidden states and features are the same on
+every model rank, and the caches hold the rank's kv heads.  Any other
+family raises ``NotImplementedError`` there.
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ from repro_torch.federated.dist import resolve_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
-    embed_apply,
+    embed_tokens,
     mrope_angles,
     norm_apply,
     norm_init,
@@ -52,6 +61,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed_apply,
 )
+from repro_torch.sharding import hints
 from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -157,6 +167,7 @@ def forward(
     ``batch["audio_frames"]`` outside decode.  ``drops`` sums the entries
     the MoE layers' capacity dropped."""
     check_family(cfg, "forward")
+    hints.check_family(cfg, "the forward")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and decode_pos is None:
@@ -165,7 +176,7 @@ def forward(
         return _forward_encdec(cfg, params, batch, mode=mode, cache=cache, decode_pos=decode_pos,
                                cache_capacity=cache_capacity, return_logits=return_logits)
     dtype = compute_dtype(cfg)
-    x = embed_apply(params["embed"], batch["tokens"], dtype)
+    x = embed_tokens(cfg, params["embed"], batch["tokens"], dtype)
     if cfg.arch_type == "hybrid":
         # gemma-style scaling by √d rounded to the compute dtype first (the
         # reference's jnp.asarray(d ** 0.5, dtype)); a Python scalar, so no
@@ -236,7 +247,7 @@ def _forward_encdec(
     tokens = batch["tokens"]
     start = int(decode_pos) if mode == "decode" else 0
     pos_emb = dec_positions(params, start, tokens.shape[1])
-    x = embed_apply(params["embed"], tokens, dtype) + pos_emb.to(dtype)
+    x = embed_tokens(cfg, params["embed"], tokens, dtype) + pos_emb.to(dtype)
     h, new_cache, aux = tfm.apply_stack(
         cfg, "dec", params["dec_layers"], x, mode=mode, cache=cache,
         decode_pos=None if decode_pos is None else int(decode_pos),
@@ -254,6 +265,7 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
     an audio model's decoder layers a ring and zero cross (k, v) of
     (batch, n_audio_frames, KV, hd)."""
     check_family(cfg, "caches")
+    hints.check_family(cfg, "the caches")
     dtype, dev = compute_dtype(cfg), resolve_device(device)
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)

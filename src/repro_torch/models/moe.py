@@ -36,22 +36,32 @@ Nothing here waits on the host (no ``nonzero``, boolean indexing or
 :class:`DropTally` passed down from the model's forward sums the dropped
 entries on the device; reading it is the caller's one host sync.
 
-Groups: the reference computes capacity positions within G token groups,
-G the mesh's ``"data"`` axis size (1 without a mesh).  The port's model code
-has no mesh, so G = 1 here, as in the reference without one; the
-group-local form and expert parallelism wait for ROADMAP Queue 1 item 13.
+Groups: capacity positions are group-local, as in the reference: G token
+groups, G the ambient mesh's ``"data"`` axis size (1 without a mesh),
+halved while it does not divide the global token count; each group holds
+Cg = max(8, ⌈C/G⌉) slots an expert, C taken from the global token count.
+The groups are token-major, and a data rank's batch rows are its group, so
+a rank counts positions over its own tokens only.  Under a ``"model"``
+axis the experts are expert-parallel on the E axis (a rank dispatches to
+and runs only its block of experts; where E does not divide, every rank
+runs every expert on its slice of the hidden axis), the shared expert is
+the MLP's column/row split, and y is all-reduced once over ``"model"``;
+routing runs whole on every rank.  The load-balance loss averages the
+router statistics over the data ranks, and :meth:`DropTally.share` sums
+its counts over them.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+from repro_torch.sharding import hints
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -88,27 +98,66 @@ class DropTally:
 
     dropped: Optional[torch.Tensor] = None  # 0-dim int64 on the activations' device
     routed: int = 0
+    mesh: Any = None  # the ambient mesh of the calls counted: shares sum its data ranks
 
     def add(self, kept: torch.Tensor) -> None:
         n = kept.numel() - kept.sum()
         self.dropped = n if self.dropped is None else self.dropped + n
         self.routed += kept.numel()
+        self.mesh = hints.get_mesh()
 
     def share(self) -> float:
-        """Dropped / routed; reads the device count (one host sync)."""
-        return float(self.dropped) / self.routed if self.routed else 0.0
+        """Dropped / routed, summed over the data ranks of the mesh the
+        counts were taken under; reads the device count (one host sync)."""
+        if not self.routed:
+            return 0.0
+        counts = torch.stack([self.dropped.to(torch.float64),
+                              torch.full_like(self.dropped, self.routed, dtype=torch.float64)])
+        dropped, routed = hints.reduce_data(counts, self.mesh).tolist()
+        return dropped / routed
+
+
+def moe_groups(n_tokens: int) -> Tuple[int, int]:
+    """(G, the global token count) for a rank's ``n_tokens``: G the ambient
+    "data" axis size, halved while it does not divide the global count; the
+    global count is ``n_tokens`` times the data shards."""
+    dp = hints.data_shards()
+    G = max(hints.mesh_axis_size("data"), 1)
+    total = n_tokens * dp
+    while total % G:
+        G //= 2
+    G = max(G, 1)
+    if G != dp:  # a group spans several data ranks' tokens (or a "pod" axis)
+        hints.refuse(f"MoE capacity groups of {G} over {dp} data shards")
+    return G, total
+
+
+def _expert_layout(cfg: ModelConfig) -> Tuple[str, int]:
+    """("experts" | "hidden" | "full", the rank's first expert): how the
+    routed experts are split under the ambient "model" axis."""
+    if hints.model_size() == 1:
+        return "full", 0
+    spec = hints.layout("moe/w_gate", (cfg.n_experts, cfg.d_model, cfg.d_expert))
+    if spec[0] == "model":
+        return "experts", hints.model_rank() * (cfg.n_experts // hints.model_size())
+    return ("hidden" if spec[2] == "model" else "full"), 0
 
 
 def moe_apply(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, drops: Optional[DropTally] = None
+    cfg: ModelConfig, p: dict, x: torch.Tensor, drops: Optional[DropTally] = None,
+    reduce: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d), the load-balance loss, fp32 scalar);
-    ``drops`` sums the entries this call dropped."""
+    ``drops`` sums the entries this call dropped.  Under a "model" axis,
+    ``reduce=False`` returns the rank's partial sum of y (``hints.finish``)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     dt = x.dtype
     xf = x.reshape(T, d)
+    G, T_all = moe_groups(T)
+    layout, e0 = _expert_layout(cfg)
+    E_local = p["w_gate"].shape[0]
 
     # routing (fp32)
     logits = (xf @ p["router"].to(dt)).to(torch.float32)  # (T, E)
@@ -123,20 +172,31 @@ def moe_apply(
     onehot = torch.zeros((E, T * k), dtype=torch.int32, device=x.device)
     onehot.scatter_(0, idx[None, :], 1)
     pos = onehot.cumsum(1).gather(0, idx[None, :])[0] - 1  # (T·k,)
-    C = _capacity(cfg, T)
+    C = max(8, -(-_capacity(cfg, T_all) // G))  # a group's slots an expert
     kept = pos < C
 
-    # load-balance loss (Switch/Gshard form)
+    # load-balance loss (Switch/Gshard form), over every data rank's tokens
     me = probs.mean(dim=0)
     dispatch_frac = onehot.reshape(E, T, k).sum(dim=2).to(torch.float32).mean(dim=1) / k
+    if G > 1:  # equal token counts a rank: the global means are the ranks' mean
+        stats = hints.reduce_data(torch.stack([me, dispatch_frac])) / G
+        me, dispatch_frac = stats[0], stats[1]
     aux = E * torch.sum(me * dispatch_frac)
     if drops is not None:
         drops.add(kept)
 
-    # dispatch: kept entries to their (expert, slot), dropped ones to slot C
-    buf = torch.zeros((E, C + 1, d), dtype=dt, device=x.device)
-    slot = torch.where(kept, pos, C)
-    buf.index_put_((idx.reshape(T, k), slot.reshape(T, k)), xf[:, None, :])
+    # dispatch: kept entries to their (expert, slot), dropped ones to slot C;
+    # under expert parallelism another rank's entries land in slot C too
+    here = kept
+    eidx = idx
+    if layout == "experts":
+        eidx = idx - e0
+        mine = (eidx >= 0) & (eidx < E_local)
+        here = kept & mine
+        eidx = torch.where(mine, eidx, 0)
+    buf = torch.zeros((E_local, C + 1, d), dtype=dt, device=x.device)
+    slot = torch.where(here, pos, C)
+    buf.index_put_((eidx.reshape(T, k), slot.reshape(T, k)), xf[:, None, :])
     buf = buf[:, :C]
 
     # the experts: three batched products over (E, C, ·)
@@ -146,10 +206,13 @@ def moe_apply(
     del buf, g, u
 
     # combine: each entry's row (dropped ones read slot C − 1, times 0)
-    y_rep = h[idx, pos.clamp(max=C - 1)] * kept.to(dt)[:, None]  # (T·k, d)
+    y_rep = h[eidx, pos.clamp(max=C - 1)] * here.to(dt)[:, None]  # (T·k, d)
     w = top_p.reshape(T * k).to(dt)[:, None]
     y = (y_rep * w).reshape(T, k, d).sum(dim=1)
 
+    shared_cfg = cfg.replace(mlp_type="swiglu", d_ff=cfg.n_shared_experts * cfg.d_expert)
+    # one all-reduce of the routed and shared partial sums (none without a model axis)
+    y = hints.finish(y, partial=layout != "full", reduce=False)
     if "shared" in p:
-        y = y + mlp_apply(cfg.replace(mlp_type="swiglu"), p["shared"], xf)
-    return y.reshape(B, S, d), aux
+        y = y + mlp_apply(shared_cfg, p["shared"], xf, reduce=False)
+    return hints.finish(y, partial=True, reduce=reduce).reshape(B, S, d), aux

@@ -19,6 +19,11 @@ here every stack is a list of per-layer parameter dicts in layer order
 (``cfg.pattern_for``), the caches a list of per-layer cache dicts, and the
 scan a Python loop.  A block returns its MoE load-balance loss (None for
 any other block) and the stack sums them.
+
+Under a ``"model"`` axis larger than 1 (:mod:`repro_torch.sharding.hints`,
+the dense and MoE families) a block all-reduces once after attention and
+once after the FFN, a ``parallel_block`` once for a + f together; the
+block recompute of a gradient is not sharded and raises.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attn_apply, attn_init, cross_attn_apply
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+from repro_torch.sharding import hints
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -75,11 +81,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str = "attn") -> di
     raise ValueError(f"unknown block kind {kind!r} of a {cfg.arch_type!r} model")
 
 
-def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, drops: Optional[moe_mod.DropTally]
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, drops: Optional[moe_mod.DropTally],
+         reduce: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     if "moe" in p:
-        return moe_mod.moe_apply(cfg, p["moe"], h, drops)
-    return mlp_apply(cfg, p["mlp"], h), None
+        return moe_mod.moe_apply(cfg, p["moe"], h, drops, reduce=reduce)
+    return mlp_apply(cfg, p["mlp"], h, reduce=reduce), None
 
 
 def block_apply(
@@ -140,14 +146,17 @@ def block_apply(
         return x, new_cache, None
     if kind != "attn":
         raise ValueError(f"unknown block kind {kind!r}")
+    # under a "model" axis: one all-reduce after the attention and one after
+    # the FFN, or, in a parallel block, one of both
+    par = cfg.parallel_block and hints.model_size() > 1
     a, new_cache = attn_apply(
         cfg, p["attn"], h, angles=angles, window=window,
         cache=cache if decode else None, decode_pos=decode_pos,
-        build_cache=build, cache_capacity=cache_capacity,
+        build_cache=build, cache_capacity=cache_capacity, reduce=not par,
     )
     if cfg.parallel_block:
-        f, aux = _ffn(cfg, p, h, drops)
-        return x + a + f, new_cache, aux
+        f, aux = _ffn(cfg, p, h, drops, reduce=not par)
+        return (x + hints.reduce_model(a + f) if par else x + a + f), new_cache, aux
     x = x + a
     h = norm_apply(cfg, p["norm2"], x)
     f, aux = _ffn(cfg, p, h, drops)
@@ -249,6 +258,8 @@ def apply_stack(
     if mode == "decode" and (cache is None or len(cache) != len(layers)):
         raise ValueError("decode needs one cache a layer")
     recompute = mode == "train" and torch.is_grad_enabled()
+    if recompute and hints.model_size() > 1:
+        hints.refuse("the backward (train mode under a gradient; torch.no_grad for a forward)")
     if recompute and drops is not None:
         raise ValueError("drops are counted outside a gradient (torch.no_grad)")
     kinds = [kind] * len(layers) if isinstance(kind, str) else kind

@@ -1,1 +1,2 @@
-"""Which block of a batch-carrying axis each rank holds."""
+"""Partition specs, the ambient mesh the layers read, and cutting parameters
+into a rank's blocks."""

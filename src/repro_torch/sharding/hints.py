@@ -1,0 +1,210 @@
+"""The ambient mesh that the model's layers read, and their collectives.
+
+The port's counterpart of the reference's ``sharding/hints.py`` and
+``sharding/compat.py``.  The reference's layers run on whole arrays inside
+one SPMD program, and ``hint(x, *tokens)`` constrains how GSPMD lays out an
+intermediate; GSPMD then inserts the collectives.  The port runs one
+process a rank and a rank holds only its block of every parameter
+(:mod:`repro_torch.sharding.shard`), so ``hint`` needs no counterpart: a
+layer computes on its blocks and calls the collective where GSPMD would
+insert it (:func:`reduce_model`, :func:`gather_model`).  ``compat.py`` is a
+shim over JAX versions for the ambient-mesh API; its counterpart is the
+slot here (:func:`set_mesh`, :func:`get_mesh`, :func:`use_mesh`), not a
+copy.
+
+With no mesh set — the unit tests, one card, the engines' data-parallel
+paths, which pass their mesh explicitly — :func:`mesh_axis_size` and
+:func:`data_shards` return 1, as the reference's do, and every layer runs
+exactly its unsharded code.  Under a mesh whose ``"model"`` axis is larger
+than 1, the dense and MoE layers run tensor- and expert-parallel in the
+layouts :func:`repro_torch.sharding.specs.param_specs` picks:
+
+* attention: q/k/v column-parallel over the (kv-)head axis and ``wo``
+  row-parallel (one all-reduce); where a projection falls back to d_model
+  it is row-parallel (the rank's slice of x times its rows, then an
+  all-reduce) and each rank picks the kv heads its q heads need; the KV
+  cache holds the rank's kv heads, or all of them where the rules
+  replicate it;
+* the MLP and the MoE's shared expert column-parallel up, row-parallel
+  down (one all-reduce); the routed experts expert-parallel on the E axis
+  (a rank dispatches to and runs its experts only), or, where E does not
+  divide, split on their hidden axis;
+* the embedding vocab-sharded (a rank looks up its rows, zeroes the rest,
+  all-reduces) and the LM head vocab-sharded (rank-local logits, gathered
+  where logits are returned, the padded-vocab mask on the global column).
+
+A replicated leaf is computed whole on every rank and never all-reduced.
+Every reduction runs in fp32 over the ``"model"`` group and is cast back
+once; a rank's partial sum of a replicated product is that product on
+model rank 0 and zeros elsewhere (:func:`as_partial`).  What these layers
+do not implement raises ``NotImplementedError`` (:func:`refuse`): the
+sequence-sharded KV cache, a d_model-sharded embedding or LM head, the
+SSM, hybrid, VLM and audio families and the backward under ``"model"`` > 1.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+ROADMAP_ITEM = "ROADMAP Queue 1 item 13b(ii)"
+TP_FAMILIES = ("dense", "moe")  # the arch_types whose layers run under "model" > 1
+
+# the ambient mesh with its axis sizes and this rank's coordinates, read
+# once (a DeviceMesh recomputes its layout on every read of .mesh)
+_AMBIENT: List[Tuple[Any, Dict[str, int], Dict[str, int]]] = []
+
+
+def _read(mesh: Any) -> Tuple[Dict[str, int], Dict[str, int]]:
+    names = tuple(mesh.mesh_dim_names)
+    sizes = {a: int(s) for a, s in zip(names, mesh.mesh.shape)}
+    return sizes, {a: int(mesh.get_local_rank(a)) for a in names}
+
+
+def set_mesh(mesh: Any) -> None:
+    """Make ``mesh`` (a ``DeviceMesh``, or None to clear) the ambient mesh."""
+    _AMBIENT[:] = [] if mesh is None else [(mesh, *_read(mesh))]
+
+
+def get_mesh() -> Optional[Any]:
+    """The ambient mesh, or None."""
+    return _AMBIENT[-1][0] if _AMBIENT else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Any) -> Iterator[Any]:
+    """``mesh`` as the ambient mesh inside the block, the previous one after."""
+    prev = list(_AMBIENT)
+    set_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT[:] = prev
+
+
+def axis_sizes(mesh: Any = None) -> Dict[str, int]:
+    """{axis name: size} of ``mesh`` (default: the ambient one; {} without)."""
+    if mesh is None:
+        return dict(_AMBIENT[-1][1]) if _AMBIENT else {}
+    return _read(mesh)[0]
+
+
+def coords(mesh: Any = None) -> Dict[str, int]:
+    """{axis name: this rank's index along it} of ``mesh`` (default: ambient)."""
+    if mesh is None:
+        return dict(_AMBIENT[-1][2]) if _AMBIENT else {}
+    return _read(mesh)[1]
+
+
+def mesh_axis_size(name: str) -> int:
+    """Size of an ambient-mesh axis (1 when no mesh is set)."""
+    return _AMBIENT[-1][1].get(name, 1) if _AMBIENT else 1
+
+
+def data_shards() -> int:
+    """Product of the non-"model" (batch-carrying) axis sizes; 1 if none."""
+    n = 1
+    for a, s in axis_sizes().items():
+        if a != "model":
+            n *= s
+    return n
+
+
+def model_size() -> int:
+    return mesh_axis_size("model")
+
+
+def model_rank() -> int:
+    """This rank's index along "model" (0 without a mesh)."""
+    return _AMBIENT[-1][2].get("model", 0) if _AMBIENT else 0
+
+
+def data_axes() -> tuple:
+    return tuple(a for a in axis_sizes() if a != "model")
+
+
+def layout(path: str, shape) -> Any:
+    """The full-rank spec the rules give the parameter at ``path`` (e.g.
+    ``"attn/wq"``) of global ``shape`` under the ambient "model" axis."""
+    from repro_torch.sharding.specs import rule_spec
+
+    return rule_spec(path, shape, {"model": model_size()}).full(len(shape))
+
+
+def refuse(what: str) -> None:
+    """Raise for a layout or path this slice does not implement."""
+    raise NotImplementedError(f"{what} under a 'model' axis of {model_size()}: not "
+                              f"implemented, {ROADMAP_ITEM}")
+
+
+def check_family(cfg: Any, what: str) -> None:
+    """Refuse a family whose sharded layers are not ported, under "model" > 1."""
+    if model_size() > 1 and cfg.arch_type not in TP_FAMILIES:
+        refuse(f"{what} of a {cfg.arch_type!r} model ({cfg.name})")
+
+
+def _group(axis: str):
+    return get_mesh().get_group(axis)
+
+
+def reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over the "model" ranks (x itself without a model axis),
+    in fp32, returned in x's dtype; x is not written."""
+    if model_size() == 1:
+        return x
+    t = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(t, group=_group("model"))
+    return t.to(x.dtype)
+
+
+def pad_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Model rank r's block ``x`` placed at block r of ``dim``, zeros
+    elsewhere: the partial form of the ranks' blocks concatenated."""
+    m = model_size()
+    if m == 1:
+        return x
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    full = list(x.shape)
+    full[dim] = n * m
+    t = torch.zeros(full, dtype=x.dtype, device=x.device)
+    t.narrow(dim, model_rank() * n, n).copy_(x)
+    return t
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' blocks ``x`` concatenated along ``dim`` (exact: each
+    entry is one rank's, the others add zeros)."""
+    return reduce_model(pad_block(x, dim))
+
+
+def as_partial(y: torch.Tensor) -> torch.Tensor:
+    """A replicated value in the partial form (its sum over the model ranks
+    is ``y``): ``y`` on model rank 0, zeros elsewhere."""
+    return y if model_rank() == 0 else torch.zeros_like(y)
+
+
+def finish(y: torch.Tensor, partial: bool, reduce: bool) -> torch.Tensor:
+    """A layer's output: ``y`` is a rank's partial sum (``partial``) or the
+    whole replicated value; ``reduce`` asks for the whole value, else the
+    partial form, for a caller that sums several partials in one
+    all-reduce."""
+    if reduce:
+        return reduce_model(y) if partial else y
+    return y if partial else as_partial(y)
+
+
+def reduce_data(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """Sum of ``x`` over every data axis of ``mesh`` (default: ambient), in
+    x's dtype; x itself without one."""
+    sizes = axis_sizes(mesh)
+    mesh = get_mesh() if mesh is None else mesh
+    axes = [a for a, n in sizes.items() if a != "model" and n > 1]
+    if not axes:
+        return x
+    t = x.clone().contiguous()
+    for a in reversed(axes):
+        dist.all_reduce(t, group=mesh.get_group(a))
+    return t

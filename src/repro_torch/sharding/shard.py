@@ -1,0 +1,175 @@
+"""Cut a model's parameters into a rank's blocks.
+
+A rank of a mesh with a ``"model"`` axis holds only its block of every
+parameter, the block :func:`repro_torch.sharding.specs.param_specs` gives
+it (tensor and expert parallelism; no FSDP: the layers never gather a
+parameter):
+
+* :func:`shard_params` cuts a whole tree, e.g. the reference's weights
+  carried over by :func:`repro_torch.models.convert.params_from_jax`;
+* :func:`shard_params_from` asks a factory for each block, leaf by leaf,
+  so that a rank never holds the whole tree, on the host or on the card;
+  :func:`seeded_factory` is such a factory: random weights from a seed,
+  each element a function of its leaf and its global index, so every
+  mesh — one card unsharded included — sees the same weights.
+
+Both refuse (``NotImplementedError``) a family or a layout that the
+sharded layers do not implement (:mod:`repro_torch.sharding.hints`).
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Callable, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.sharding import hints
+from repro_torch.sharding.specs import PartitionSpec, map_with_path, param_specs
+
+Factory = Callable[[str, Tuple[int, ...], Tuple[slice, ...], torch.device], torch.Tensor]
+
+
+def _check(cfg: Any, specs: Any, sizes: dict) -> None:
+    """Refuse what the sharded layers do not run: a family other than dense
+    and MoE, and a d_model-sharded embedding or LM head."""
+    if sizes.get("model", 1) == 1:
+        return
+    if cfg.arch_type not in hints.TP_FAMILIES:
+        raise NotImplementedError(
+            f"parameters of a {cfg.arch_type!r} model ({cfg.name}) under a 'model' axis of "
+            f"{sizes['model']}: not implemented, {hints.ROADMAP_ITEM}")
+    for path, spec in (("embed/embedding", specs["embed"]["embedding"]),
+                       ("lm_head/kernel", specs.get("lm_head", {}).get("kernel"))):
+        if spec is None or spec.is_replicated():
+            continue
+        vocab_dim = 0 if path.startswith("embed") else 1
+        if spec.full(2)[vocab_dim] != "model":
+            raise NotImplementedError(
+                f"{path} sharded {spec!r} (d_model) under a 'model' axis of {sizes['model']}: "
+                f"not implemented, {hints.ROADMAP_ITEM}")
+
+
+def shard_params(cfg: Any, params: Any, mesh: Any) -> Any:
+    """The rank's block of every leaf of ``params`` (a copy for a split
+    leaf, the leaf itself for a replicated one)."""
+    sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
+    specs = param_specs(cfg, params, sizes)
+    _check(cfg, specs, sizes)
+    flat = {}
+    map_with_path(specs, lambda path, spec: flat.__setitem__(path, spec))
+
+    def cut(path, leaf):
+        spec = flat[path]
+        return leaf if spec.is_replicated() else spec.block(leaf, where, sizes).clone()
+
+    return map_with_path(params, cut)
+
+
+def shard_params_from(cfg: Any, factory: Factory, mesh: Any,
+                      device: Union[str, torch.device]) -> Any:
+    """The rank's blocks of ``cfg``'s parameters, made one block at a time
+    by ``factory(path, shape, index, device)``: the leaf at key path
+    ``path`` ("/"-joined) has global ``shape`` and the rank's block is
+    ``index`` (a tuple of slices).  With ``mesh=None`` every block is the
+    whole leaf."""
+    from repro_torch.launch.shapes import abstract_params  # shapes imports the models
+
+    dev = torch.device(device)
+    sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
+    meta = abstract_params(cfg)
+    specs = param_specs(cfg, meta, sizes or {"model": 1})
+    _check(cfg, specs, sizes)
+    flat = {}
+    map_with_path(specs, lambda path, spec: flat.__setitem__(path, spec))
+
+    def make(path, leaf):
+        spec: PartitionSpec = flat[path]
+        index = (tuple(slice(None) for _ in leaf.shape) if mesh is None or spec.is_replicated()
+                 else spec.index(leaf.shape, where, sizes))
+        return factory("/".join(path), tuple(leaf.shape), index, dev)
+
+    return map_with_path(meta, make)
+
+
+def _init_scale(path: str, shape: Sequence[int]) -> Tuple[str, float]:
+    """("ones" | "zeros" | "uniform", std) of a leaf, as the port's init
+    draws it: norms' scales 1 and biases 0, embeddings and the head 0.02,
+    every matrix 1/√fan-in over its init's input axis (an expert stack's
+    axis 1, any other matrix's axis 0)."""
+    last = path.rsplit("/", 1)[-1]
+    if re.search(r"norm\d?/scale$|final_norm/scale$|enc_norm/scale$", path):
+        return "ones", 0.0
+    if last.startswith("b") or last == "bias":
+        return "zeros", 0.0
+    if last in ("embedding", "kernel") and re.search(r"(embed|dec_pos|lm_head)/", path):
+        return "uniform", 0.02
+    in_axis = 1 if re.search(r"moe/w_(gate|up|down)$", path) else 0
+    return "uniform", 1.0 / math.sqrt(shape[in_axis])
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix(h: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (int64 holding values < 2^32; each product stays
+    below 2^63)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x45D9F3B) & _MASK32
+    h = h ^ (h >> 16)
+    h = (h * 0x45D9F3B) & _MASK32
+    return h ^ (h >> 16)
+
+
+def seeded_factory(seed: int, chunk: int = 1 << 24) -> Factory:
+    """A :data:`Factory` of random weights from ``seed``: element i of the
+    leaf at ``path`` is uniform with the init's standard deviation
+    (``_init_scale``), from a hash of (seed, path, i) computed on the
+    device, so a block is made without its leaf and equals the leaf's
+    slice bit for bit.  At most ``chunk`` elements are hashed at a time."""
+
+    def factory(path: str, shape: Tuple[int, ...], index: Tuple[slice, ...],
+                device: torch.device) -> torch.Tensor:
+        kind, std = _init_scale(path, shape)
+        bounds = [s.indices(n) for s, n in zip(index, shape)]
+        block = tuple(b - a for a, b, _ in bounds)
+        if kind != "uniform":
+            return (torch.ones if kind == "ones" else torch.zeros)(
+                block, dtype=torch.float32, device=device)
+        key = seed
+        for ch in path.encode():
+            key = (key * 131 + ch) % 2147483647
+        n = math.prod(block)
+        out = torch.empty(n, dtype=torch.float32, device=device)
+        strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+        for j0 in range(0, n, chunk):
+            # the global flat index of the block's elements j0 .. j1 - 1
+            rem = torch.arange(j0, min(n, j0 + chunk), device=device)
+            flat = torch.zeros_like(rem)
+            for (a, _, _), size, st in reversed(list(zip(bounds, block, strides))):
+                flat += (a + rem % size) * st
+                rem = rem // size
+            h = _mix(((flat & _MASK32) ^ key) & _MASK32)
+            h = _mix(h ^ (flat >> 32) ^ ((key * 7919) & _MASK32))
+            u = (h.to(torch.float64) + 0.5) * (1.0 / 4294967296.0)
+            out[j0:j0 + u.numel()] = ((2.0 * u - 1.0) * (math.sqrt(3.0) * std)).to(torch.float32)
+        return out.view(block)
+
+    return factory
+
+
+def full_params(cfg: Any, factory: Factory, device: Union[str, torch.device]) -> Any:
+    """Every leaf of ``cfg``'s parameters whole from ``factory`` (the
+    unsharded counterpart of :func:`shard_params_from`)."""
+    return shard_params_from(cfg, factory, None, device)
+
+
+def local_rows(x: Any, mesh: Any, axis: int = 0) -> Any:
+    """The rank's block of a batch-carrying ``x`` over the mesh's data axes
+    (row-major over them), ``ValueError`` where it does not split."""
+    sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
+    axes = tuple(a for a in sizes if a != "model")
+    if not axes:
+        return x
+    spec = PartitionSpec(*((None,) * axis + (axes,)))
+    return spec.block(x, where, sizes)

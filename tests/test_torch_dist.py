@@ -13,8 +13,10 @@ programs live in the package, so no rank imports JAX.  The engines'
 sharded runs are in ``tests/test_torch_dist_engines.py``.
 
 Where the reference takes its device count from ``jax.devices()``, the port
-counts the world's ranks; ``model_parallel > 1`` raises
-``NotImplementedError`` naming tensor parallelism's ROADMAP item.
+counts the world's ranks; a ``"model"`` axis builds, and a family whose
+sharded layers are not ported raises ``NotImplementedError`` under it,
+naming its ROADMAP item (the sharded layers themselves are in
+``tests/test_torch_tp.py``).
 """
 import os
 import signal
@@ -70,9 +72,13 @@ def test_make_host_mesh_raises_on_indivisible(ranks):
 
 
 def test_tensor_parallelism_raises_naming_its_item(ranks):
-    for case in ("model_parallel=2", "tier model_parallel=2"):
-        kind, msg = ranks[0]["raises"][case]
-        assert kind == "NotImplementedError" and "Queue 1 item 13" in msg
+    """A "model" axis of 2 builds (host and tier meshes); a family whose
+    sharded layers are not ported raises under it, naming its item."""
+    tp = ranks[0]["model_parallel=2"]
+    assert tp["host"] == (("data", "model"), ("data",), (WORLD // 2, 2))
+    assert tp["tiers"] == (("edge", "model"), ("edge",), (WORLD // 2, 2))
+    kind, msg = tp["ssm"]
+    assert kind == "NotImplementedError" and "Queue 1 item 13b(ii)" in msg
 
 
 def test_make_host_mesh_axis_layouts(ranks):

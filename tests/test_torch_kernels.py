@@ -5,7 +5,8 @@
 ``test_torch_streaming.py``, ``test_torch_personalization.py`` and
 ``test_torch_compress.py``, ``flash_attention`` in ``test_torch_flash.py``.
 The tests marked ``gpu`` (all seven kernels, the int8 engine's launches,
-the streaming engine's sync-free absorb, the smoke-width fp32 serving
+the streaming engine's sync-free absorb, the sync-free windowed train
+forward, the smoke-width fp32 serving
 path against the CPU, the FL round engine's sync-free step and the
 full-width fine-tuning round's peak memory) run on the card; this file imports JAX only inside
 the reference comparisons, so they run where JAX is not installed.
@@ -503,6 +504,31 @@ def test_chol_gram_instances_agree_bitwise_on_card(cuda_device, d, n, C):
     Gb2, Bb2 = chol_update_mod._launch_batched(L, Zc[None], Yc[None], tile=64)
     assert torch.equal(Gb[0], G) and torch.equal(Bb[0], B)
     assert torch.equal(Gb2[0], G) and torch.equal(Bb2[0], B)
+
+
+@pytest.mark.gpu
+def test_windowed_train_forward_makes_no_host_sync_on_card(cuda_device):
+    """A train forward whose windowed attention runs chunk by chunk (S 4096
+    > 2·Q_CHUNK, window 1024 + Q_CHUNK < S): each chunk's key range starts
+    from a Python int, never from a position read off the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen2-7b-smoke").replace(dtype="float32", sliding_window=1024)
+    model = build_model(cfg)
+    params = model.init(0, cuda_device)
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 4096))).to(cuda_device)
+    with torch.no_grad():
+        model.forward(params, {"tokens": toks})  # warm up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = model.forward(params, {"tokens": toks})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert out.logits.shape == (1, 4096, cfg.padded_vocab)
+    assert bool(torch.isfinite(out.logits[..., :cfg.vocab_size]).all())
 
 
 @pytest.mark.gpu

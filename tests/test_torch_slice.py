@@ -250,5 +250,5 @@ def test_port_imports_without_jax_or_the_reference_package():
                  "configs.command_r_plus_104b", "configs.deepseek_coder_33b",
                  "configs.minitron_8b", "models.ssm", "models.rglru", "configs.mamba2_1_3b",
                  "configs.recurrentgemma_9b", "configs.qwen2_vl_2b", "configs.whisper_large_v3",
-                 "launch.flops", "launch.shapes"):
+                 "launch.flops", "launch.shapes", "sharding.hints", "sharding.shard"):
         assert "repro_torch." + name in names
