@@ -21,16 +21,18 @@ tests' sizes, made to run on the port's one-process-a-rank model.
   through ``mesh_tree`` trees), the int8 wire's psum form, and the pod mesh.
 * :func:`train_program` — ``launch/train.py``'s ``run`` over the world's
   host mesh: phase 1, one FT round and its checkpoint, then a resume.
-* :func:`tp_program` — dense and MoE models tensor- and expert-parallel
-  over a ``(data, model)`` host mesh: the train forward, the features, a
-  prefill and teacher-forced decode steps, ``serve`` with its times and
-  peak memory, phase 1 of ``train.run``, and the refusals.
+* :func:`tp_program` — models of every family tensor-, expert- and
+  context-parallel over a ``(data, model)`` host mesh: the train forward,
+  the features, a prefill and teacher-forced decode steps, ``serve`` with
+  its times and peak memory, planted faults, phase 1 of ``train.run``,
+  and the refusals.
 
 The programs import nothing of the reference package: spawned ranks import
 this module by name.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 from typing import Any, Dict, List, Sequence, Tuple
@@ -69,10 +71,15 @@ from repro_torch.launch.mesh import (
     make_tier_host_mesh,
     n_chips,
 )
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import table_split
 from repro_torch.models.moe import DropTally
 from repro_torch.sharding import hints
+from repro_torch.sharding.specs import map_with_path
 from repro_torch.sharding.shard import (
     local_rows,
     seeded_factory,
@@ -213,15 +220,14 @@ def layer_program(rank: int, world: int, device: torch.device) -> dict:
     mesh = make_host_mesh(device_type=dt)
     pods = make_host_mesh(pods=2, device_type=dt)
     tiers = make_tier_host_mesh((2, world // 2), device_type=dt)
-    # a "model" axis of 2: the meshes build, and a family whose sharded
-    # layers are not ported refuses to run under it
+    # a "model" axis of 2: the meshes build, and a path the sharded layers
+    # do not implement (the backward) refuses to run under it
     tp = make_host_mesh(2, device_type=dt)
     tp_tiers = make_tier_host_mesh((world // 2,), (), 2, device_type=dt)
     out["model_parallel=2"] = {
         "host": (tp.mesh_dim_names, data_axes(tp), tuple(tp.mesh.shape)),
         "tiers": (tp_tiers.mesh_dim_names, data_axes(tp_tiers), tuple(tp_tiers.mesh.shape)),
-        "ssm": _raises(serve_mod.serve, "mamba2-1.3b-smoke", batch=2, prompt_len=4, gen=2,
-                       verbose=False, device=device, mesh=tp),
+        "ssm backward": _raises(loss_gradient, "mamba2-1.3b-smoke", tp, device),
     }
     out["layouts"] = {
         "host": (mesh.mesh_dim_names, data_axes(mesh), data_parallel_size(mesh),
@@ -460,49 +466,163 @@ def _expert_offset_factory(factory, model_rank: int):
     return planted
 
 
+def _embed_columns_swapped_factory(factory):
+    """``factory`` with model ranks 1 and 2 holding each other's d_model
+    columns of the embedding table (a planted fault of the d_model split)."""
+    def planted(path, shape, index, device):
+        r = hints.model_rank()
+        if (path == "embed/embedding" and r in (1, 2) and hints.model_size() > 2
+                and index[1] != slice(None)):
+            n = index[1].stop - index[1].start
+            other = 3 - r
+            index = (index[0], slice(other * n, (other + 1) * n))
+        return factory(path, shape, index, device)
+
+    return planted
+
+
+def _unscaled_combine(m, l, o):
+    """attention._cp_combine without its max rescale (a planted fault): each
+    rank's pieces summed as if every rank's row max were the same."""
+    lo = hints.reduce_model(torch.cat([l, o], dim=-1))
+    return lo[..., 1:] / lo[..., :1]
+
+
+def _heads_offset(real, model_rank: int):
+    """ssm._rank_heads with one model rank's heads one to the right (a
+    planted fault: it runs its neighbour's first head with its own A, Δ
+    bias and D)."""
+    def planted(H):
+        got = real(H)
+        if hints.model_rank() != model_rank:
+            return got
+        return slice(got.start + 1, got.stop + 1)
+
+    return planted
+
+
+def _width_blocks_swapped(real):
+    """rglru._gather_width with the blocks of model ranks 1 and 2 swapped
+    in the gathered activation (a planted fault of the width gather)."""
+    def planted(x):
+        full = real(x)
+        if hints.model_size() < 3:
+            return full
+        n = full.shape[-1] // hints.model_size()
+        b1, b2 = full[..., n:2 * n].clone(), full[..., 2 * n:3 * n].clone()
+        full[..., n:2 * n], full[..., 2 * n:3 * n] = b2, b1
+        return full
+
+    return planted
+
+
+# the runtime faults a job can plant: (module, attribute, its replacement
+# made from the real one)
+_RUNTIME_FAULTS = {
+    "combine unscaled": (attn_mod, "_cp_combine", lambda real: _unscaled_combine),
+    "ssd heads offset": (ssm_mod, "_rank_heads", lambda real: _heads_offset(real, 1)),
+    "rglru width blocks swapped": (rglru_mod, "_gather_width", _width_blocks_swapped),
+}
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """A runtime fault of :data:`_RUNTIME_FAULTS` in place for the block."""
+    if fault not in _RUNTIME_FAULTS:
+        yield
+        return
+    module, name, make = _RUNTIME_FAULTS[fault]
+    real = getattr(module, name)
+    setattr(module, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
 def _tp_params(cfg, mesh, dev, params_np, seed, fault):
     if params_np is not None:
         return shard_params(cfg, params_from_jax(cfg, params_np, dev), mesh)
     factory = seeded_factory(seed)
-    if fault == "experts offset":
+    planted = {"experts offset": lambda f: _expert_offset_factory(f, 1),
+               "embed columns swapped": _embed_columns_swapped_factory}.get(fault)
+    if planted is not None:
         with hints.use_mesh(mesh):  # the factory reads the rank's model coordinate
-            return shard_params_from(cfg, _expert_offset_factory(factory, 1), mesh, dev)
+            return shard_params_from(cfg, planted(factory), mesh, dev)
     return shard_params_from(cfg, factory, mesh, dev)
 
 
-def _forced(cfg, params, prompts, decode, dev) -> Dict[str, Any]:
-    """A prefill of ``prompts`` and one decode step a column of ``decode``
-    (teacher-forced): the logits, gathered over the vocab, and the prefill's
-    drop share."""
+def _offset(cfg) -> int:
+    """The positions a VLM's patches take before its text."""
+    return cfg.n_patches if cfg.arch_type == "vlm" else 0
+
+
+def _forced(cfg, params, prompts, decode, extra, capacity) -> Dict[str, Any]:
+    """A prefill of ``prompts`` (with the batch's ``extra`` inputs: patches,
+    frames) into caches of ``capacity`` slots and one decode step a column
+    of ``decode`` (teacher-forced): the logits, gathered over the vocab, the
+    prefill's drop share, the shape of every cache leaf (the rank's block),
+    the layouts read off them (:func:`layouts`) and the first ring's slot
+    positions after the prefill (``ring_pos``)."""
     T = 0 if decode is None else decode.shape[1]
-    S = prompts.shape[1]
+    S, off = prompts.shape[1], _offset(cfg)
     drops = DropTally() if cfg.arch_type == "moe" else None
-    logits, cache = steps.make_prefill_step(cfg, cache_capacity=S + T)(
-        params, {"tokens": prompts}, drops)
+    logits, cache = steps.make_prefill_step(cfg, cache_capacity=capacity)(
+        params, {"tokens": prompts, **extra}, drops)
     share = None if drops is None else drops.share()
+    shapes, pos = {}, []
+    map_with_path(cache, lambda path, leaf: shapes.__setitem__("/".join(path), tuple(leaf.shape)))
+    map_with_path(cache, lambda path, leaf: pos.append(leaf.clone()) if path[-1] == "pos" else None)
     dec = []
     step = steps.make_decode_step(cfg)
     for t in range(T):
-        lg, cache = step(params, cache, decode[:, t:t + 1], S + t)
+        lg, cache = step(params, cache, decode[:, t:t + 1], off + S + t)
         dec.append(lg)
-    return {"prefill": logits, "decode": torch.stack(dec) if dec else None, "drop_share": share}
+    return {"prefill": logits, "decode": torch.stack(dec) if dec else None,
+            "drop_share": share, "cache_shapes": shapes, "layouts": layouts(cfg, shapes),
+            "ring_pos": pos[0] if pos else None}
+
+
+def layouts(cfg, cache_shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, Any]:
+    """The layouts the ambient mesh gave ``cfg``, each None where whole: the
+    embedding's and the LM head's split, and the KV rings' as the cache a
+    prefill built holds them (``cache_shapes``, path -> a leaf's shape):
+    ``"sequence"`` where a ring's k holds fewer slots than its ``pos``,
+    ``"heads"`` where fewer kv heads than ``cfg``'s, else ``"replicated"``
+    (rings laid out apart named together, comma-separated)."""
+    if hints.model_size() == 1:
+        return {"embed": None, "head": None, "kv cache": None}
+    rings = set()
+    for path, shape in cache_shapes.items():
+        head, _, last = path.rpartition("/")
+        if last == "k":
+            slots = cache_shapes["/".join(filter(None, (head, "pos")))][0]
+            rings.add("sequence" if shape[1] < slots else
+                      "heads" if shape[2] < cfg.n_kv_heads else "replicated")
+    return {"embed": table_split(cfg, True), "head": table_split(cfg, cfg.tie_embeddings),
+            "kv cache": ",".join(sorted(rings)) or None}
 
 
 def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
            overrides: Dict[str, Any] = None, params: Any = None, seed: int = 0,
            tokens: np.ndarray = None, prompts: np.ndarray = None, decode: np.ndarray = None,
-           serve: Dict[str, Any] = None, fault: str = None, on_cpu: bool = False) -> dict:
+           inputs: Dict[str, np.ndarray] = None, serve: Dict[str, Any] = None,
+           fault: str = None, capacity: int = None, on_cpu: bool = False) -> dict:
     """One model on a ``(data, model)`` host mesh of the world: its blocks
     of the reference's weights (``params``, numpy, through
     ``params_from_jax``) or of ``seeded_factory(seed)``; the rank's rows of
     ``tokens`` (the train forward's logits, its features and load-balance
     loss, under ``torch.no_grad``) and of ``prompts`` (a prefill, then the
-    columns of ``decode`` teacher-forced); with ``serve`` (``gen`` and
-    ``dtype``), ``launch/serve.py``'s ``serve`` on the whole ``prompts``,
-    timed after a warm-up call (its times, flash launches, peak memory,
-    greedy tokens and logits, ``served``).  Returns
-    numpy arrays (the rank's rows, logits gathered over the vocab) and a
-    digest of them."""
+    columns of ``decode`` teacher-forced; after ``serve`` too), each with the rank's rows of
+    ``inputs`` (a VLM's ``patch_embeds``, an audio model's
+    ``audio_frames``); with ``serve`` (``gen`` and ``dtype``),
+    ``launch/serve.py``'s ``serve`` on the whole ``prompts``, timed after a
+    warm-up call (its times, flash launches, peak memory, greedy tokens and
+    logits, ``served``); with ``fault``, a planted fault in place (a
+    factory's or a runtime one).  The rings hold ``capacity`` slots (by
+    default serve's, or the prompt's and the forced steps').  Returns numpy
+    arrays (the rank's rows, logits whole), the layouts the prefill's cache
+    and the embedding ran in, and a digest of the arrays."""
     dev = torch.device("cpu") if on_cpu else device
     mesh = make_host_mesh(model, device_type=dev.type)
     if hints.axis_sizes(mesh)["data"] != data:
@@ -511,25 +631,32 @@ def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
     cfg = get_config(arch).replace(**(overrides or {}))
     blocks = _tp_params(cfg, mesh, dev, params, seed, fault)
     mdl = build_model(cfg)
+    inputs = inputs or {}
     out: Dict[str, Any] = {"coords": hints.coords(mesh)}
 
     def rows(x):
         return local_rows(torch.as_tensor(x, device=dev), mesh)
 
-    with hints.use_mesh(mesh), torch.no_grad():
+    extra = {k: rows(v) for k, v in inputs.items()}
+    # the rings' slots: serve's (its prompt and gen), or the forced steps'
+    if prompts is not None and capacity is None:
+        capacity = _offset(cfg) + prompts.shape[1] + (
+            serve["gen"] if serve is not None else 0 if decode is None else decode.shape[1])
+    with hints.use_mesh(mesh), torch.no_grad(), _planted(fault):
         if tokens is not None:
-            toks = rows(tokens)
-            fw = mdl.forward(blocks, {"tokens": toks})
+            batch = {"tokens": rows(tokens), **extra}
+            fw = mdl.forward(blocks, batch)
             out["logits"], out["aux"] = fw.logits, fw.aux_loss
-            out["features"] = mdl.extract_features(blocks, {"tokens": toks})
+            out["features"] = mdl.extract_features(blocks, batch)
         if prompts is not None and serve is None:
             out.update(_forced(cfg, blocks, rows(prompts),
-                               None if decode is None else rows(decode), dev))
+                               None if decode is None else rows(decode), extra, capacity))
     if serve is not None:
         run = functools.partial(serve_mod.serve, arch, verbose=False, device=dev,
                                 dtype=serve.get("dtype"), params=blocks,
                                 prompts=torch.as_tensor(prompts, device=dev), mesh=mesh,
-                                n_layers=cfg.n_layers)
+                                overrides=overrides,
+                                **{k: torch.as_tensor(v, device=dev) for k, v in inputs.items()})
         run(gen=2)  # a rank's first call loads the card's libraries and kernels: not timed
         res = run(gen=serve["gen"])
         out["served"] = res.logits
@@ -538,34 +665,50 @@ def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
                         "decode_launches": res.decode_launches, "peak_bytes": res.peak_bytes,
                         "drop_share": res.prefill_drop_share}
         out["tokens"] = res.tokens
-        if decode is not None:
-            with hints.use_mesh(mesh), torch.no_grad():
-                out.update(_forced(cfg.replace(dtype=serve.get("dtype") or cfg.dtype), blocks,
-                                   rows(prompts), rows(decode), dev))
+        with hints.use_mesh(mesh), torch.no_grad():
+            out.update(_forced(cfg.replace(dtype=serve.get("dtype") or cfg.dtype), blocks,
+                               rows(prompts), None if decode is None else rows(decode), extra,
+                               capacity))
     del blocks
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = np_({k: (v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
                for k, v in out.items()})
-    out["digest"] = digest({k: v for k, v in out.items() if k not in ("serve", "coords")})
+    out["digest"] = digest({k: v for k, v in out.items()
+                            if k not in ("serve", "coords", "layouts", "cache_shapes")})
     return out
 
 
+def loss_gradient(arch: str, mesh: Any, device: torch.device) -> torch.Tensor:
+    """``lm_loss``'s gradient of ``arch`` (fp32, ``seeded_factory(0)``
+    blocks, 2 × 8 tokens, a VLM's patches and an audio model's frames)
+    under ``mesh``: refused under a "model" axis."""
+    cfg = get_config(arch).replace(dtype="float32")
+    params = shard_params_from(cfg, seeded_factory(0), mesh, device)
+    B, S = 2, 8
+    batch = {"tokens": torch.zeros((B, S), dtype=torch.int64, device=device),
+             "labels": torch.zeros((B, S), dtype=torch.int64, device=device)}
+    if cfg.arch_type == "vlm":
+        batch["patch_embeds"] = torch.zeros((B, cfg.n_patches, cfg.d_model), device=device)
+    if cfg.arch_type == "audio":
+        batch["audio_frames"] = torch.zeros((B, cfg.n_audio_frames, cfg.d_model), device=device)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    with hints.use_mesh(mesh):
+        batch = {k: local_rows(v, mesh) for k, v in batch.items()}
+        return torch.autograd.grad(build_model(cfg).loss(params, batch), leaves)
+
+
 def tp_refusals(rank: int, device: torch.device) -> dict:
-    """What the sharded layers refuse, as (exception type, message): serving
-    qwen2-7b-smoke at (1, 4), where its 2 kv heads make ``cache_specs`` pick
-    the sequence-sharded cache; mamba2-1.3b-smoke under "model" 2; and
-    ``train.run``'s phase 2 under "model" 2."""
-    dt = device.type
-    mesh4, mesh2 = make_host_mesh(4, device_type=dt), make_host_mesh(2, device_type=dt)
+    """What the sharded layers refuse, as (exception type, message):
+    ``train.run``'s phase 2 under "model" 2, and the backward of a hybrid
+    and of an audio smoke under "model" 2."""
+    mesh2 = make_host_mesh(2, device_type=device.type)
     return {
-        "sequence cache": _raises(serve_mod.serve, "qwen2-7b-smoke", batch=2, prompt_len=12,
-                                  gen=4, verbose=False, device=device, mesh=mesh4),
-        "ssm": _raises(serve_mod.serve, "mamba2-1.3b-smoke", batch=2, prompt_len=8, gen=2,
-                       verbose=False, device=device, mesh=mesh2),
         "train phase 2": _raises(train.run, TRAIN_ARCH, rounds=1, use_fed3r_init=False,
                                  device=device, mesh=mesh2, verbose=False, **{
                                      k: v for k, v in TRAIN.items()}),
+        "hybrid backward": _raises(loss_gradient, "recurrentgemma-9b-smoke", mesh2, device),
+        "audio backward": _raises(loss_gradient, "whisper-large-v3-smoke", mesh2, device),
     }
 
 

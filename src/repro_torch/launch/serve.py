@@ -20,12 +20,13 @@ dtype, as in every layer of the port: a decode step re-reads and re-casts
 all of them.
 
 With ``mesh`` (a host mesh whose ``"model"`` axis is larger than 1, one
-process a rank) a dense or MoE model is served tensor- and
-expert-parallel: each rank holds its block of every parameter (by default
+process a rank) a model of any family is served tensor-, expert- or
+context-parallel: each rank holds its block of every parameter (by default
 drawn leaf by leaf from ``sharding.shard.seeded_factory(seed)``, so no
 rank ever holds the whole model), its rows of the batch over the data
-axes, and its kv heads of the caches; the prefill runs the kernel on the
-rank's heads.  Under ``torchrun``, ``--model-parallel`` sets the axis and
+axes, and its block of each cache (kv heads, or ring slots where the kv
+heads do not divide; SSM heads, RG-LRU width); the prefill runs the
+kernel on the rank's heads.  Under ``torchrun``, ``--model-parallel`` sets the axis and
 ``--backend`` names the collective backend (required with more than one
 rank); rank 0 prints the times and every rank its peak memory.
 
@@ -40,6 +41,9 @@ Usage:
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --backend gloo --model-parallel 4 \
       --arch llama4-scout-17b-a16e --layers 2 --batch 4 --prompt-len 256 --gen 8
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --backend gloo --model-parallel 4 \
+      --arch recurrentgemma-9b --layers 6 --batch 2 --prompt-len 2556 --gen 8
 """
 from __future__ import annotations
 
@@ -94,7 +98,7 @@ def serve(
     patch_embeds: Optional[torch.Tensor] = None,
     audio_frames: Optional[torch.Tensor] = None,
     mesh: Any = None,
-    n_layers: Optional[int] = None,
+    overrides: Optional[dict] = None,
 ) -> ServeResult:
     """Prefill ``prompts`` (random (batch, prompt_len) tokens unless given;
     a VLM's ``patch_embeds`` (batch, n_patches, d) and an audio model's
@@ -108,11 +112,12 @@ def serve(
     ``shard_params_from(cfg, seeded_factory(seed), mesh)``), the prompts
     and inputs the whole batch, of which the rank serves its rows; the
     result holds the rank's rows, the logits gathered over the vocab.
-    ``n_layers`` cuts the config's depth (a config too large for the host
+    ``overrides`` replaces config fields, e.g. ``n_layers`` and
+    ``n_encoder_layers`` to cut the depth (a config too large for the host
     served at its full width)."""
     kw = dict(device=device, seed=seed, dtype=dtype, params=params, prompts=prompts,
               patch_embeds=patch_embeds, audio_frames=audio_frames, mesh=mesh,
-              n_layers=n_layers)
+              overrides=overrides)
     if mesh is None:
         return _serve(arch, batch, prompt_len, gen, greedy, verbose, **kw)
     with hints.use_mesh(mesh):
@@ -120,13 +125,10 @@ def serve(
 
 
 def _serve(arch, batch, prompt_len, gen, greedy, verbose, *, device, seed, dtype, params,
-           prompts, patch_embeds, audio_frames, mesh, n_layers) -> ServeResult:
-    cfg = get_config(arch)
+           prompts, patch_embeds, audio_frames, mesh, overrides) -> ServeResult:
+    cfg = get_config(arch).replace(**(overrides or {}))
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
-    if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
-    hints.check_family(cfg, "serving")
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
@@ -230,7 +232,7 @@ def main() -> None:
                  "torchrun")
     try:
         res = serve(args.arch, args.batch, args.prompt_len, args.gen, device=device, mesh=mesh,
-                    n_layers=args.layers)
+                    overrides=None if args.layers is None else {"n_layers": args.layers})
         if mesh is not None:
             peak = "n/a" if res.peak_bytes is None else f"{res.peak_bytes / 2**30:.3f} GiB"
             print(f"[rank {dist.get_rank()}] peak memory {peak}  flash launches "

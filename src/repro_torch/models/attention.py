@@ -47,9 +47,15 @@ and v column-parallel over their head axes, or row-parallel over d_model
 where the heads do not divide (the rank's slice of x times its rows, then
 an all-reduce, and the rank picks the kv heads its q heads need); ``wo``
 row-parallel over the heads (one all-reduce), or split over d_model where
-the heads do not divide.  The prefill runs the kernel on the rank's heads,
-and the KV cache holds the rank's kv heads, or every kv head where
-``cache_specs`` replicates it; the sequence-sharded cache is refused.
+the heads do not divide.  The prefill runs the kernel on the rank's heads.
+The KV cache is laid out as ``cache_specs`` lays it out
+(:func:`cache_block`): the rank's kv heads; or, where the kv heads do not
+divide and the slots do, the rank's contiguous block of the slots with
+every kv head (the sequence layout, context-parallel: the prefill and
+decode write only the slots a rank owns, every rank keeps every slot's
+position, and decode gathers q's heads, attends them over the rank's
+slots and combines the ranks' softmax pieces in fp32, :func:`_cp_combine`);
+or all of it where the rules replicate it.
 """
 from __future__ import annotations
 
@@ -88,6 +94,16 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _valid(q_pos, k_pos, window, bidirectional) -> torch.Tensor:
+    """(Sq, Sk) bool: the key slots each query attends (−1: an empty slot)."""
+    valid = k_pos[None, :] >= 0  # (1, Sk)
+    if not bidirectional:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+    return valid
+
+
 def _scores_softmax_values(q, k, v, q_pos, k_pos, window, bidirectional):
     """Exact attention for one q block against a key range.
 
@@ -101,11 +117,7 @@ def _scores_softmax_values(q, k, v, q_pos, k_pos, window, bidirectional):
     scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * scale  # (B,KV,G,Sq,Sk)
     scores = scores.to(torch.float32)
-    valid = k_pos[None, :] >= 0  # (1, Sk)
-    if not bidirectional:
-        valid = valid & (k_pos[None, :] <= q_pos[:, None])
-    if window is not None:
-        valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+    valid = _valid(q_pos, k_pos, window, bidirectional)
     scores = torch.where(valid, scores, NEG_INF)  # a scalar: no host-to-device copy
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
@@ -179,35 +191,47 @@ def dequantize_kv(cache: dict, name: str, dtype: torch.dtype) -> torch.Tensor:
     return arr.to(dtype)
 
 
-def cache_kv_heads(cfg: ModelConfig, batch: int, capacity: int) -> int:
-    """The kv heads a rank's ring of ``capacity`` slots holds for its
-    ``batch`` rows: all of them without a "model" axis, else as
-    ``cache_specs`` lays the cache out (the rank's kv heads, or all where it
-    replicates the cache; the sequence-sharded cache is refused)."""
+def cache_block(cfg: ModelConfig, batch: int, capacity: int) -> Tuple[int, int]:
+    """(slots, kv heads) of a rank's ring of ``capacity`` slots for its
+    ``batch`` rows: all of both without a "model" axis, else as
+    ``cache_specs`` lays the cache out: the rank's kv heads, its block of
+    the slots (the sequence layout), or all of both where it replicates."""
     m = hints.model_size()
     if m == 1:
-        return cfg.n_kv_heads
+        return capacity, cfg.n_kv_heads
     layout = kv_cache_layout(batch * hints.data_shards(), capacity, cfg.n_kv_heads, cfg.hd,
                              hints.data_axes(), hints.axis_sizes())
+    if layout == "heads":
+        return capacity, cfg.n_kv_heads // m
     if layout == "sequence":
-        hints.refuse(f"the sequence-sharded (context-parallel) KV cache of {capacity} slots "
-                     f"and {cfg.n_kv_heads} kv heads")
-    return cfg.n_kv_heads // m if layout == "heads" else cfg.n_kv_heads
+        return capacity // m, cfg.n_kv_heads
+    return capacity, cfg.n_kv_heads
+
+
+def cross_kv_heads(cfg: ModelConfig, batch: int) -> int:
+    """The kv heads of the cross-attention (k, v) a rank holds for its
+    ``batch`` rows (:func:`cache_block` over the encoder's frames); a
+    layout that splits the frames is refused."""
+    frames, KV = cache_block(cfg, batch, cfg.n_audio_frames)
+    if frames != cfg.n_audio_frames:
+        hints.refuse(f"cross-attention (k, v) split over {cfg.n_audio_frames} frames")
+    return KV
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype: torch.dtype,
                device=None) -> dict:
     """An empty ring cache: zeros, every slot's position −1 (under a "model"
-    axis, the rank's kv heads of it: :func:`cache_kv_heads`)."""
-    KV, hd = cache_kv_heads(cfg, batch, capacity), cfg.hd
-    shape = (batch, capacity, KV, hd)
+    axis, the rank's block of k and v: :func:`cache_block`; the positions
+    of every slot)."""
+    slots, KV = cache_block(cfg, batch, capacity)
+    shape = (batch, slots, KV, cfg.hd)
     pos = torch.full((capacity,), -1, dtype=torch.int32, device=device)
     if cfg.kv_cache_quant:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.zeros((batch, capacity, KV, 1), dtype=torch.float32, device=device),
-            "v_scale": torch.zeros((batch, capacity, KV, 1), dtype=torch.float32, device=device),
+            "k_scale": torch.zeros((batch, slots, KV, 1), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros((batch, slots, KV, 1), dtype=torch.float32, device=device),
             "pos": pos,
         }
     return {
@@ -217,42 +241,107 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype: torch.dtype,
     }
 
 
-def fill_cache_from_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor, seq_len: int) -> dict:
-    """Scatter the last ``capacity`` keys of a prefill into their ring slots (in place)."""
-    cap = cache["k"].shape[1]
-    keep = min(seq_len, cap)
-    ps = torch.arange(seq_len - keep, seq_len, dtype=torch.int32, device=k.device)
-    slots = (ps % cap).long()
-    k_w, v_w = k[:, seq_len - keep:], v[:, seq_len - keep:]
-    cache["pos"][slots] = ps
+def slot_range(cache: dict) -> Tuple[int, int]:
+    """[lo, hi): the ring slots whose k and v this rank's cache holds (every
+    slot but in the sequence layout)."""
+    n, cap = cache["k"].shape[1], cache["pos"].shape[0]
+    if n == cap:
+        return 0, cap
+    lo = hints.model_rank() * n
+    return lo, lo + n
+
+
+def _ring_runs(first: int, n: int, cap: int, lo: int, hi: int):
+    """Positions first .. first + n − 1 (n <= cap) land in ring slots p % cap:
+    the (slot j0, slot j1, position of j0) runs of them inside [lo, hi)."""
+    s = first % cap
+    head = min(n, cap - s)
+    runs = []
+    for slot0, p0, length in ((s, first, head), (0, first + head, n - head)):
+        j0, j1 = max(slot0, lo), min(slot0 + length, hi)
+        if length > 0 and j0 < j1:
+            runs.append((j0, j1, p0 + j0 - slot0))
+    return runs
+
+
+def _write(cache: dict, start: int, k_w: torch.Tensor, v_w: torch.Tensor) -> None:
+    """k_w/v_w (B, n, KV, hd) into the cache's slots start .. start + n − 1."""
+    end = start + k_w.shape[1]
     if cache["k"].dtype == torch.int8:
         kq, ks = _quantize(k_w)
         vq, vs = _quantize(v_w)
-        cache["k"][:, slots] = kq
-        cache["v"][:, slots] = vq
-        cache["k_scale"][:, slots] = ks
-        cache["v_scale"][:, slots] = vs
+        cache["k"][:, start:end] = kq
+        cache["v"][:, start:end] = vq
+        cache["k_scale"][:, start:end] = ks
+        cache["v_scale"][:, start:end] = vs
     else:
-        cache["k"][:, slots] = k_w.to(cache["k"].dtype)
-        cache["v"][:, slots] = v_w.to(cache["v"].dtype)
+        cache["k"][:, start:end] = k_w.to(cache["k"].dtype)
+        cache["v"][:, start:end] = v_w.to(cache["v"].dtype)
+
+
+def fill_cache_from_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor, seq_len: int) -> dict:
+    """Write the last ``capacity`` keys of a prefill into their ring slots (in
+    place, as contiguous runs at Python-int slices); in the sequence layout,
+    the keys of the rank's slots only."""
+    cap = cache["pos"].shape[0]
+    keep = min(seq_len, cap)
+    ps = torch.arange(seq_len - keep, seq_len, dtype=torch.int32, device=k.device)
+    slots = (ps % cap).long()
+    cache["pos"][slots] = ps
+    lo, hi = slot_range(cache)
+    for j0, j1, p0 in _ring_runs(seq_len - keep, keep, cap, lo, hi):
+        _write(cache, j0 - lo, k[:, p0:p0 + j1 - j0], v[:, p0:p0 + j1 - j0])
     return cache
 
 
 def cache_decode_update(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: int) -> dict:
-    """Write one token (k_t/v_t: (B, 1, KV, hd)) at ring slot pos % cap (in place)."""
-    slot = pos % cache["k"].shape[1]
+    """Write one token (k_t/v_t: (B, 1, KV, hd)) at ring slot pos % cap (in
+    place); in the sequence layout only the rank that owns the slot writes
+    k and v, and every rank its position."""
+    slot = pos % cache["pos"].shape[0]
     cache["pos"][slot:slot + 1].fill_(pos)  # `[slot] = pos` would copy from the host
-    if cache["k"].dtype == torch.int8:
-        kq, ks = _quantize(k_t)
-        vq, vs = _quantize(v_t)
-        cache["k"][:, slot:slot + 1] = kq
-        cache["v"][:, slot:slot + 1] = vq
-        cache["k_scale"][:, slot:slot + 1] = ks
-        cache["v_scale"][:, slot:slot + 1] = vs
-    else:
-        cache["k"][:, slot:slot + 1] = k_t.to(cache["k"].dtype)
-        cache["v"][:, slot:slot + 1] = v_t.to(cache["v"].dtype)
+    lo, hi = slot_range(cache)
+    if lo <= slot < hi:
+        _write(cache, slot - lo, k_t, v_t)
     return cache
+
+
+def _cp_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """softmax · v over every rank's slots from each rank's pieces over its
+    own: ``m`` its rows' max score, ``l`` the sum of exp(s − m) and ``o`` of
+    exp(s − m)·v (fp32, (..., 1), (..., 1), (..., hd)).  Each rank's pieces
+    are rescaled by exp(m − the ranks' max), then l and o are summed in one
+    all-reduce.  A rank whose slots are all empty has m = −1e30 and l = o =
+    0: its scale is 0, no NaN."""
+    c = torch.exp(m - hints.max_model(m))
+    lo = hints.reduce_model(torch.cat([l * c, o * c], dim=-1))
+    return lo[..., 1:] / lo[..., :1]
+
+
+def _context_parallel_decode(tp: "TPLayout", q: torch.Tensor, cache: dict, q_pos: torch.Tensor,
+                             window: Optional[int]) -> torch.Tensor:
+    """Decode attention over a sequence-sharded ring: q's heads gathered over
+    "model", every head attends the rank's slots (fp32 scores, the masks
+    of :func:`_valid`), the ranks' pieces combined (:func:`_cp_combine`),
+    and the rank's heads of the result kept for its ``wo``."""
+    dtype = q.dtype
+    if tp.q == "heads":
+        q = hints.gather_model(q, 2)
+    lo, hi = slot_range(cache)
+    k, v = dequantize_kv(cache, "k", dtype), dequantize_kv(cache, "v", dtype)
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    scale = torch.tensor(hd ** -0.5, dtype=dtype).item()
+    s = (torch.einsum("bqkgh,bskh->bkgqs", qg, k) * scale).to(torch.float32)
+    valid = _valid(q_pos, cache["pos"][lo:hi], window, False)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)  # (B, KV, G, Sq, 1)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, v.to(torch.float32))
+    y = _cp_combine(m, p.sum(dim=-1, keepdim=True), o)  # (B, KV, G, Sq, hd)
+    y = y.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(dtype)
+    return hints.model_block(y, 2) if tp.q == "heads" else y
 
 
 # ---------------------------------------------------------------------------
@@ -392,10 +481,15 @@ def attn_apply(
                              f"decode_pos={decode_pos}")
         cache = cache_decode_update(cache, k, v, decode_pos)
         q_pos = torch.full((1,), decode_pos, dtype=torch.int32, device=x.device)
-        y = multihead_attention(
-            q, sel(dequantize_kv(cache, "k", x.dtype)), sel(dequantize_kv(cache, "v", x.dtype)),
-            q_pos, cache["pos"], window=window, bidirectional=False,
-        )
+        lo, hi = slot_range(cache)
+        if hi - lo < cache["pos"].shape[0]:  # the sequence layout: context-parallel
+            y = _context_parallel_decode(tp, q, cache, q_pos, window)
+        else:
+            y = multihead_attention(
+                q, sel(dequantize_kv(cache, "k", x.dtype)),
+                sel(dequantize_kv(cache, "v", x.dtype)), q_pos, cache["pos"], window=window,
+                bidirectional=False,
+            )
     elif build_cache:  # prefill
         y = ops.flash_attention(q, sel(k), sel(v), causal=not bidirectional, window=window)
         if not bidirectional:  # an encoder's keys serve this pass only
@@ -423,15 +517,27 @@ def cross_attn_apply(
 
     Either ``enc_states`` (B, F, d) (the first pass: k and v projected with
     their biases, and returned for the cache) or ``enc_kv``, the cached
-    (k, v) (B, F, KV, hd), read as they are.  Returns (y, (k, v)).
+    (k, v) (B, F, KV, hd), read as they are.  Returns (y, (k, v)).  Under a
+    "model" axis it runs in :func:`tp_layout`'s layout, as the
+    self-attention does; the (k, v) are the rank's kv heads (all of them
+    where k and v are row-parallel).
     """
+    tp = tp_layout(cfg)
     if enc_kv is None:
         if enc_states is None:
             raise ValueError("cross-attention needs enc_states or the cached enc_kv")
-        enc_kv = _project_kv(p, enc_states)
+        if tp is not None:
+            cross_kv_heads(cfg, enc_states.shape[0])  # refuses frames split over the ranks
+        enc_kv = _project_kv(p, enc_states) if tp is None else (
+            _tp_project(enc_states, p["wk"], p.get("bk"), tp.kv),
+            _tp_project(enc_states, p["wv"], p.get("bv"), tp.kv))
     k, v = enc_kv
-    q = _project_q(p, x)
+    q = _project_q(p, x) if tp is None else _tp_project(x, p["wq"], p.get("bq"), tp.q)
+    if tp is not None and tp.kv_sel is not None:
+        k, v = k[:, :, tp.kv_sel], v[:, :, tp.kv_sel]
     q_pos = torch.arange(x.shape[1], device=x.device)
     k_pos = torch.arange(k.shape[1], device=x.device)
     y = multihead_attention(q, k.to(x.dtype), v.to(x.dtype), q_pos, k_pos, bidirectional=True)
-    return _out_project(p, y), enc_kv
+    if tp is None:
+        return _out_project(p, y), enc_kv
+    return _tp_out(tp, p, y, True), enc_kv

@@ -14,9 +14,10 @@ reference's in distribution, not in bits.
 
 Under an ambient mesh with a ``"model"`` axis larger than 1
 (:mod:`repro_torch.sharding.hints`) the MLP runs column-parallel up and
-row-parallel down, the embedding looks up its vocab rows, and the LM head
-produces the rank's vocab columns; each holds only its block of its
-parameters.
+row-parallel down; the embedding looks up its vocab rows or its d_model
+columns, and the LM head produces the rank's vocab columns or its partial
+logits over its d_model rows; each holds only its block of its parameters.
+The causal conv runs on whatever channels it is given (a rank's block).
 """
 from __future__ import annotations
 
@@ -229,29 +230,32 @@ def embed_apply(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     return F.embedding(tokens.long(), p["embedding"]).to(dtype)
 
 
-def _vocab_split(cfg: ModelConfig, tied_table: bool) -> bool:
-    """Whether the embedding table (``tied_table``) or the LM head is split
-    on its vocab axis under the ambient mesh; a d_model split is refused."""
+def table_split(cfg: ModelConfig, tied_table: bool) -> Optional[str]:
+    """How the embedding table (``tied_table``) or the LM head is split
+    under the ambient mesh: ``"vocab"``, ``"d_model"`` or None (whole)."""
     V, d = cfg.padded_vocab, cfg.d_model
     if tied_table:
-        spec, vocab_dim, what = hints.layout("embed/embedding", (V, d)), 0, "embedding"
+        spec, vocab_dim = hints.layout("embed/embedding", (V, d)), 0
     else:
-        spec, vocab_dim, what = hints.layout("lm_head/kernel", (d, V)), 1, "LM head"
+        spec, vocab_dim = hints.layout("lm_head/kernel", (d, V)), 1
     if spec.is_replicated():
-        return False
-    if spec[vocab_dim] != "model":
-        hints.refuse(f"a d_model-sharded {what} ({spec!r})")
-    return True
+        return None
+    return "vocab" if spec[vocab_dim] == "model" else "d_model"
 
 
 def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
-    """:func:`embed_apply` of ``cfg``'s table; under a "model" axis that
+    """:func:`embed_apply` of ``cfg``'s table.  Under a "model" axis that
     splits the vocab, the rank looks up its own rows, zeroes the others and
-    the ranks' rows are summed (exact: one rank holds each row)."""
-    if hints.model_size() == 1 or not _vocab_split(cfg, tied_table=True):
+    the ranks' rows are summed (exact: one rank holds each row); where it
+    splits d_model, the rank looks up its columns of every row and the
+    ranks' columns are gathered."""
+    split = None if hints.model_size() == 1 else table_split(cfg, tied_table=True)
+    if split is None:
         return embed_apply(p, tokens, dtype)
     table = p["embedding"]
+    if split == "d_model":  # the fp32 columns, gathered exactly
+        return hints.gather_model(F.embedding(tokens.long(), table), -1).to(dtype)
     n = table.shape[0]
     local = tokens.long() - hints.model_rank() * n
     hit = (local >= 0) & (local < n)
@@ -266,20 +270,25 @@ def unembed_apply(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tens
     The table is padded to ``cfg.padded_vocab``; padded columns are masked
     to −1e30 so softmax/CE semantics are unchanged.  Under a "model" axis
     that splits the vocab each rank computes its own columns (masked by
-    their global index) and the ranks' columns are concatenated.
+    their global index) and the ranks' columns are concatenated; where it
+    splits d_model each rank multiplies its columns of x by its block of
+    the table and the partial logits are all-reduced.
     """
-    split = hints.model_size() > 1 and _vocab_split(cfg, tied_table=cfg.tie_embeddings)
+    split = None if hints.model_size() == 1 else table_split(cfg, cfg.tie_embeddings)
+    xs = hints.model_block(x, -1) if split == "d_model" else x
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["embedding"].to(x.dtype).T
+        logits = xs @ params["embed"]["embedding"].to(x.dtype).T
     else:
-        logits = x @ params["lm_head"]["kernel"].to(x.dtype)
+        logits = xs @ params["lm_head"]["kernel"].to(x.dtype)
+    if split == "d_model":
+        logits = hints.reduce_model(logits)
     if cfg.attn_logit_softcap:  # reuse as final-logit softcap when configured
         cap = cfg.attn_logit_softcap
         logits = cap * torch.tanh(logits / cap)
     if cfg.padded_vocab > cfg.vocab_size:
         n = logits.shape[-1]
-        col0 = hints.model_rank() * n if split else 0
+        col0 = hints.model_rank() * n if split == "vocab" else 0
         col = torch.arange(col0, col0 + n, device=logits.device)
         # a Python scalar: a tensor built here would be a blocking host-to-device copy
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
-    return hints.gather_model(logits, -1) if split else logits
+    return hints.gather_model(logits, -1) if split == "vocab" else logits

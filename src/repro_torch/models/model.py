@@ -33,13 +33,15 @@ load-balance loss summed over the layers (0 for any other model), which
 ``lm_loss`` adds at ``router_aux_coef``.
 
 Under an ambient mesh (:func:`repro_torch.sharding.hints.use_mesh`) with a
-``"model"`` axis larger than 1, a dense or MoE model runs tensor- and
-expert-parallel on the rank's blocks of the parameters
+``"model"`` axis larger than 1, every family runs tensor-, expert- or
+context-parallel on the rank's blocks of the parameters
 (:func:`repro_torch.sharding.shard.shard_params`) and the rank's rows of
 the batch (its block over the data axes): the logits it returns are
-gathered over the vocab, the hidden states and features are the same on
-every model rank, and the caches hold the rank's kv heads.  Any other
-family raises ``NotImplementedError`` there.
+whole (gathered over the vocab, or all-reduced over d_model), the hidden
+states and features are the same on every model rank, and each cache
+leaf is the rank's block of it as ``sharding.specs.cache_specs`` gives it
+(the kv heads, the ring's slots, the SSM's heads and conv channels, the
+RG-LRU's width).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.federated.dist import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
@@ -61,7 +64,6 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed_apply,
 )
-from repro_torch.sharding import hints
 from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -167,7 +169,6 @@ def forward(
     ``batch["audio_frames"]`` outside decode.  ``drops`` sums the entries
     the MoE layers' capacity dropped."""
     check_family(cfg, "forward")
-    hints.check_family(cfg, "the forward")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and decode_pos is None:
@@ -265,12 +266,11 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
     an audio model's decoder layers a ring and zero cross (k, v) of
     (batch, n_audio_frames, KV, hd)."""
     check_family(cfg, "caches")
-    hints.check_family(cfg, "the caches")
     dtype, dev = compute_dtype(cfg), resolve_device(device)
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)
     if cfg.arch_type == "audio":
-        cross = (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.hd)
+        cross = (batch, cfg.n_audio_frames, attn_mod.cross_kv_heads(cfg, batch), cfg.hd)
         return [{"self": ring, "cross": (torch.zeros(cross, dtype=dtype, device=dev),
                                          torch.zeros(cross, dtype=dtype, device=dev))}
                 for ring in tfm.stacked_attn_cache(cfg, cfg.n_layers, batch, capacity, dtype, dev)]

@@ -21,6 +21,14 @@ loop over the steps would launch S times a layer and the closed form
 through exp(−cumsum log a) overflows fp32 past a few hundred steps.  Decode
 is one elementwise update, written into the cache IN PLACE; the state is
 carried in fp32.
+
+Under a ``"model"`` axis that splits ``lru_width`` (the reference's hints
+put the block's activations on it, ``src/repro/models/rglru.py``) a rank
+holds its columns of ``proj_main``, ``proj_gate``, the conv, ``w_a`` and
+``w_x`` and its rows of ``proj_out``: the conv, the scan and the decode
+update run on its channels; the gates' (W, W) products read the conv's
+output gathered over ``"model"`` (an activation, never a weight); and
+``proj_out``'s partial sums are all-reduced once.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from repro_torch.models.layers import (
     dense_init,
     gelu,
 )
+from repro_torch.sharding import hints
 
 _C = 8.0  # Griffin's fixed recurrence-sharpness constant
 
@@ -59,10 +68,30 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _gates(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (..., w) fp32 -> (log_a, gated input), both fp32."""
-    r = torch.sigmoid(x @ p["w_a"].to(x.dtype) + p["b_a"])
-    i = torch.sigmoid(x @ p["w_x"].to(x.dtype) + p["b_x"])
+def _width_split(cfg: ModelConfig) -> bool:
+    """Whether the ambient mesh splits the block over ``lru_width``."""
+    return (hints.model_size() > 1
+            and hints.layout("rec/proj_main", (cfg.d_model, cfg.lru_width))[1] == "model")
+
+
+def rank_width(cfg: ModelConfig) -> int:
+    """The channels of ``lru_width`` a rank runs, and so holds the state
+    and conv cache of."""
+    return cfg.lru_width // hints.model_size() if _width_split(cfg) else cfg.lru_width
+
+
+def _gather_width(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' channel blocks of ``x`` (..., w / model), in order."""
+    return hints.gather_model(x, -1)
+
+
+def _gates(p: dict, x: torch.Tensor, full: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., w) fp32 -> (log_a, gated input), both fp32; ``full`` is the
+    input of the (W, W) products where x is a rank's channels of it."""
+    xin = x if full is None else full
+    r = torch.sigmoid(xin @ p["w_a"].to(x.dtype) + p["b_a"])
+    i = torch.sigmoid(xin @ p["w_x"].to(x.dtype) + p["b_x"])
     log_a = -_C * F.softplus(p["lambda"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-12))
@@ -104,9 +133,13 @@ def rglru_apply(
     main_raw = x @ p["proj_main"].to(dt)
     main = causal_conv1d_apply(p["conv"], main_raw)
 
-    log_a, b = _gates(p, main.to(torch.float32))
+    split = _width_split(cfg)
+    m32 = main.to(torch.float32)
+    log_a, b = _gates(p, m32, _gather_width(m32) if split else None)
     h = _linear_scan(log_a, b, None)  # fp32
     y = (h.to(dt) * gate) @ p["proj_out"].to(dt)
+    if split:
+        y = hints.reduce_model(y)
 
     cache = None
     if build_cache:
@@ -131,6 +164,9 @@ def rglru_decode_step(
     main_raw = xt @ p["proj_main"].to(dt)
     _, main = causal_conv1d_step(p["conv"], cache["conv"], main_raw)
 
-    log_a, b = _gates(p, main.to(torch.float32))
+    split = _width_split(cfg)
+    m32 = main.to(torch.float32)
+    log_a, b = _gates(p, m32, _gather_width(m32) if split else None)
     h = cache["h"].mul_(torch.exp(log_a)).add_(b)  # (B, w) fp32
-    return ((h.to(dt) * gate) @ p["proj_out"].to(dt))[:, None, :], cache
+    y = (h.to(dt) * gate) @ p["proj_out"].to(dt)
+    return (hints.reduce_model(y) if split else y)[:, None, :], cache

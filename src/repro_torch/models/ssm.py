@@ -15,6 +15,17 @@ ports as torch ops.  Its dtypes are kept: ``jnp.einsum`` promotes a bf16 ×
 fp32 product to fp32, so the mixed products here cast to fp32 first
 (``torch.einsum`` refuses mixed dtypes), and its three-operand einsums are
 two steps each.
+
+Under a ``"model"`` axis the mixer runs head-sharded, where the
+reference's hints put the SSD (``src/repro/models/ssm.py``).  The rules
+cut ``in_proj``'s z | xBC | dt columns and the conv's x | B | C channels
+into contiguous blocks that line up with neither the pieces nor the
+heads, so a rank runs its ``in_proj`` block (column-parallel, or
+row-parallel where the columns do not divide) and gathers it, runs the
+conv on its channel block and gathers that, and then runs the SSD and the
+decode's state update on its heads (its ``A_log``, ``dt_bias`` and ``D``,
+its state rows); the gated RMSNorm over the whole d_inner all-reduces a
+partial sum of squares, and ``out_proj`` is row-parallel (one all-reduce).
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ from repro_torch.models.layers import (
     causal_conv1d_step,
     dense_init,
 )
+from repro_torch.sharding import hints
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -138,11 +150,74 @@ def _split_xbc(cfg: ModelConfig, xBC: torch.Tensor):
     return x, Bm, Cm
 
 
-def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   d_full: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm of y·silu(z) over its last dim, or, with ``d_full``, over the
+    ranks' blocks of it together (a rank's sum of squares all-reduced)."""
     dt = y.dtype
     y = (y * F.silu(z)).to(torch.float32)
-    ms = y.square().mean(dim=-1, keepdim=True)
+    if d_full is None:
+        ms = y.square().mean(dim=-1, keepdim=True)
+    else:
+        ms = hints.reduce_model(y.square().sum(dim=-1, keepdim=True)) / d_full
     return (y * torch.rsqrt(ms + 1e-6) * scale).to(dt)
+
+
+class _Mixer:
+    """How a rank runs the mixer under the ambient mesh: its in_proj block
+    (``"cols"``, ``"rows"`` or ``"full"``), whether the conv's channels are
+    split, and its heads (``heads``: a slice, None without a split)."""
+
+    def __init__(self, cfg: ModelConfig):
+        d, H = cfg.d_model, cfg.ssm_nheads
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        self.on = hints.model_size() > 1
+        self.in_proj, self.conv, self.heads = "full", False, None
+        if not self.on:
+            return
+        spec = hints.layout("ssm/in_proj", (d, conv_ch + cfg.d_inner + H))
+        self.in_proj = "cols" if spec[1] == "model" else "rows" if spec[0] == "model" else "full"
+        self.conv = hints.layout("ssm/conv/kernel", (cfg.ssm_conv, conv_ch))[1] == "model"
+        if hints.layout("ssm/A_log", (H,))[0] != "model":
+            hints.refuse(f"a Mamba2 mixer of {H} heads")
+        self.heads = _rank_heads(H)
+
+    def project(self, u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """u @ in_proj, whole on every rank."""
+        if self.in_proj == "cols":
+            return hints.gather_model(u @ w.to(u.dtype), -1)
+        if self.in_proj == "rows":
+            return hints.reduce_model(hints.model_block(u, -1) @ w.to(u.dtype))
+        return u @ w.to(u.dtype)
+
+    def channels(self, xbc: torch.Tensor) -> torch.Tensor:
+        """The conv's input channels this rank holds the kernel of."""
+        return hints.model_block(xbc, -1) if self.conv else xbc
+
+    def gather(self, xbc: torch.Tensor) -> torch.Tensor:
+        """The conv's output, whole."""
+        return hints.gather_model(xbc, -1) if self.conv else xbc
+
+    def head_cols(self, t: torch.Tensor, width: int) -> torch.Tensor:
+        """The rank's heads of ``t``'s last dim (``width`` entries a head)."""
+        if self.heads is None:
+            return t
+        return t[..., self.heads.start * width:self.heads.stop * width]
+
+
+def cache_widths(cfg: ModelConfig) -> Tuple[int, int]:
+    """(conv channels, heads) of the cache a rank holds: those its mixer runs
+    on (:class:`_Mixer`)."""
+    mx = _Mixer(cfg)
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    heads = cfg.ssm_nheads if mx.heads is None else mx.heads.stop - mx.heads.start
+    return (conv_ch // hints.model_size() if mx.conv else conv_ch), heads
+
+
+def _rank_heads(H: int) -> slice:
+    """The SSD heads of this model rank."""
+    n = H // hints.model_size()
+    return slice(hints.model_rank() * n, (hints.model_rank() + 1) * n)
 
 
 def ssm_apply(
@@ -156,27 +231,35 @@ def ssm_apply(
     B, S, _ = u.shape
     H, P, N, g = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
     dt_ = u.dtype
+    mx = _Mixer(cfg)
 
-    zxbcdt = u @ p["in_proj"].to(dt_)
+    zxbcdt = mx.project(u, p["in_proj"])
     z, xBC_raw, dtr = _split_zxbcdt(cfg, zxbcdt)
-    xBC = F.silu(causal_conv1d_apply(p["conv"], xBC_raw))
+    xBC_raw = mx.channels(xBC_raw)
+    xBC = mx.gather(F.silu(causal_conv1d_apply(p["conv"], xBC_raw)))
     x, Bm, Cm = _split_xbc(cfg, xBC)
+    x, z, dtr = mx.head_cols(x, P), mx.head_cols(z, P), mx.head_cols(dtr, 1)
+    Hl = dtr.shape[-1]
 
     # jax.nn.softplus has no threshold; F.softplus returns x beyond 20, where
     # x + log1p(exp(-x)) rounds to x in fp32 anyway
     dt = F.softplus(dtr.to(torch.float32) + p["dt_bias"])  # (B, S, H)
     A = -torch.exp(p["A_log"])  # (H,)
 
-    xh = x.reshape(B, S, H, P)
-    Bh = Bm.reshape(B, S, g, N).repeat_interleave(H // g, dim=2)
-    Ch = Cm.reshape(B, S, g, N).repeat_interleave(H // g, dim=2)
+    xh = x.reshape(B, S, Hl, P)
+    Bh = mx.head_cols(Bm.reshape(B, S, g, N).repeat_interleave(H // g, dim=2).flatten(2), N)
+    Ch = mx.head_cols(Cm.reshape(B, S, g, N).repeat_interleave(H // g, dim=2).flatten(2), N)
 
     y, final_state = ssd_chunked(
-        xh * dt[..., None].to(dt_), (dt * A).to(torch.float32), Bh, Ch, cfg.ssm_chunk,
+        xh * dt[..., None].to(dt_), (dt * A).to(torch.float32), Bh.unflatten(2, (Hl, N)),
+        Ch.unflatten(2, (Hl, N)), cfg.ssm_chunk,
     )
     y = y + xh * p["D"][None, None, :, None].to(dt_)
-    y = _gated_rmsnorm(y.reshape(B, S, H * P), z, p["norm_scale"])
+    y = _gated_rmsnorm(y.reshape(B, S, Hl * P), z, p["norm_scale"],
+                       cfg.d_inner if mx.on else None)
     out = y @ p["out_proj"].to(dt_)
+    if mx.on:
+        out = hints.reduce_model(out)
 
     cache = None
     if build_cache:
@@ -204,20 +287,26 @@ def ssm_decode_step(
     H, P, N, g = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
     dt_ = u_t.dtype
     f32 = torch.float32
+    mx = _Mixer(cfg)
 
-    zxbcdt = u_t[:, 0, :] @ p["in_proj"].to(dt_)  # (B, d_in_proj)
+    zxbcdt = mx.project(u_t[:, 0, :], p["in_proj"])  # (B, d_in_proj)
     z, xBC, dtr = _split_zxbcdt(cfg, zxbcdt)
-    _, xBC = causal_conv1d_step(p["conv"], cache["conv"], xBC)
-    x, Bm, Cm = _split_xbc(cfg, F.silu(xBC))
+    _, xBC = causal_conv1d_step(p["conv"], cache["conv"], mx.channels(xBC))
+    x, Bm, Cm = _split_xbc(cfg, mx.gather(F.silu(xBC)))
+    x, z, dtr = mx.head_cols(x, P), mx.head_cols(z, P), mx.head_cols(dtr, 1)
+    Hl = dtr.shape[-1]
 
     dt = F.softplus(dtr.to(f32) + p["dt_bias"])  # (B, H)
     dA = torch.exp(dt * -torch.exp(p["A_log"]))  # (B, H)
 
-    xh = x.reshape(B, H, P).to(f32)
-    Bh = Bm.reshape(B, g, N).repeat_interleave(H // g, dim=1).to(f32)
-    Ch = Cm.reshape(B, g, N).repeat_interleave(H // g, dim=1).to(f32)
+    xh = x.reshape(B, Hl, P).to(f32)
+    Bh = mx.head_cols(Bm.reshape(B, g, N).repeat_interleave(H // g, dim=1).flatten(1), N)
+    Ch = mx.head_cols(Cm.reshape(B, g, N).repeat_interleave(H // g, dim=1).flatten(1), N)
+    Bh, Ch = Bh.unflatten(1, (Hl, N)).to(f32), Ch.unflatten(1, (Hl, N)).to(f32)
 
     state = _state_step(cache["state"], dA, (dt[..., None] * xh)[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", state, Ch) + xh * p["D"][None, :, None]
-    y = _gated_rmsnorm(y.reshape(B, H * P).to(dt_), z, p["norm_scale"])
-    return (y @ p["out_proj"].to(dt_))[:, None, :], cache
+    y = _gated_rmsnorm(y.reshape(B, Hl * P).to(dt_), z, p["norm_scale"],
+                       cfg.d_inner if mx.on else None)
+    y = y @ p["out_proj"].to(dt_)
+    return (hints.reduce_model(y) if mx.on else y)[:, None, :], cache

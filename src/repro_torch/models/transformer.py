@@ -20,10 +20,11 @@ here every stack is a list of per-layer parameter dicts in layer order
 scan a Python loop.  A block returns its MoE load-balance loss (None for
 any other block) and the stack sums them.
 
-Under a ``"model"`` axis larger than 1 (:mod:`repro_torch.sharding.hints`,
-the dense and MoE families) a block all-reduces once after attention and
-once after the FFN, a ``parallel_block`` once for a + f together; the
-block recompute of a gradient is not sharded and raises.
+Under a ``"model"`` axis larger than 1 (:mod:`repro_torch.sharding.hints`)
+a block all-reduces once after attention (or cross-attention, the RG-LRU,
+the Mamba2 mixer) and once after the FFN, a ``parallel_block`` once for
+a + f together; the block recompute of a gradient is not sharded and
+raises.
 """
 from __future__ import annotations
 
@@ -175,9 +176,10 @@ def stacked_attn_cache(cfg: ModelConfig, n: int, batch: int, cap: int, dtype: to
 
 def stacked_ssm_cache(cfg: ModelConfig, n: int, batch: int, dtype: torch.dtype,
                       device=None) -> List[dict]:
-    """``n`` zero SSM caches: ``state`` (B, H, P, N) fp32, ``conv`` (B, w-1, C)."""
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
-    state = (batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state)
+    """``n`` zero SSM caches: ``state`` (B, H, P, N) fp32, ``conv`` (B, w-1, C)
+    (under a "model" axis the rank's heads and conv channels)."""
+    conv_ch, heads = ssm_mod.cache_widths(cfg)
+    state = (batch, heads, cfg.ssm_headdim, cfg.ssm_state)
     return [{"state": torch.zeros(state, dtype=torch.float32, device=device),
              "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype, device=device)}
             for _ in range(n)]
@@ -185,9 +187,11 @@ def stacked_ssm_cache(cfg: ModelConfig, n: int, batch: int, dtype: torch.dtype,
 
 def stacked_rec_cache(cfg: ModelConfig, n: int, batch: int, dtype: torch.dtype,
                       device=None) -> List[dict]:
-    """``n`` zero RG-LRU caches: ``h`` (B, lru_width) fp32, ``conv`` (B, 3, lru_width)."""
-    return [{"h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32, device=device),
-             "conv": torch.zeros((batch, 3, cfg.lru_width), dtype=dtype, device=device)}
+    """``n`` zero RG-LRU caches: ``h`` (B, lru_width) fp32, ``conv`` (B, 3,
+    lru_width) (under a "model" axis the rank's channels)."""
+    w = rglru_mod.rank_width(cfg)
+    return [{"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+             "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device)}
             for _ in range(n)]
 
 

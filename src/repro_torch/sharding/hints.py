@@ -16,30 +16,40 @@ With no mesh set — the unit tests, one card, the engines' data-parallel
 paths, which pass their mesh explicitly — :func:`mesh_axis_size` and
 :func:`data_shards` return 1, as the reference's do, and every layer runs
 exactly its unsharded code.  Under a mesh whose ``"model"`` axis is larger
-than 1, the dense and MoE layers run tensor- and expert-parallel in the
-layouts :func:`repro_torch.sharding.specs.param_specs` picks:
+than 1, every family's layers run tensor-, expert- or context-parallel in
+the layouts :func:`repro_torch.sharding.specs.param_specs` and
+:func:`~repro_torch.sharding.specs.cache_specs` pick:
 
 * attention: q/k/v column-parallel over the (kv-)head axis and ``wo``
   row-parallel (one all-reduce); where a projection falls back to d_model
   it is row-parallel (the rank's slice of x times its rows, then an
   all-reduce) and each rank picks the kv heads its q heads need; the KV
-  cache holds the rank's kv heads, or all of them where the rules
-  replicate it;
+  cache holds the rank's kv heads, or its block of the slots (the
+  sequence layout: decode attends all heads over the rank's slots and
+  combines the ranks' softmax pieces, :func:`max_model` then one sum), or
+  all of it where the rules replicate it; Whisper's cross-attention runs
+  head-parallel alike;
 * the MLP and the MoE's shared expert column-parallel up, row-parallel
   down (one all-reduce); the routed experts expert-parallel on the E axis
   (a rank dispatches to and runs its experts only), or, where E does not
   divide, split on their hidden axis;
+* the RG-LRU width-sharded (its gates' (W, W) products read the conv's
+  output gathered over ``"model"``) and the Mamba2 mixer head-sharded (its
+  in_proj and conv blocks gathered, the SSD on the rank's heads, the gated
+  norm's sum of squares all-reduced);
 * the embedding vocab-sharded (a rank looks up its rows, zeroes the rest,
-  all-reduces) and the LM head vocab-sharded (rank-local logits, gathered
-  where logits are returned, the padded-vocab mask on the global column).
+  all-reduces) or d_model-sharded (the rank's columns, gathered), the LM
+  head vocab-sharded (rank-local logits, gathered where logits are
+  returned, the padded-vocab mask on the global column) or d_model-sharded
+  (the rank's partial logits, all-reduced).
 
 A replicated leaf is computed whole on every rank and never all-reduced.
 Every reduction runs in fp32 over the ``"model"`` group and is cast back
 once; a rank's partial sum of a replicated product is that product on
 model rank 0 and zeros elsewhere (:func:`as_partial`).  What these layers
 do not implement raises ``NotImplementedError`` (:func:`refuse`): the
-sequence-sharded KV cache, a d_model-sharded embedding or LM head, the
-SSM, hybrid, VLM and audio families and the backward under ``"model"`` > 1.
+backward under ``"model"`` > 1, and any layout the rules pick that a layer
+lacks.
 """
 from __future__ import annotations
 
@@ -50,7 +60,6 @@ import torch
 import torch.distributed as dist
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 13b(ii)"
-TP_FAMILIES = ("dense", "moe")  # the arch_types whose layers run under "model" > 1
 
 # the ambient mesh with its axis sizes and this rank's coordinates, read
 # once (a DeviceMesh recomputes its layout on every read of .mesh)
@@ -139,12 +148,6 @@ def refuse(what: str) -> None:
                               f"implemented, {ROADMAP_ITEM}")
 
 
-def check_family(cfg: Any, what: str) -> None:
-    """Refuse a family whose sharded layers are not ported, under "model" > 1."""
-    if model_size() > 1 and cfg.arch_type not in TP_FAMILIES:
-        refuse(f"{what} of a {cfg.arch_type!r} model ({cfg.name})")
-
-
 def _group(axis: str):
     return get_mesh().get_group(axis)
 
@@ -157,6 +160,15 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     t = x.to(torch.float32, copy=True).contiguous()
     dist.all_reduce(t, group=_group("model"))
     return t.to(x.dtype)
+
+
+def max_model(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max of ``x`` over the "model" ranks, in fp32 (x itself,
+    as fp32, without a model axis); x is not written."""
+    t = x.to(torch.float32, copy=True).contiguous()
+    if model_size() > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_group("model"))
+    return t
 
 
 def pad_block(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -172,6 +184,16 @@ def pad_block(x: torch.Tensor, dim: int) -> torch.Tensor:
     t = torch.zeros(full, dtype=x.dtype, device=x.device)
     t.narrow(dim, model_rank() * n, n).copy_(x)
     return t
+
+
+def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Model rank r's block r of ``dim`` of a whole ``x`` (a view; x itself
+    without a model axis)."""
+    m = model_size()
+    if m == 1:
+        return x
+    n = x.shape[dim] // m
+    return x.narrow(dim, model_rank() * n, n)
 
 
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -13,8 +13,9 @@ parameter):
   each element a function of its leaf and its global index, so every
   mesh — one card unsharded included — sees the same weights.
 
-Both refuse (``NotImplementedError``) a family or a layout that the
-sharded layers do not implement (:mod:`repro_torch.sharding.hints`).
+Every family's blocks are cut as the rules give them; a layout that the
+sharded layers do not implement raises where a layer meets it
+(:mod:`repro_torch.sharding.hints`).
 """
 from __future__ import annotations
 
@@ -30,32 +31,11 @@ from repro_torch.sharding.specs import PartitionSpec, map_with_path, param_specs
 Factory = Callable[[str, Tuple[int, ...], Tuple[slice, ...], torch.device], torch.Tensor]
 
 
-def _check(cfg: Any, specs: Any, sizes: dict) -> None:
-    """Refuse what the sharded layers do not run: a family other than dense
-    and MoE, and a d_model-sharded embedding or LM head."""
-    if sizes.get("model", 1) == 1:
-        return
-    if cfg.arch_type not in hints.TP_FAMILIES:
-        raise NotImplementedError(
-            f"parameters of a {cfg.arch_type!r} model ({cfg.name}) under a 'model' axis of "
-            f"{sizes['model']}: not implemented, {hints.ROADMAP_ITEM}")
-    for path, spec in (("embed/embedding", specs["embed"]["embedding"]),
-                       ("lm_head/kernel", specs.get("lm_head", {}).get("kernel"))):
-        if spec is None or spec.is_replicated():
-            continue
-        vocab_dim = 0 if path.startswith("embed") else 1
-        if spec.full(2)[vocab_dim] != "model":
-            raise NotImplementedError(
-                f"{path} sharded {spec!r} (d_model) under a 'model' axis of {sizes['model']}: "
-                f"not implemented, {hints.ROADMAP_ITEM}")
-
-
 def shard_params(cfg: Any, params: Any, mesh: Any) -> Any:
     """The rank's block of every leaf of ``params`` (a copy for a split
     leaf, the leaf itself for a replicated one)."""
     sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
     specs = param_specs(cfg, params, sizes)
-    _check(cfg, specs, sizes)
     flat = {}
     map_with_path(specs, lambda path, spec: flat.__setitem__(path, spec))
 
@@ -79,7 +59,6 @@ def shard_params_from(cfg: Any, factory: Factory, mesh: Any,
     sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
     meta = abstract_params(cfg)
     specs = param_specs(cfg, meta, sizes or {"model": 1})
-    _check(cfg, specs, sizes)
     flat = {}
     map_with_path(specs, lambda path, spec: flat.__setitem__(path, spec))
 

@@ -13,10 +13,11 @@ programs live in the package, so no rank imports JAX.  The engines'
 sharded runs are in ``tests/test_torch_dist_engines.py``.
 
 Where the reference takes its device count from ``jax.devices()``, the port
-counts the world's ranks; a ``"model"`` axis builds, and a family whose
-sharded layers are not ported raises ``NotImplementedError`` under it,
-naming its ROADMAP item (the sharded layers themselves are in
-``tests/test_torch_tp.py``).
+counts the world's ranks; a ``"model"`` axis builds, and a path the
+sharded layers do not implement (the backward) raises
+``NotImplementedError`` under it, naming its ROADMAP item (the sharded
+layers themselves are in ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_families.py``).
 """
 import os
 import signal
@@ -72,12 +73,13 @@ def test_make_host_mesh_raises_on_indivisible(ranks):
 
 
 def test_tensor_parallelism_raises_naming_its_item(ranks):
-    """A "model" axis of 2 builds (host and tier meshes); a family whose
-    sharded layers are not ported raises under it, naming its item."""
+    """A "model" axis of 2 builds (host and tier meshes); a path the sharded
+    layers do not implement (an SSM's backward) raises under it, naming its
+    item."""
     tp = ranks[0]["model_parallel=2"]
     assert tp["host"] == (("data", "model"), ("data",), (WORLD // 2, 2))
     assert tp["tiers"] == (("edge", "model"), ("edge",), (WORLD // 2, 2))
-    kind, msg = tp["ssm"]
+    kind, msg = tp["ssm backward"]
     assert kind == "NotImplementedError" and "Queue 1 item 13b(ii)" in msg
 
 

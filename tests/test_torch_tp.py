@@ -17,8 +17,14 @@ changes).  At (1, 4) the 2-kv-head models' caches of 19 slots are
 replicated (kv heads and slots both indivisible); the layouts where a
 projection or an expert stack falls back from its head or expert axis run
 at head and expert counts that do not divide 4.  Every model rank of a data
-group returns the same bits.  The world also runs the refusals and
-``train.run``'s phase 1 with a "model" axis.
+group returns the same bits.  ``launch/serve.py``'s ``serve`` runs two
+layouts that earlier slices refused, each held against the reference on
+the tokens it served: qwen2-7b-smoke at (1, 4) with a ring of 8 slots (2
+kv heads: the sequence-sharded cache, 2 slots a rank, two ranks holding
+no position yet at the first decode step) and mamba2-1.3b-smoke at
+(2, 2).  The world also runs the refusals (the backward under "model" 2)
+and ``train.run``'s phase 1 with a "model" axis.  The SSM, hybrid, VLM and
+audio families are held in ``tests/test_torch_tp_families.py``.
 """
 import contextlib
 import functools
@@ -65,6 +71,11 @@ S0, T = 15, 4
 VARIANTS = {"q rows, wo cols": ("qwen2-7b-smoke", {"n_heads": 6}),
             "experts split on their hidden axis": ("llama4-scout-17b-a16e-smoke",
                                                    {"n_experts": 6})}
+# serve at (label: arch, mesh, prompt length, gen): a prompt of 3 and 5
+# tokens make qwen2's ring 8 slots, which 4 divides and its 2 kv heads do
+# not; mamba2's SSD takes its prompt of 8 as one chunk
+SERVED = {"sequence cache": ("qwen2-7b-smoke", (1, 4), 3, 5),
+          "ssm": ("mamba2-1.3b-smoke", (2, 2), 8, 3)}
 
 
 def _name(arch, mesh):
@@ -161,7 +172,7 @@ def world():
     rng = np.random.default_rng(0)
     toks = {arch: rng.integers(0, 512, (B, S)).astype(np.int32) for arch in ARCHS}
     jobs, refs_todo = [], []
-    inits = _ref_inits(ARCHS)
+    inits = _ref_inits(ARCHS + [a for a, _, _, _ in SERVED.values() if a not in ARCHS])
     for arch in ARCHS:
         jcfg, jparams = inits[arch]
         params_np = jax.tree.map(np.asarray, jparams)
@@ -179,6 +190,11 @@ def world():
                          overrides={"dtype": "float32", **over},
                          params=jax.tree.map(np.asarray, jparams), tokens=toks[arch]))
         refs_todo.append((label, arch, jcfg, jparams, 1))
+    for label, (arch, mesh, s0, gen) in SERVED.items():
+        jcfg, jparams = inits[arch]
+        jobs.append(dict(name=label, arch=arch, data=mesh[0], model=mesh[1],
+                         overrides={"dtype": "float32"}, params=jax.tree.map(np.asarray, jparams),
+                         prompts=toks[ARCHS[0]][:, :s0], serve={"gen": gen}))
     # the ranks run while the references are computed here
     box = {}
 
@@ -200,13 +216,33 @@ def world():
         raise box["error"]
     for arch in ARCHS:
         refs.setdefault(_name(arch, MESHES[1]), refs[_name(arch, MESHES[0])])
-    return box["ranks"], refs
+    ranks = box["ranks"]
+    for label, (arch, mesh, s0, gen) in SERVED.items():
+        tokens = _rows(ranks, label, "tokens", mesh[1])
+        refs[label] = _served_reference(*inits[arch], toks[ARCHS[0]][:, :s0], tokens)
+    return ranks, refs
+
+
+def _served_reference(jcfg, jparams, prompts, tokens):
+    """The reference's logits of the prefill of ``prompts`` and of decode
+    steps teacher-forced on the tokens a sharded ``serve`` picked (all but
+    its last), stacked as ``serve`` returns them."""
+    s0, gen = prompts.shape[1], tokens.shape[1]
+    lg, cache = jax.jit(lambda p, t: jmodel.prefill(jcfg, p, {"tokens": t}, s0 + gen))(
+        jparams, jnp.asarray(prompts))
+    out = [np.asarray(lg)]
+    step = jax.jit(functools.partial(jmodel.decode_step, jcfg))
+    for i in range(gen - 1):
+        lg, cache = step(jparams, cache, jnp.asarray(tokens[:, i:i + 1].astype(np.int32)),
+                         jnp.int32(s0 + i))
+        out.append(np.asarray(lg))
+    return np.stack(out)
 
 
 def _rows(ranks, name, key, model):
     """The data groups' rows of ``key`` in data order (model rank 0 of each)."""
     return np.concatenate([ranks[r][name][key] for r in range(0, WORLD, model)],
-                          axis=1 if key == "decode" else 0)
+                          axis=1 if key in ("decode", "served") else 0)
 
 
 def _close(got, want, rel=REL):
@@ -269,11 +305,27 @@ def test_fallback_layouts_match_the_reference(world, label):
     assert len({ranks[r][label]["digest"].__repr__() for r in range(WORLD)}) == 1
 
 
-@pytest.mark.parametrize("case", ["sequence cache", "ssm", "train phase 2"])
+@pytest.mark.parametrize("case", ["train phase 2", "hybrid backward", "audio backward"])
 def test_unported_layouts_and_paths_raise(world, case):
     ranks, _ = world
     kind, msg = ranks[0]["refusals"][case]
     assert kind == "NotImplementedError" and "item 13b(ii)" in msg, (kind, msg)
+
+
+@pytest.mark.parametrize("label", list(SERVED))
+def test_formerly_refused_layouts_serve_as_the_reference(world, label):
+    """``serve`` over the mesh: its logits against the reference's on the
+    tokens it picked, equal bits on a data group's model ranks; the
+    2-kv-head ring in the sequence layout, 2 slots a rank."""
+    ranks, refs = world
+    arch, (data, model), s0, gen = SERVED[label]
+    got = _rows(ranks, label, "served", model)
+    assert got.shape[:2] == (gen, B)
+    _close(got, refs[label])
+    for r in range(WORLD):
+        assert ranks[r][label]["digest"] == ranks[r - r % model][label]["digest"]
+    if label == "sequence cache":
+        assert ranks[0][label]["layouts"]["kv cache"] == "sequence"
 
 
 def test_train_phase1_with_a_model_axis_matches_one_process(world):
