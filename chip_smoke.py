@@ -131,6 +131,28 @@ counts just after.
                 against the CPU, the MoE's capacity groups G = 2 with equal
                 drop shares.  gloo stages CUDA tensors through the host, so
                 no sync-debug gate runs here.
+16b. tp-train -- the backward under a "model" axis, fp32,
+                ``seeded_factory(0)`` weights, on 4 gloo ranks sharing the
+                card (``launch/dist_check.py::tp_train_program``): each
+                TP_RUNS family at its [tp] depth cut, ``lm_loss``'s gradient
+                unsharded on rank 0 first (kept on the host, each rank's
+                blocks scattered to it), then over (data 1, model 4), each
+                leaf of it against the unsharded one within
+                TP_GRAD_REL of the leaf's max|g|, and three planted faults of
+                the gradient convention (one layer's all-reduce backward as
+                the identity, the replicated-leaf sum skipped, the loss
+                seeded on every model rank) above it; ms and peak a rank
+                against unsharded.  Then ``launch/train.py``'s ``run`` on
+                ``fed3r-mnv2-proxy`` at full width (phase 1 through
+                fed3r_stats, then 2 FT-FEAT FedAvg rounds of 4 clients x 2
+                steps x 32 x 32 tokens) in this process, then at (1, 4)
+                (the row-parallel attention: 10 heads) and (2, 2)
+                (head-parallel): the gathered dtheta within FT_ROUND_REL of
+                this process's, the replicated leaves bitwise equal across a
+                data group's model ranks, a resume at (1, 4) from the
+                round-1 checkpoint bitwise the uninterrupted run; ms a
+                round, peak a rank.  No sync-debug gate (gloo stages
+                through the host).
 17. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
                 layers, d_model 3584, GQA 28/4, vocab 152,064), bf16, random
                 weights: batch 8, 2048-token prompts, 64 tokens; flash_attention
@@ -424,6 +446,62 @@ TP_PEAK_SHARE = {"moe": 0.34, "hybrid": 0.39, "vlm": 0.41, "audio": 0.78, "ssm":
 TP_SMOKE = ("deepseek-moe-16b-smoke", "qwen2-7b-smoke", "recurrentgemma-9b-smoke",
             "qwen2-vl-2b-smoke", "whisper-large-v3-smoke", "mamba2-1.3b-smoke")
 TP_SMOKE_SHAPE = dict(B=4, S=20, S0=15, T=4)
+# [tp-train]: lm_loss's gradient of each TP_RUNS family at its [tp] depth
+# cut (llama4-scout and recurrentgemma-9b cut further, TP_GRAD_LAYERS), fp32,
+# seeded_factory(0) weights, unsharded first (on rank 0, kept on the host,
+# each rank's blocks of it scattered to that rank), then over (data 1,
+# model 4) on TP_WORLD gloo ranks: family -> (B, S).  Short
+# batches: 2 x 256 tokens (a VLM's 256 stub patches before them, an audio
+# model's 1500 frames beside them); the hybrid 1 x 3072, past its 2048
+# window (the train attention runs query chunks of 1024 past 2048 tokens;
+# its logits, 3072 x 256,000 fp32, are gathered whole on every rank).
+TP_GRAD_SHAPE = {"moe": (2, 256), "hybrid": (1, 3072), "vlm": (2, 256), "audio": (2, 256),
+                 "ssm": (2, 256)}
+# depth cut for time: at llama4-scout's 2 layers its job took 44.6 s (the
+# unsharded pass 3.8 s at 49.1 GiB, its 22 GB gradient scattered from the
+# host, the sharded pass 3.3-3.9 s); at recurrentgemma-9b's 6 layers 48.0 s
+# (the sharded pass 31.8 s: its 3072 x 256,000 fp32 logits gathered, their
+# cotangent all-reduced, through the host).  Read on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W).
+TP_GRAD_LAYERS = {"moe": 1, "hybrid": 3}
+# per leaf, max|g - g0| / max|g0| against the unsharded gradient g0; an
+# attention key bias's gradient is zero in exact arithmetic (a softmax is
+# blind to one shift of every key), so its gap is read against the largest
+# |g0| of the whole tree.  The limit is twice the largest leaf gap of one
+# sound run on an H100 (NVIDIA H100 80GB HBM3, 700 W): 6.5342e-5, Whisper's
+# decoder cross-attention wq, whose gradient the softmax's centring
+# cancels (the other families read 3.4e-6 to 1.6e-5); the planted faults
+# read 1.05 to 3.0.
+TP_GRAD_REL = 1.3e-4
+# the planted faults run on one family (each a full gradient pass)
+TP_GRAD_FAULTS_ON = "vlm"
+TP_TRAIN_TIMEOUT_S = 900
+# launch/train.py's run on the slice's model at full width, in this process,
+# at (1, 4) and at (2, 2): phase 1 alone (fed3r_stats; A and b within one
+# bf16 ulp of max|A|, the proxy's features computed in bf16), then 2
+# FT-FEAT FedAvg rounds from the seeded head (phase 1's calibrated head is
+# saturated here: every sample carries its class as a prefix token, so the
+# temperature lands on the grid's floor and the rounds' dtheta on 1e-9) of
+# 4 clients x 2 steps x 32 sequences x 32 tokens (cut from 128 tokens: a
+# (1, 4) round all-reduces ~90 whole activations a step through the host,
+# 18-25 s a round at 128 tokens); a resume from the round-1 checkpoint at
+# (1, 4), whose all-reduces sum 4 ranks' partials and whose attention is
+# row-parallel (the resume at (2, 2), bitwise too on an H100, cost its job
+# 52 s, its two compressed 390 MB checkpoint writes the most of it; the
+# CPU tests resume at (1, 2), (2, 2) and (1, 4))
+TP_FT = dict(n_samples=512, seq_len=32, n_classes=16, n_clients=16, clients_per_round=4,
+             rounds=2, local_batch_size=32, use_fed3r_init=False)
+TP_FT_MESHES = ((1, 4), (2, 2))
+TP_FT_RESUME = (1, 4)
+# the sharded runs against one process, each twice one sound reading on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W): phase 1's A and b (max|d| / max|x|
+# each; the proxy's bf16 features rounded apart where the sharded layers
+# sum partial products) read 3.5804e-3 at (1, 4), 2.6565e-3 at (2, 2); the
+# gathered dtheta after 2 rounds (of max|dtheta| 2.16e-2; bf16 activations)
+# read 1.6666e-3 and 1.8008e-3.  FT_ROUND_REL (2e-3, the round engine
+# against the per-client loop in one process) would leave 10% of margin.
+TP_STATS_REL = 7.2e-3
+TP_FT_REL = 3.6e-3
 # the dense serving path (launch/serve.py) at Qwen2-7B's full width, bf16
 SERVE_ARCH = "qwen2-7b"
 SERVE_FULL = dict(batch=8, prompt_len=2048, gen=64)
@@ -3134,6 +3212,157 @@ def phase_tp(torch, ops) -> dict:
     return {"launches": launches, "gaps": gaps}
 
 
+# ---------------------------------------------------------------------------
+# [tp-train]: the backward under a "model" axis on the one card
+# ---------------------------------------------------------------------------
+
+
+def _grad_gap(gaps: dict) -> tuple:
+    """(the largest leaf gap, its leaf) of ``gaps`` ({leaf: (max|d|,
+    max|g0|)}): each leaf's max|d| over its max|g0|, an attention key
+    bias's over the whole tree's largest |g0| (TP_GRAD_REL)."""
+    top = max(scale for _, scale in gaps.values())
+    worst = (0.0, "")
+    for path, (err, scale) in gaps.items():
+        ref = top if path.rsplit("/", 1)[-1] == "bk" else scale
+        worst = max(worst, (err / ref if ref > 0 else err, path))
+    return worst
+
+
+def phase_tp_train(torch, ops) -> dict:
+    """lm_loss's gradient of each TP_RUNS family at full width over (data 1,
+    model 4) against the unsharded one (and three planted faults), then
+    launch/train.py's run on the slice's model in this process and at each
+    of TP_FT_MESHES, through launch/dist_check.py::tp_train_program on
+    TP_WORLD gloo ranks sharing the card."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.dist_check import GRAD_FAULTS, grad_batch, tp_train_program
+    from repro_torch.launch.world import run_world
+    from repro_torch.tree import tree_map
+
+    t_all = time.perf_counter()
+    grads = []
+    for family, (arch, over, _, _, _) in TP_RUNS.items():
+        over = dict(over, **({"n_layers": TP_GRAD_LAYERS[family]}
+                             if family in TP_GRAD_LAYERS else {}))
+        cfg = get_config(arch).replace(**over, dtype="float32")
+        B, S = TP_GRAD_SHAPE[family]
+        grads.append(dict(name=family, arch=arch, data=1, model=TP_WORLD,
+                          overrides={**over, "dtype": "float32"}, seed=0,
+                          batch=grad_batch(cfg, 21, B, S), reference=True,
+                          faults=GRAD_FAULTS if family == TP_GRAD_FAULTS_ON else ()))
+
+    # the one-process runs of the slice's model, on this card: phase 1, then
+    # the FT rounds
+    reset_counts(ops)
+    one1 = train.run(SLICE_ARCH, device="cuda", verbose=False, **dict(
+        TP_FT, rounds=0, use_fed3r_init=True))
+    launches = read_counts(ops)["fed3r_stats"]
+    stats1 = {"A": one1["stats"].A.cpu(), "b": one1["stats"].b.cpu()}
+    del one1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one = train.run(SLICE_ARCH, device="cuda", verbose=False, **TP_FT)
+    one_peak = torch.cuda.max_memory_allocated()
+    cfg = get_config(SLICE_ARCH)
+    want = tree_map(lambda t: t.cpu(), one["ft"]["state"].params)
+    start = tree_map(lambda t: t.cpu(), {"backbone": one["params0"],
+                                         "head": one["ft"]["state"].params["head"]})
+    del one["ft"]["state"], one["params0"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:
+        ft = [dict(name=f"ft {d}x{m}", arch=SLICE_ARCH, model=m, run=TP_FT,
+                   root=os.path.join(root, "ckpt") if (d, m) == TP_FT_RESUME else None)
+              for d, m in TP_FT_MESHES]
+        t0 = time.perf_counter()
+        ranks = run_world(tp_train_program, TP_WORLD, backend="gloo", device="cuda",
+                          timeout_s=TP_TRAIN_TIMEOUT_S, args=(grads, (), ft))
+        wall = time.perf_counter() - t0
+
+    checks, gaps = {}, {}
+    for job in grads:
+        family = job["name"]
+        res = [r[family] for r in ranks]
+        un = res[0]["unsharded"]
+        sound = res[0]["sound"]
+        gap, leaf = _grad_gap(sound["gaps"])
+        gaps[f"{family} grad"] = gap
+        peak = max(r["sound"]["peak_bytes"] for r in res)
+        checks[f"{family}: every leaf's gradient within {TP_GRAD_REL:g} of the unsharded "
+               f"one's ({len(sound['gaps'])} leaves)"] = gap <= TP_GRAD_REL
+        faults = ""
+        for fault in job["faults"]:
+            fgap, fleaf = _grad_gap(res[0][fault]["gaps"])
+            gaps[f"{family} grad fault {fault}"] = fgap
+            checks[f"{family}: the planted fault ({fault}) reads above {TP_GRAD_REL:g}"] = (
+                fgap > TP_GRAD_REL)
+            faults += f"; planted fault ({fault}) {fgap:.4e} at {fleaf}"
+        B, S = TP_GRAD_SHAPE[family]
+        depth = {k: v for k, v in job["overrides"].items() if k.endswith("layers")}
+        log(f"[tp-train] {family}: {job['arch']} {depth}, {B} x {S}, lm_loss gradient unsharded "
+            f"{un['ms']:.1f} ms (weights made, forward, backward), peak "
+            f"{un['peak_bytes'] / 2**30:.3f} GiB; over (data 1, model {TP_WORLD}) "
+            + " ".join(f"{r['sound']['ms']:.1f}" for r in res) + " ms (compared in "
+            + " ".join(f"{r['sound']['gaps_ms']:.1f}" for r in res) + " ms), peak "
+            + " ".join(f"{r['sound']['peak_bytes'] / 2**30:.3f}" for r in res)
+            + f" GiB ({peak / un['peak_bytes']:.3f} of unsharded); largest leaf gap "
+            f"{gap:.4e} at {leaf} (limit {TP_GRAD_REL:g}){faults}")
+
+    dw_scale = None
+    for (d, m), job in zip(TP_FT_MESHES, ft):
+        res = [r[job["name"]] for r in ranks]
+        got = tree_map(torch.from_numpy, res[0]["params"])
+        triples = []
+        tree_map(lambda w, g, s0: triples.append((g, w, s0)), want, got, start)
+        err = max(float(((g - s0) - (w - s0)).abs().max()) for g, w, s0 in triples)
+        scale = max(float((w - s0).abs().max()) for _, w, s0 in triples)
+        dw_scale = scale
+        rel = err / scale if scale > 0 else err
+        gaps[f"ft {d}x{m}"] = rel
+        launches += sum(r["fed3r_launches"] for r in res)
+        ms = [r["round_ms"] for r in res]
+        stats_rel = max(max_rel_err(torch.from_numpy(res[0]["stats"][k]), stats1[k])
+                        for k in ("A", "b"))
+        gaps[f"ft {d}x{m} stats"] = stats_rel
+        checks.update({
+            f"ft at ({d}, {m}): phase 1's A and b within {TP_STATS_REL:g} of max|A| of one "
+            "process's": stats_rel <= TP_STATS_REL,
+            f"ft at ({d}, {m}): the gathered dtheta within {TP_FT_REL:g} of one process's":
+                rel <= TP_FT_REL,
+            f"ft at ({d}, {m}): replicated leaves bitwise equal on a data group's model ranks":
+                all(r["replicated"] == res[r_i - r_i % m]["replicated"]
+                    for r_i, r in enumerate(res)),
+            f"ft at ({d}, {m}): phase 1 through fed3r_stats on every rank":
+                all(r["fed3r_launches"] > 0 for r in res),
+        })
+        resumed = ""
+        if job["root"] is not None:
+            checks[f"ft at ({d}, {m}): a resume from the round-1 checkpoint bitwise the "
+                   "uninterrupted run on every rank"] = all(r["resume_bitwise"] for r in res)
+            shapes = res[0]["checkpoint_shapes"]
+            checks[f"ft at ({d}, {m}): the checkpoint's leaves at global shapes"] = (
+                shapes["embed/embedding"] == (cfg.padded_vocab, cfg.d_model))
+            resumed = f"; resume bitwise {[r['resume_bitwise'] for r in res]}"
+        log(f"[tp-train] ft at (data {d}, model {m}): ms a round by rank "
+            + " ".join("/".join(f"{x:.1f}" for x in r) for r in ms)
+            + " (one process " + "/".join(f"{x:.1f}" for x in one["ft"]["round_ms"])
+            + "), peak a rank " + " ".join(f"{r['peak_bytes'] / 2**30:.3f}" for r in res)
+            + f" GiB (one process {one_peak / 2**30:.3f}); phase 1's A and b gap {stats_rel:.4e}"
+            f" (limit {TP_STATS_REL:g}); dtheta gap {rel:.4e} of max|dtheta| {scale:.4e} (limit "
+            f"{TP_FT_REL:g}){resumed}")
+    log(f"[tp-train] {TP_WORLD} gloo ranks on one card in {wall:.1f}s; fed3r_stats launches "
+        f"{launches} (phase 1 here and on every rank); the phase in "
+        f"{time.perf_counter() - t_all:.1f}s on {card()}")
+    for name, ok in checks.items():
+        log(f"[tp-train] {'ok  ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError(f"[tp-train] failed: {[n for n, ok in checks.items() if not ok]}")
+    return {"launches": launches, "gaps": gaps, "dtheta_scale": dw_scale}
+
+
 def half_way_matrix(tiles_down, tiles_across, tile, seed):
     """An fp32 matrix whose every entry but one a tile sits exactly half-way
     between two integers of its tile's quantization grid (x/s = k + 1/2, no
@@ -4434,6 +4663,7 @@ def main() -> int:
     dist = phase_dist(torch, ops, sl, ft, stream["arrival"])
     del ft
     tp = phase_tp(torch, ops)
+    tp_train = phase_tp_train(torch, ops)
     srv = phase_serve(torch, ops)
     phase_serve_consistency(torch, ops)
     moe = phase_serve_moe(torch, ops)
@@ -4463,7 +4693,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fed3r_stats.cu",
          "replaces": "src/repro/kernels/fed3r_stats.py:57",
          "launches": sl["launches"] + asy["launches"]["fed3r_stats"]
-         + tiers["launches"]["fed3r_stats"] + dist["launches"]["fed3r_stats"], **kern},
+         + tiers["launches"]["fed3r_stats"] + dist["launches"]["fed3r_stats"]
+         + tp_train["launches"], **kern},
         {"name": "rff", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rff.cu",
          "replaces": "src/repro/kernels/rff.py:42", "launches": rf["launches"],
          **{k: v for k, v in kern_rff.items() if k != "gemm_only_ms"}},

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.federated.dist import resolve_device
+from repro_torch.sharding import hints
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -87,6 +88,7 @@ def make_local_update(
     *,
     lr: float,
     weight_decay: float = 0.0,
+    replicated: Any = None,
 ) -> Callable[..., LocalResult]:
     """Build ``local_update(global_params, batches, freeze, c_server, c_client)``.
 
@@ -98,12 +100,19 @@ def make_local_update(
     ``c_server`` and ``c_client`` are read by Scaffold only (pass None
     otherwise).  One client's update, or the cohort's under
     ``torch.func.vmap``.
+
+    Under an ambient "model" axis (:mod:`repro_torch.sharding.hints`) the
+    params are the rank's blocks and ``replicated`` (a tree of bools of
+    their structure) flags those every model rank holds whole: the loss is
+    seeded once over "model", and the flagged leaves' gradients are summed
+    over it before the proximal term, the weight decay and Scaffold's
+    correction, which are per leaf and already whole.
     """
 
     def masked_loss(params, batch):
         per = loss_fn(params, batch)  # (batch_size,) per-example losses
         m = batch["mask"].to(torch.float32)
-        return (per * m).sum() / m.sum().clamp_min(1.0)
+        return hints.seed_loss((per * m).sum() / m.sum().clamp_min(1.0))
 
     grad = torch.func.grad(masked_loss)
 
@@ -113,6 +122,11 @@ def make_local_update(
             batch = {k: v[i] for k, v in batches.items()}
             has = (batch["mask"].sum() > 0).to(torch.float32)
             grads = grad(params, batch)
+            if hints.model_size() > 1:
+                if replicated is None:
+                    raise ValueError("under a 'model' axis the local update needs the "
+                                     "replicated leaves (replicated=)")
+                grads = hints.sum_replicated(grads, replicated)
             if algo.prox_mu > 0.0:
                 grads = tree_map(
                     lambda g, p, p0: g + algo.prox_mu * (p - p0),

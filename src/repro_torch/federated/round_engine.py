@@ -32,7 +32,11 @@ the cohort divides), vmaps the local updates of its block of the cohort
 only, and all-reduces the weighted delta tree and the weight sum once,
 after the updates, as one buffer; the server step then runs on every rank
 on the same sum.  Scaffold refuses psum, as in the reference: its cvar
-scatter needs the whole cohort.
+scatter needs the whole cohort.  On a mesh with a "model" axis the params
+are each rank's blocks and the layers read the model axis as the ambient
+mesh (:mod:`repro_torch.sharding.hints`): ``replicated`` flags the leaves
+whose gradients the local update sums over it, and the deltas are still
+all-reduced over the data axes only.
 """
 from __future__ import annotations
 
@@ -77,10 +81,12 @@ class RoundEngine(DistDispatchMixin):
     """Federated rounds over packed cohorts, each round one ``round_step``.
 
     ``loss_fn(params, batch) -> (batch_size,)`` per-example losses;
-    ``freeze`` is the 0/1 trainability mask tree (FT / FT-LP / FT-FEAT).
+    ``freeze`` is the 0/1 trainability mask tree (FT / FT-LP / FT-FEAT);
+    ``replicated`` the tree of bools of the leaves every model rank holds
+    whole (needed under a "model" axis).
     """
 
-    def __init__(self, cfg: RoundConfig, loss_fn: LossFn, freeze: Any):
+    def __init__(self, cfg: RoundConfig, loss_fn: LossFn, freeze: Any, replicated: Any = None):
         if cfg.dist.aggregation == "psum" and cfg.algo.uses_cvar:
             raise ValueError(
                 "scaffold needs the global cohort for the cvar scatter; "
@@ -90,6 +96,7 @@ class RoundEngine(DistDispatchMixin):
         self.freeze = freeze
         self._local = make_local_update(
             loss_fn, cfg.algo, lr=cfg.client_lr, weight_decay=cfg.weight_decay,
+            replicated=replicated,
         )
         self.dist = DistContext(cfg.dist, engine="rounds")
 

@@ -26,6 +26,12 @@ tests' sizes, made to run on the port's one-process-a-rank model.
   the features, a prefill and teacher-forced decode steps, ``serve`` with
   its times and peak memory, planted faults, phase 1 of ``train.run``,
   and the refusals.
+* :func:`tp_train_program` — the backward under a ``"model"`` axis: each
+  family's ``lm_loss`` gradient gathered over "model" (or held, leaf by
+  leaf on each rank, against the unsharded gradient the ranks computed
+  first, one at a time),
+  planted faults of the gradient convention, one ``RoundEngine.step``, and
+  ``train.run``'s phase 2 with its checkpoint and resume.
 
 The programs import nothing of the reference package: spawned ranks import
 this module by name.
@@ -35,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import time
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -62,6 +69,7 @@ from repro_torch.federated.streaming_engine import StreamConfig, StreamingEngine
 from repro_torch.federated.tiers import TierSpec, AggregationTree, mesh_tree
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import (
@@ -75,22 +83,28 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import transformer as tfm_mod
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import table_split
 from repro_torch.models.moe import DropTally
 from repro_torch.sharding import hints
 from repro_torch.sharding.specs import map_with_path
 from repro_torch.sharding.shard import (
+    full_params,
+    gather_params,
+    leaf_specs,
     local_rows,
+    replicated_leaves,
     seeded_factory,
     shard_params,
     shard_params_from,
 )
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 D, C, LAM = 16, 5, 0.1  # the reference tests' sizes
 ROUND_CLIENTS, ROUND_D, ROUND_C = 12, 8, 4  # tests/test_round_engine.py's task
 TRAIN_ARCH = "fed3r-mnv2-proxy-smoke"
+SSM_ARCH = "mamba2-1.3b-smoke"  # layer_program's backward under "model" 2
 # train.run at the smoke width: 2 phase-1 shards and a cohort of 4 clients
 TRAIN = dict(n_clients=8, clients_per_round=4, n_samples=160, seq_len=16, n_classes=8,
              local_batch_size=8)
@@ -220,14 +234,17 @@ def layer_program(rank: int, world: int, device: torch.device) -> dict:
     mesh = make_host_mesh(device_type=dt)
     pods = make_host_mesh(pods=2, device_type=dt)
     tiers = make_tier_host_mesh((2, world // 2), device_type=dt)
-    # a "model" axis of 2: the meshes build, and a path the sharded layers
-    # do not implement (the backward) refuses to run under it
+    # a "model" axis of 2: the meshes build, an SSM's backward runs over it
+    # (its gradient gathered), and a layout the sharded layers do not
+    # implement refuses to run under it
     tp = make_host_mesh(2, device_type=dt)
     tp_tiers = make_tier_host_mesh((world // 2,), (), 2, device_type=dt)
     out["model_parallel=2"] = {
         "host": (tp.mesh_dim_names, data_axes(tp), tuple(tp.mesh.shape)),
         "tiers": (tp_tiers.mesh_dim_names, data_axes(tp_tiers), tuple(tp_tiers.mesh.shape)),
-        "ssm backward": _raises(loss_gradient, "mamba2-1.3b-smoke", tp, device),
+        "ssm gradient": gathered_gradient(get_config(SSM_ARCH).replace(dtype="float32"),
+                                          loss_gradient(SSM_ARCH, tp, device), tp),
+        "cross-attention split": tp_refusals(rank, device)["cross-attention split"],
     }
     out["layouts"] = {
         "host": (mesh.mesh_dim_names, data_axes(mesh), data_parallel_size(mesh),
@@ -679,36 +696,29 @@ def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
     return out
 
 
-def loss_gradient(arch: str, mesh: Any, device: torch.device) -> torch.Tensor:
-    """``lm_loss``'s gradient of ``arch`` (fp32, ``seeded_factory(0)``
-    blocks, 2 × 8 tokens, a VLM's patches and an audio model's frames)
-    under ``mesh``: refused under a "model" axis."""
-    cfg = get_config(arch).replace(dtype="float32")
-    params = shard_params_from(cfg, seeded_factory(0), mesh, device)
-    B, S = 2, 8
-    batch = {"tokens": torch.zeros((B, S), dtype=torch.int64, device=device),
-             "labels": torch.zeros((B, S), dtype=torch.int64, device=device)}
-    if cfg.arch_type == "vlm":
-        batch["patch_embeds"] = torch.zeros((B, cfg.n_patches, cfg.d_model), device=device)
-    if cfg.arch_type == "audio":
-        batch["audio_frames"] = torch.zeros((B, cfg.n_audio_frames, cfg.d_model), device=device)
-    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
-    with hints.use_mesh(mesh):
-        batch = {k: local_rows(v, mesh) for k, v in batch.items()}
-        return torch.autograd.grad(build_model(cfg).loss(params, batch), leaves)
-
-
 def tp_refusals(rank: int, device: torch.device) -> dict:
-    """What the sharded layers refuse, as (exception type, message):
-    ``train.run``'s phase 2 under "model" 2, and the backward of a hybrid
-    and of an audio smoke under "model" 2."""
+    """What stays refused under "model" 2, as (exception type, message):
+    Scaffold's rounds under the psum backend (its cvar scatter needs the
+    whole cohort, as in the reference), and a Whisper smoke of 3 kv heads,
+    whose cross-attention (k, v) the rules would split over the frames."""
     mesh2 = make_host_mesh(2, device_type=device.type)
+    cfg = get_config("whisper-large-v3-smoke").replace(n_heads=3, n_kv_heads=3,
+                                                      dtype="float32")
+
+    def cross_split():
+        params = shard_params_from(cfg, seeded_factory(0), mesh2, device)
+        batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64, device=device),
+                 "audio_frames": torch.zeros((2, cfg.n_audio_frames, cfg.d_model),
+                                             device=device)}
+        with hints.use_mesh(mesh2), torch.no_grad():
+            build_model(cfg).prefill(params, {k: local_rows(v, mesh2) for k, v in batch.items()},
+                                     8)
+
     return {
-        "train phase 2": _raises(train.run, TRAIN_ARCH, rounds=1, use_fed3r_init=False,
-                                 device=device, mesh=mesh2, verbose=False, **{
-                                     k: v for k, v in TRAIN.items()}),
-        "hybrid backward": _raises(loss_gradient, "recurrentgemma-9b-smoke", mesh2, device),
-        "audio backward": _raises(loss_gradient, "whisper-large-v3-smoke", mesh2, device),
+        "scaffold under psum": _raises(train.run, TRAIN_ARCH, rounds=1, use_fed3r_init=False,
+                                       algorithm="scaffold", device=device, mesh=mesh2,
+                                       verbose=False, **TRAIN),
+        "cross-attention split": _raises(cross_split),
     }
 
 
@@ -735,4 +745,382 @@ def tp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict]
         out["refusals"] = tp_refusals(rank, device)
     if train_model:
         out["train"] = tp_train_phase1(rank, device, train_model)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the backward under a "model" axis
+# ---------------------------------------------------------------------------
+
+# planted faults of the gradient convention (sharding/hints.py, pieces 1-3)
+GRAD_FAULTS = ("reduce backward identity in the last layer", "replicated sum skipped",
+               "loss seeded on every rank")
+
+
+class _SumNoBackward(torch.autograd.Function):
+    """``real(x)`` (an all-reduce) forward, the identity backward: a
+    planted fault of piece 1."""
+
+    @staticmethod
+    def forward(x, real):
+        return real(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _n_blocks(cfg) -> int:
+    return cfg.n_layers + (cfg.n_encoder_layers if cfg.arch_type == "audio" else 0)
+
+
+@contextlib.contextmanager
+def _last_layer_reduce_identity(cfg):
+    """Over one gradient of the whole model: the last layer's recompute
+    (call N of ``block_apply`` after the forward's N, the first block the
+    backward runs) with ``hints.reduce_model``'s backward the identity."""
+    real_block, real_reduce = tfm_mod.block_apply, hints.reduce_model
+    calls = [0]
+
+    def planted(*args, **kw):
+        calls[0] += 1
+        if calls[0] != _n_blocks(cfg) + 1:
+            return real_block(*args, **kw)
+        hints.reduce_model = lambda x: _SumNoBackward.apply(x, real_reduce)
+        try:
+            return real_block(*args, **kw)
+        finally:
+            hints.reduce_model = real_reduce
+
+    tfm_mod.block_apply = planted
+    try:
+        yield
+    finally:
+        tfm_mod.block_apply = real_block
+
+
+def rank_gradient(cfg, blocks: Any, batch: Dict[str, torch.Tensor], fault: str = None) -> Any:
+    """The rank's gradient of ``cfg``'s ``lm_loss`` over the global batch
+    under the ambient mesh (``blocks`` the rank's blocks, ``batch`` its
+    rows): the loss seeded once over "model", the replicated leaves'
+    gradients summed over it, then the mean over the data ranks; with
+    ``fault`` (one of :data:`GRAD_FAULTS`) planted."""
+    model = build_model(cfg)
+
+    def loss(p):
+        value = model.loss(p, batch)
+        return value if fault == GRAD_FAULTS[2] else hints.seed_loss(value)
+
+    with (_last_layer_reduce_identity(cfg) if fault == GRAD_FAULTS[0]
+          else contextlib.nullcontext()):
+        grads = torch.func.grad(loss)(blocks)
+    if fault != GRAD_FAULTS[1]:
+        grads = hints.sum_replicated(grads, replicated_leaves(cfg, hints.model_size()))
+    return hints.mean_data(grads)
+
+
+def grad_batch(cfg, seed: int = 0, B: int = 2, S: int = 8) -> Dict[str, np.ndarray]:
+    """A seeded batch of ``lm_loss``: tokens, their next tokens as labels, a
+    VLM's 0.1·N(0, 1) patches or an audio model's frames."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.arch_type == "vlm":
+        out["patch_embeds"] = (0.1 * rng.standard_normal((B, cfg.n_patches, cfg.d_model))
+                               ).astype(np.float32)
+    if cfg.arch_type == "audio":
+        out["audio_frames"] = (0.1 * rng.standard_normal((B, cfg.n_audio_frames, cfg.d_model))
+                               ).astype(np.float32)
+    return out
+
+
+def _rows(batch: Dict[str, np.ndarray], mesh, dev) -> Dict[str, torch.Tensor]:
+    return {k: local_rows(torch.as_tensor(v, device=dev), mesh) for k, v in batch.items()}
+
+
+def loss_gradient(arch: str, mesh: Any, device: torch.device, params: Any = None,
+                  **kw) -> Any:
+    """The rank's :func:`rank_gradient` of ``arch`` in fp32 (its blocks of
+    the reference's weights ``params``, numpy, or of ``seeded_factory(0)``)
+    on :func:`grad_batch`'s batch (``kw``: its seed, B and S), under
+    ``mesh``."""
+    cfg = get_config(arch).replace(dtype="float32")
+    params = _tp_params(cfg, mesh, device, params, 0, None)
+    with hints.use_mesh(mesh):
+        return rank_gradient(cfg, params, _rows(grad_batch(cfg, **kw), mesh, device))
+
+
+def gathered_gradient(cfg, grads: Any, mesh: Any) -> Any:
+    """A rank's gradient gathered over "model" into whole leaves, numpy (a
+    collective every model rank joins)."""
+    return np_(gather_params(cfg, grads, mesh))
+
+
+def _unsharded_blocks(cfg, seed: int, batch: Dict[str, np.ndarray], mesh,
+                      dev) -> Tuple[Dict[tuple, torch.Tensor], dict]:
+    """({key path: this rank's block of the unsharded gradient, on the
+    host}, its ms and peak on global rank 0): rank 0 alone makes
+    ``seeded_factory(seed)``'s weights whole on ``dev``, takes the plain
+    gradient of ``lm_loss`` on the whole batch, keeps it on the host and
+    frees the device; then it scatters each leaf's blocks to the ranks
+    that hold them (gloo takes host tensors)."""
+    sizes, rank = hints.axis_sizes(mesh), dist.get_rank()
+    where = [None] * dist.get_world_size()
+    dist.all_gather_object(where, hints.coords(mesh))
+    meta, specs = leaf_specs(cfg, sizes)
+    whole, info = {}, {}
+    if rank == 0:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = full_params(cfg, seeded_factory(seed), dev)
+        model = build_model(cfg)
+        grads = torch.func.grad(lambda p: model.loss(
+            p, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}))(params)
+        del params
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        info = {"ms": 1e3 * (time.perf_counter() - t0),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else None}
+        map_with_path(grads, lambda path, g: whole.__setitem__(path, g.cpu()))
+        del grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    blocks = {}
+
+    def scatter(path, leaf):
+        index = [specs[path].index(tuple(leaf.shape), w, sizes) for w in where]
+        blocks[path] = torch.empty(leaf[index[rank]].shape, dtype=leaf.dtype)
+        dist.scatter(blocks[path], [whole[path][i].contiguous() for i in index]
+                     if rank == 0 else None, src=0)
+
+    map_with_path(meta, scatter)
+    return blocks, info
+
+
+def _gaps(grads: Any, ref: Dict[tuple, torch.Tensor]) -> Dict[str, Any]:
+    """{path: (max|g - g₀|, max|g₀|)} of every leaf over the world: each
+    rank compares its block ``grads`` with its block ``ref`` of the
+    unsharded gradient on its device, and one all-reduce takes the
+    maxima."""
+    paths, found = [], []
+    map_with_path(grads, lambda path, g: (paths.append(path), found.append(g)))
+    stats = torch.zeros((2, len(paths)), dtype=torch.float64)
+    for i, (path, g) in enumerate(zip(paths, found)):
+        want = ref[path].to(g.device)
+        stats[0, i] = float((g - want).abs().max())
+        stats[1, i] = float(want.abs().max())
+    dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+    return {"/".join(p): (float(stats[0, i]), float(stats[1, i])) for i, p in enumerate(paths)}
+
+
+def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
+                overrides: Dict[str, Any] = None, params: Any = None, seed: int = 0,
+                batch: Dict[str, np.ndarray] = None, faults: Sequence[str] = (),
+                reference: bool = False) -> dict:
+    """``lm_loss``'s gradient of one model on a ``(data, model)`` host mesh:
+    its blocks of the reference's weights (``params``, numpy) or of
+    ``seeded_factory(seed)``, the rank's rows of ``batch``; then again with
+    each of ``faults`` planted.  Returns, for the sound run and each fault,
+    the gradient gathered over "model" (``"grads"``, numpy, on global rank
+    0; a digest on every rank), or with ``reference`` the leaf-by-leaf gaps
+    to the unsharded gradient, which rank 0 computed first and scattered
+    (``gaps``, each (max|Δ|, max|g|)), each run's ms and every rank's peak
+    memory."""
+    cfg = get_config(arch).replace(**(overrides or {}))
+    mesh = make_host_mesh(model, device_type=device.type)
+    if hints.axis_sizes(mesh)["data"] != data:
+        raise ValueError(f"a world of {dist.get_world_size()} ranks has no (data {data}, "
+                         f"model {model}) mesh")
+    out: Dict[str, Any] = {"coords": hints.coords(mesh)}
+    ref = None
+    if reference:  # before any rank holds a block
+        ref, out["unsharded"] = _unsharded_blocks(cfg, seed, batch, mesh, device)
+    blocks = _tp_params(cfg, mesh, device, params, seed, None)
+    rows = _rows(batch, mesh, device)
+    for fault in (None,) + tuple(faults):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with hints.use_mesh(mesh):
+            grads = rank_gradient(cfg, blocks, rows, fault)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        run = {"ms": 1e3 * (time.perf_counter() - t0),
+               "peak_bytes": torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else None}
+        if reference:
+            t0 = time.perf_counter()
+            run["gaps"] = _gaps(grads, ref)
+            run["gaps_ms"] = 1e3 * (time.perf_counter() - t0)
+        else:
+            gathered = gathered_gradient(cfg, grads, mesh)
+            run["digest"] = digest(gathered)
+            run["grads"] = gathered if rank == 0 else None
+        out[fault or "sound"] = run
+        del grads
+    del blocks, ref
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _counting_vmap_rule():
+    """Counts, over the block, the calls of the collectives' ``vmap`` rule
+    (``hints._Sum.vmap``): in all, and those made inside a block
+    recompute's backward (``transformer._Recompute.backward``)."""
+    calls = {"all": 0, "in a recompute": 0}
+    inside = [0]
+    real_rule, real_backward = hints._Sum.vmap, tfm_mod._Recompute.backward
+
+    def rule(info, in_dims, *args):
+        calls["all"] += 1
+        calls["in a recompute"] += inside[0] > 0
+        return real_rule(info, in_dims, *args)
+
+    def backward(ctx, *grads):
+        inside[0] += 1
+        try:
+            return real_backward(ctx, *grads)
+        finally:
+            inside[0] -= 1
+
+    hints._Sum.vmap, tfm_mod._Recompute.backward = staticmethod(rule), staticmethod(backward)
+    try:
+        yield calls
+    finally:
+        hints._Sum.vmap = staticmethod(real_rule)
+        tfm_mod._Recompute.backward = staticmethod(real_backward)
+
+
+def tp_round_job(rank: int, device: torch.device, *, arch: str, model: int, params: Any,
+                 head: Dict[str, np.ndarray], clients: Sequence[Tuple[np.ndarray, np.ndarray]],
+                 client_ids: np.ndarray, algorithm: str, lr: float, local_batch_size: int,
+                 n_batches: int, seed: Tuple[int, int], n_clients: int,
+                 overrides: Dict[str, Any] = None) -> dict:
+    """One ``RoundEngine.step`` of FT (everything trains) on a
+    ``(data, model)`` host mesh, as ``launch/train.py`` runs it: the rank's
+    blocks of the reference's weights (``params``, numpy) and the head
+    replicated, the layers on the "model" axis, the cohort's clients packed
+    from ``clients`` and split over "data".  Returns the new backbone
+    gathered over "model" and the head (numpy, on global rank 0), a digest
+    of the leaves every model rank holds whole, and the calls of the
+    collectives' ``vmap`` rule the round made (:func:`_counting_vmap_rule`)."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    cfg = get_config(arch).replace(**(overrides or {}))
+    blocks = shard_params(cfg, params_from_jax(cfg, params, device), mesh)
+    engine = train.ft_engine(cfg, blocks, n_clients=n_clients, lr=lr, algorithm=algorithm,
+                             ft_strategy="full", mesh=mesh)
+    state = engine.init({"backbone": blocks,
+                         "head": {k: torch.as_tensor(v, device=device) for k, v in head.items()}})
+    cohort = pack_cohort_batches(clients, local_batch_size, n_batches, client_ids=client_ids,
+                                 seed=seed, mesh=mesh)
+    with hints.use_mesh(mesh["model"]), _counting_vmap_rule() as calls:
+        state = engine.step(state, cohort)
+    backbone = gathered_gradient(cfg, state.params["backbone"], mesh)
+    rep = []
+    tree_map(lambda x, r: rep.append(x) if r else None, state.params,
+             {"backbone": replicated_leaves(cfg, model), "head": {"W": True, "b": True}})
+    return {"coords": hints.coords(mesh), "replicated": digest(np_(rep)), "vmap_rule": calls,
+            "params": {"backbone": backbone, "head": np_(state.params["head"])}
+            if rank == 0 else None}
+
+
+def tp_ft_job(rank: int, device: torch.device, *, arch: str, model: int, run: Dict[str, Any],
+              root: str = None) -> dict:
+    """``launch/train.py``'s ``run`` over the world's host mesh with a
+    "model" axis of ``model``: phase 1 alone first (its statistics, numpy
+    on global rank 0, and fed3r_stats launches); then ``run`` (its FT rounds):
+    each round's ms, every rank's peak memory, the final backbone gathered
+    over "model" and the head (numpy, on global rank 0), a digest of the
+    leaves every model rank holds whole; with ``root``, a run of one round
+    checkpointed into ``root`` (by global rank 0) and its resume to
+    ``run["rounds"]``: whether the resumed state equals the uninterrupted
+    one bitwise on this rank, and the checkpoint's backbone shapes."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    cfg = get_config(arch)
+    kw = dict(run, device=device, mesh=mesh, verbose=False)
+    out: Dict[str, Any] = {"coords": hints.coords(mesh)}
+    launches = ops.fed3r_stats.launches
+    stats = train.run(arch, **dict(kw, rounds=0, use_fed3r_init=True))["stats"]
+    out["fed3r_launches"] = ops.fed3r_stats.launches - launches
+    out["stats"] = np_({"A": stats.A, "b": stats.b}) if rank == 0 else None
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    got = train.run(arch, **kw)
+    state = got["ft"]["state"]
+    out["round_ms"] = got["ft"]["round_ms"]
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                         else None)
+    rep = []
+    tree_map(lambda x, r: rep.append(x) if r else None, state.params,
+             {"backbone": replicated_leaves(cfg, model), "head": {"W": True, "b": True}})
+    out["replicated"] = digest(np_(rep))
+    backbone = gathered_gradient(cfg, state.params["backbone"], mesh)
+    if rank == 0:
+        out["params"] = {"backbone": backbone, "head": np_(state.params["head"])}
+    if root is not None:
+        train.run(arch, **dict(kw, rounds=1), ckpt_dir=root)
+        resumed = train.run(arch, **kw, ckpt_dir=root, resume=True)["ft"]
+        out["resume_bitwise"] = all(torch.equal(a, b) for a, b in
+                                    zip(tree_leaves(state), tree_leaves(resumed["state"])))
+        out["resumed_rounds"] = len(resumed["round_ms"])
+        if rank == 0:
+            from repro_torch.checkpoint import load_pytree
+
+            snap = load_pytree(os.path.join(root, "ckpt_1.npz"))
+            shapes = {}
+            map_with_path(snap["params"]["backbone"],
+                          lambda path, x: shapes.__setitem__("/".join(path), tuple(x.shape)))
+            out["checkpoint_shapes"] = shapes
+    return out
+
+
+def tp_step_job(rank: int, device: torch.device, *, arch: str, model: int, params: Any,
+                batch: Dict[str, np.ndarray], lr: float, num_microbatches: int,
+                overrides: Dict[str, Any] = None) -> dict:
+    """One ``steps.make_train_step`` step on a ``(data, model)`` host mesh:
+    the rank's blocks of the reference's weights (``params``, numpy) and
+    its rows of ``batch``.  Returns the new parameters gathered over
+    "model" (numpy, on global rank 0) and the loss."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    cfg = get_config(arch).replace(**(overrides or {}))
+    blocks = shard_params(cfg, params_from_jax(cfg, params, device), mesh)
+    step = steps.make_train_step(cfg, lr=lr, num_microbatches=num_microbatches)
+    with hints.use_mesh(mesh):
+        new, loss = step(blocks, _rows(batch, mesh, device))
+    whole = gathered_gradient(cfg, new, mesh)
+    return {"loss": float(loss), "params": whole if rank == 0 else None}
+
+
+def tp_train_program(rank: int, world: int, device: torch.device, grads: Sequence[dict] = (),
+                     rounds: Sequence[dict] = (), ft: Sequence[dict] = (),
+                     train_steps: Sequence[dict] = (), refusals: bool = False) -> dict:
+    """Each job of ``grads`` (keyword arguments of :func:`tp_grad_job`),
+    ``rounds`` (of :func:`tp_round_job`), ``ft`` (of :func:`tp_ft_job`) and
+    ``train_steps`` (of :func:`tp_step_job`), each with its ``name`` (rank 0
+    prints each job's seconds as it ends); with ``refusals``
+    :func:`tp_refusals`."""
+    out: Dict[str, Any] = {}
+    for fn, jobs in ((tp_grad_job, grads), (tp_round_job, rounds), (tp_ft_job, ft),
+                     (tp_step_job, train_steps)):
+        for job in jobs:
+            job = dict(job)
+            name = job.pop("name")
+            t0 = time.perf_counter()
+            out[name] = fn(rank, device, **job)
+            if rank == 0:
+                print(f"[tp-train] rank 0: {name} in {time.perf_counter() - t0:.1f}s",
+                      flush=True)
+    if refusals:
+        out["refusals"] = tp_refusals(rank, device)
     return out

@@ -33,6 +33,8 @@ from repro_torch.federated import engine as engine_lib
 from repro_torch.federated.simulator import softmax_ce
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import hints
+from repro_torch.sharding.shard import replicated_leaves
 from repro_torch.tree import tree_map
 
 
@@ -51,8 +53,16 @@ def make_train_step(
     * Mixed precision: the fp32 master params are cast ONCE a step to a
       bf16 compute copy; gradients are taken w.r.t. that copy (bf16, summed
       in bf16 across microbatches) and applied to the fp32 master.
+    * Under an ambient mesh (:mod:`repro_torch.sharding.hints`) ``params``
+      are the rank's blocks and ``batch`` its rows: the loss is seeded once
+      over "model", the replicated leaves' gradients are summed over it,
+      and the gradient and loss are their means over the data ranks — the
+      global batch's, as the reference's step computes with the batch
+      sharded over "data".
     """
-    grads_of = torch.func.grad_and_value(lambda pp, b: model_lib.lm_loss(cfg, pp, b))
+    grads_of = torch.func.grad_and_value(
+        lambda pp, b: hints.seed_loss(model_lib.lm_loss(cfg, pp, b)))
+    replicated = {}  # model axis size -> the replicated-leaf flags
 
     def train_step(params, batch):
         pc = tree_map(
@@ -76,6 +86,12 @@ def make_train_step(
                 losses.append(loss)
             grads = tree_map(lambda g: g / M, grads)
             loss = torch.stack(losses).mean()
+        m = hints.model_size()
+        if m > 1:
+            if m not in replicated:
+                replicated[m] = replicated_leaves(cfg, m)
+            grads = hints.sum_replicated(grads, replicated[m])
+        grads, loss = hints.mean_data((grads, loss))
         if freeze is not None:
             grads = tree_map(lambda g, f: g * f, grads, freeze)
         params = tree_map(

@@ -30,10 +30,12 @@ and phase 2's cohort are split over the ranks, the statistics and the
 weighted deltas all-reduced.  Rank 0's parameters are broadcast first, so
 every rank starts from the same weights; only rank 0 prints and writes
 checkpoints.  With one rank the driver runs as a single process.  With
-``--model-parallel`` > 1 the mesh has a "model" axis: phase 1's feature
-pass runs tensor-parallel over it (each rank its block of the backbone,
-:mod:`repro_torch.sharding.hints`), and phase 2, whose backward is not
-sharded, raises ``NotImplementedError``.
+``--model-parallel`` > 1 the mesh has a "model" axis and both phases run
+tensor-parallel over it (each rank its block of the backbone,
+:mod:`repro_torch.sharding.hints`): phase 1's feature pass, and phase 2's
+local steps, forward and backward, and its evaluation.  A checkpoint holds
+the whole leaves, gathered over "model", in the reference's layout; a
+resume cuts them into the rank's blocks again.
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch fed3r-mnv2-proxy \\
@@ -70,7 +72,7 @@ from repro_torch.launch.steps import make_cls_per_example_loss
 from repro_torch.launch.world import BACKENDS, init_world
 from repro_torch.models import build_model
 from repro_torch.sharding import hints
-from repro_torch.sharding.shard import shard_params
+from repro_torch.sharding.shard import gather_params, replicated_leaves, shard_params
 from repro_torch.tree import tree_map
 
 RIDGE_LAMBDA = 0.01
@@ -193,7 +195,9 @@ def ft_engine(
     """Phase 2's round engine over ``{"backbone": params, "head": {"W", "b"}}``:
     the classification loss, and the freeze mask of ``ft_strategy`` (full:
     everything trains; lp: the head only; feat: the backbone only); with
-    ``mesh``, the psum backend over it."""
+    ``mesh``, the psum backend over it, and with a "model" axis the
+    backbone's replicated leaves and the head flagged for the local
+    update's gradient sum."""
     if ft_strategy not in ("full", "lp", "feat"):
         raise ValueError(f"unknown ft_strategy {ft_strategy!r}")
     head = 0.0 if ft_strategy == "feat" else 1.0
@@ -201,11 +205,15 @@ def ft_engine(
         "backbone": tree_map(lambda _: 0.0 if ft_strategy == "lp" else 1.0, params),
         "head": {"W": head, "b": head},
     }
+    m = _model_parallel(mesh)
+    replicated = None if m == 1 else {"backbone": replicated_leaves(cfg, m),
+                                      "head": {"W": True, "b": True}}
     return RoundEngine(
         RoundConfig(algo=make_algorithm(algorithm), client_lr=lr, n_total_clients=n_clients,
                     dist=_dist(mesh)),
         make_cls_per_example_loss(cfg),
         freeze,
+        replicated,
     )
 
 
@@ -264,13 +272,50 @@ def ft_phase(
     synchronize) with the real tokens its local training read.  With
     ``mesh`` each rank trains its block of the cohort, and only global rank
     0 reads and writes checkpoints: a resumed state travels from it by
-    broadcast.  A mesh with a "model" axis larger than 1 raises
-    ``NotImplementedError``: the backward is not sharded.
+    broadcast.  With a "model" axis in ``mesh`` the layers read that axis
+    alone as the ambient mesh (each client's batch stays whole on its data
+    rank, as in one process), each rank trains its blocks of the backbone
+    (``params`` is whole; the head is replicated) and the returned
+    ``"state"`` holds the rank's blocks; a checkpoint holds the whole
+    leaves, gathered over "model".
     """
+    kw = dict(n_clients=n_clients, clients_per_round=clients_per_round, rounds=rounds, lr=lr,
+              local_batch_size=local_batch_size, algorithm=algorithm, ft_strategy=ft_strategy,
+              ckpt_dir=ckpt_dir, resume=resume, device=device, mesh=mesh, verbose=verbose)
     if _model_parallel(mesh) > 1:
-        raise NotImplementedError(
-            f"fine-tuning (phase 2, the backward) under a 'model' axis of "
-            f"{_model_parallel(mesh)}: not implemented, {hints.ROADMAP_ITEM}")
+        with hints.use_mesh(mesh["model"]):
+            return _ft_phase(cfg, shard_params(cfg, params, mesh), ds, W_head, **kw)
+    return _ft_phase(cfg, params, ds, W_head, **kw)
+
+
+_PARAM_TREES = ("params", "momentum", "opt_m", "opt_v")  # ServerState's param-shaped fields
+
+
+def _map_backbones(state: Any, fn) -> Any:
+    """``state`` with ``fn`` applied to the backbone of each param-shaped field."""
+    return state._replace(**{f: {**getattr(state, f), "backbone": fn(getattr(state, f)["backbone"])}
+                             for f in _PARAM_TREES if getattr(state, f) is not None})
+
+
+def _whole_state(cfg: ModelConfig, state: Any, mesh: Any) -> Any:
+    """``state`` with every backbone gathered over "model" into whole leaves
+    (a collective every rank joins; ``state`` itself without a model axis)."""
+    if _model_parallel(mesh) == 1:
+        return state
+    return _map_backbones(state, lambda b: gather_params(cfg, b, mesh))
+
+
+def _rank_state(cfg: ModelConfig, state: Any, mesh: Any) -> Any:
+    """The rank's blocks of a whole ``state`` (:func:`_whole_state`'s inverse)."""
+    if _model_parallel(mesh) == 1:
+        return state
+    return _map_backbones(state, lambda b: shard_params(cfg, b, mesh))
+
+
+def _ft_phase(cfg: ModelConfig, params: dict, ds: TokenDataset, W_head: torch.Tensor, *,
+              n_clients: int, clients_per_round: int, rounds: int, lr: float,
+              local_batch_size: int, algorithm: str, ft_strategy: str, ckpt_dir: Optional[str],
+              resume: bool, device, mesh: Any, verbose: bool) -> dict:
     dev = resolve_device(device)
     model = build_model(cfg)
     clients = FtClients(ds, n_clients, clients_per_round, local_batch_size)
@@ -285,11 +330,13 @@ def ft_phase(
     start_round = 0
     resume_path = _resume_path(ckpt_dir, resume, mesh)
     if resume_path is not None:
+        whole = _whole_state(cfg, state, mesh)  # the snapshot's shapes on every rank
         if writer:  # the snapshot's leaves in the live state's order
-            state = tree_map(lambda _, x: x, state,
+            whole = tree_map(lambda _, x: x, whole,
                              server_state_from_tree(load_pytree(resume_path), dev))
         if mesh is not None:  # rank 0's snapshot on every rank
-            state = broadcast_tree(state, src=0)
+            whole = broadcast_tree(whole, src=0)
+        state = _rank_state(cfg, whole, mesh)
         start_round = int(state.round)
         if verbose:
             print(f"[ft:{ft_strategy}] resuming from {resume_path} (round {start_round})")
@@ -321,9 +368,11 @@ def ft_phase(
             if verbose:
                 print(f"[ft:{ft_strategy}] round {rnd + 1:4d}  acc={acc:.4f}  "
                       f"({log['round_ms'][-1]:.1f} ms the last round)")
-            if ckpt_dir and writer:
+            if ckpt_dir:
                 # round-resumable: the FULL server state, not just the head
-                save_pytree(os.path.join(ckpt_dir, f"ckpt_{rnd + 1}.npz"), state)
+                whole = _whole_state(cfg, state, mesh)
+                if writer:
+                    save_pytree(os.path.join(ckpt_dir, f"ckpt_{rnd + 1}.npz"), whole)
     log["state"] = state
     return log
 
@@ -405,7 +454,7 @@ def main() -> None:
     ap.add_argument("--backend", choices=BACKENDS, default=None,
                     help="collective backend when torchrun starts more than one rank")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="size of the mesh's 'model' axis (phase 1 only)")
+                    help="size of the mesh's 'model' axis (both phases run over it)")
     args = ap.parse_args()
     device, mesh, verbose = args.device, None, True
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:

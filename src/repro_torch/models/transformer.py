@@ -23,8 +23,12 @@ any other block) and the stack sums them.
 Under a ``"model"`` axis larger than 1 (:mod:`repro_torch.sharding.hints`)
 a block all-reduces once after attention (or cross-attention, the RG-LRU,
 the Mamba2 mixer) and once after the FFN, a ``parallel_block`` once for
-a + f together; the block recompute of a gradient is not sharded and
-raises.
+a + f together.  Under a gradient each block's backward runs its forward
+again, collectives included, then their backward (the all-reduces of
+:mod:`repro_torch.sharding.hints` differentiate as GSPMD's do): every rank
+recomputes the same blocks in the same order, so the collectives line up,
+and an MoE block routes on the all-reduced x, the same bits on every model
+rank, in the forward and in its recompute.
 """
 from __future__ import annotations
 
@@ -262,8 +266,6 @@ def apply_stack(
     if mode == "decode" and (cache is None or len(cache) != len(layers)):
         raise ValueError("decode needs one cache a layer")
     recompute = mode == "train" and torch.is_grad_enabled()
-    if recompute and hints.model_size() > 1:
-        hints.refuse("the backward (train mode under a gradient; torch.no_grad for a forward)")
     if recompute and drops is not None:
         raise ValueError("drops are counted outside a gradient (torch.no_grad)")
     kinds = [kind] * len(layers) if isinstance(kind, str) else kind

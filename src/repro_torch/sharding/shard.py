@@ -11,7 +11,14 @@ parameter):
   so that a rank never holds the whole tree, on the host or on the card;
   :func:`seeded_factory` is such a factory: random weights from a seed,
   each element a function of its leaf and its global index, so every
-  mesh — one card unsharded included — sees the same weights.
+  mesh — one card unsharded included — sees the same weights;
+* :func:`gather_params` is the inverse of :func:`shard_params`: the
+  ranks' blocks gathered over ``"model"`` into whole leaves (a checkpoint
+  in the reference's layout; a tree of the parameters' structure, such as
+  a server optimizer's buffers, gathers alike);
+* :func:`replicated_leaves` flags the leaves every model rank holds whole,
+  whose gradients :func:`repro_torch.sharding.hints.sum_replicated` sums
+  (:func:`leaf_specs` gives every leaf's spec).
 
 Every family's blocks are cut as the rules give them; a layout that the
 sharded layers do not implement raises where a layer meets it
@@ -24,6 +31,7 @@ import re
 from typing import Any, Callable, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.sharding import hints
 from repro_torch.sharding.specs import PartitionSpec, map_with_path, param_specs
@@ -46,6 +54,52 @@ def shard_params(cfg: Any, params: Any, mesh: Any) -> Any:
     return map_with_path(params, cut)
 
 
+def leaf_specs(cfg: Any, sizes: dict) -> Tuple[Any, dict]:
+    """(``cfg``'s whole parameters on the meta device, {key path (a tuple):
+    the leaf's spec under the mesh axis ``sizes``})."""
+    from repro_torch.launch.shapes import abstract_params  # shapes imports the models
+
+    meta = abstract_params(cfg)
+    flat = {}
+    map_with_path(param_specs(cfg, meta, sizes or {"model": 1}),
+                  lambda path, spec: flat.__setitem__(path, spec))
+    return meta, flat
+
+
+def replicated_leaves(cfg: Any, model: int) -> Any:
+    """A tree of bools of ``cfg``'s parameters: True where a leaf is whole
+    on every rank of a "model" axis of ``model``."""
+    meta, flat = leaf_specs(cfg, {"model": model})
+    return map_with_path(meta, lambda path, _: flat[path].is_replicated())
+
+
+def gather_params(cfg: Any, blocks: Any, mesh: Any) -> Any:
+    """Every leaf whole from the model ranks' ``blocks`` (one tree of
+    ``cfg``'s parameter structure a rank, as :func:`shard_params` cut it):
+    a collective over ``mesh``'s "model" group that every model rank joins,
+    and every one gets the whole tree.  Exact: each rank places its block
+    in zeros and the ranks' copies are summed (gloo all-reduces CUDA
+    tensors, but gathers none)."""
+    sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
+    if sizes.get("model", 1) == 1:
+        return blocks
+    meta, flat = leaf_specs(cfg, sizes)
+    shapes = {}
+    map_with_path(meta, lambda path, leaf: shapes.__setitem__(path, tuple(leaf.shape)))
+    group = mesh.get_group("model")
+
+    def gather(path, block):
+        spec = flat[path]
+        if spec.is_replicated():
+            return block
+        whole = torch.zeros(shapes[path], dtype=block.dtype, device=block.device)
+        whole[spec.index(shapes[path], where, sizes)] = block
+        dist.all_reduce(whole, group=group)
+        return whole
+
+    return map_with_path(blocks, gather)
+
+
 def shard_params_from(cfg: Any, factory: Factory, mesh: Any,
                       device: Union[str, torch.device]) -> Any:
     """The rank's blocks of ``cfg``'s parameters, made one block at a time
@@ -53,14 +107,9 @@ def shard_params_from(cfg: Any, factory: Factory, mesh: Any,
     ``path`` ("/"-joined) has global ``shape`` and the rank's block is
     ``index`` (a tuple of slices).  With ``mesh=None`` every block is the
     whole leaf."""
-    from repro_torch.launch.shapes import abstract_params  # shapes imports the models
-
     dev = torch.device(device)
     sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
-    meta = abstract_params(cfg)
-    specs = param_specs(cfg, meta, sizes or {"model": 1})
-    flat = {}
-    map_with_path(specs, lambda path, spec: flat.__setitem__(path, spec))
+    meta, flat = leaf_specs(cfg, sizes)
 
     def make(path, leaf):
         spec: PartitionSpec = flat[path]

@@ -13,11 +13,12 @@ programs live in the package, so no rank imports JAX.  The engines'
 sharded runs are in ``tests/test_torch_dist_engines.py``.
 
 Where the reference takes its device count from ``jax.devices()``, the port
-counts the world's ranks; a ``"model"`` axis builds, and a path the
-sharded layers do not implement (the backward) raises
+counts the world's ranks; a ``"model"`` axis builds, an SSM's backward
+runs under it (its gathered gradient against ``jax.grad`` of the
+reference), and a layout the sharded layers do not implement raises
 ``NotImplementedError`` under it, naming its ROADMAP item (the sharded
-layers themselves are in ``tests/test_torch_tp.py`` and
-``tests/test_torch_tp_families.py``).
+layers themselves are in ``tests/test_torch_tp.py``,
+``tests/test_torch_tp_families.py`` and ``tests/test_torch_tp_train.py``).
 """
 import os
 import signal
@@ -73,14 +74,55 @@ def test_make_host_mesh_raises_on_indivisible(ranks):
 
 
 def test_tensor_parallelism_raises_naming_its_item(ranks):
-    """A "model" axis of 2 builds (host and tier meshes); a path the sharded
-    layers do not implement (an SSM's backward) raises under it, naming its
-    item."""
+    """A "model" axis of 2 builds (host and tier meshes); a layout the
+    sharded layers do not implement (a cross-attention (k, v) split over
+    the frames) raises under it, naming its item."""
     tp = ranks[0]["model_parallel=2"]
     assert tp["host"] == (("data", "model"), ("data",), (WORLD // 2, 2))
     assert tp["tiers"] == (("edge", "model"), ("edge",), (WORLD // 2, 2))
-    kind, msg = tp["ssm backward"]
+    kind, msg = tp["cross-attention split"]
     assert kind == "NotImplementedError" and "Queue 1 item 13b(ii)" in msg
+
+
+def test_ssm_backward_under_a_model_axis_matches_the_reference(ranks):
+    """An SSM's ``lm_loss`` gradient over (data 2, model 2) on
+    ``seeded_factory(0)`` weights, gathered over "model", against
+    ``jax.grad`` of the reference's on the same weights and the whole
+    batch: each leaf within 1e-5 of its max|g| (A_log, whose gradient sums
+    a chunk's decays, within 1e-4)."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models import model as jmodel
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.sharding.shard import full_params, seeded_factory
+    from repro_torch.sharding.specs import map_with_path
+
+    arch = dist_check.SSM_ARCH
+    cfg = get_config(arch).replace(dtype="float32")
+    whole = full_params(cfg, seeded_factory(0), "cpu")
+    layers = whole.pop("layers")
+    jparams = {k: jax.tree.map(lambda t: jnp.asarray(t.numpy()), v) for k, v in whole.items()}
+    jparams["layers"] = jax.tree.map(lambda *ts: jnp.asarray(np.stack([t.numpy() for t in ts])),
+                                     *layers)
+    jcfg = jget_config(arch).replace(dtype="float32", scan_layers=False)
+    jb = {k: jnp.asarray(v) for k, v in dist_check.grad_batch(cfg).items()}
+    want = params_from_jax(cfg, jax.tree.map(np.asarray, jax.grad(
+        lambda p: jmodel.lm_loss(jcfg, p, jb))(jparams)), device="cpu")
+    got = ranks[0]["model_parallel=2"]["ssm gradient"]
+    flat = {}
+    map_with_path(got, lambda path, x: flat.__setitem__("/".join(path), x))
+    checked = []
+
+    def check(path, w):
+        p = "/".join(path)
+        rel = 1e-4 if p.endswith("A_log") else 1e-5
+        assert float(np.abs(flat[p] - w.numpy()).max()) <= rel * float(w.abs().max()), p
+        checked.append(p)
+
+    map_with_path(want, check)
+    assert sorted(checked) == sorted(flat)
 
 
 def test_make_host_mesh_axis_layouts(ranks):

@@ -22,12 +22,19 @@ layouts that earlier slices refused, each held against the reference on
 the tokens it served: qwen2-7b-smoke at (1, 4) with a ring of 8 slots (2
 kv heads: the sequence-sharded cache, 2 slots a rank, two ranks holding
 no position yet at the first decode step) and mamba2-1.3b-smoke at
-(2, 2).  The world also runs the refusals (the backward under "model" 2)
-and ``train.run``'s phase 1 with a "model" axis.  The SSM, hybrid, VLM and
-audio families are held in ``tests/test_torch_tp_families.py``.
+(2, 2).  The world also runs what stays refused and ``train.run``'s
+phase 1.  A second world runs
+:func:`repro_torch.launch.dist_check.tp_train_program` on what earlier
+slices refused under "model" 2 and now runs: the hybrid's and Whisper's
+backward, against ``jax.grad`` of the reference, and ``train.run``'s
+phase 2, against the one-process driver.
+The SSM, hybrid, VLM and audio families are held in
+``tests/test_torch_tp_families.py``, the backward in
+``tests/test_torch_tp_train.py``.
 """
 import contextlib
 import functools
+import re
 import threading
 
 import numpy as np
@@ -49,7 +56,9 @@ from repro_torch.launch import dist_check, train  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.sharding import hints  # noqa: E402
+from repro_torch.sharding.specs import map_with_path  # noqa: E402
 from repro_torch.sharding.shard import (  # noqa: E402
     full_params,
     seeded_factory,
@@ -76,6 +85,9 @@ VARIANTS = {"q rows, wo cols": ("qwen2-7b-smoke", {"n_heads": 6}),
 # not; mamba2's SSD takes its prompt of 8 as one chunk
 SERVED = {"sequence cache": ("qwen2-7b-smoke", (1, 4), 3, 5),
           "ssm": ("mamba2-1.3b-smoke", (2, 2), 8, 3)}
+# the backward that earlier slices refused under "model" 2
+BACKWARD = {"hybrid backward": "recurrentgemma-9b-smoke",
+            "audio backward": "whisper-large-v3-smoke"}
 
 
 def _name(arch, mesh):
@@ -223,6 +235,52 @@ def world():
     return ranks, refs
 
 
+@pytest.fixture(scope="module")
+def backward_world():
+    """What earlier slices refused under "model" 2, now run by
+    ``tp_train_program`` at (data 2, model 2): the hybrid's and Whisper's
+    gathered ``lm_loss`` gradient on the reference's weights and
+    :func:`dist_check.grad_batch`'s batch of seed 1 (B 2; S past the
+    hybrid's window of 32), and one FT round of ``train.run``; the ranks'
+    results and, computed here meanwhile, the references."""
+    grads, inits = [], {}
+    for label, arch in BACKWARD.items():
+        jcfg = jget_config(arch).replace(dtype="float32")
+        jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+        batch = dist_check.grad_batch(jcfg, 1, 2, 40 if jcfg.arch_type == "hybrid" else 8)
+        inits[label] = (jcfg, jparams, batch)
+        grads.append(dict(name=label, arch=arch, data=2, model=2,
+                          overrides={"dtype": "float32"},
+                          params=jax.tree.map(np.asarray, jparams), batch=batch))
+    ft = [dict(name="train phase 2", arch=dist_check.TRAIN_ARCH, model=2,
+               run=dict(dist_check.TRAIN, rounds=1, use_fed3r_init=False))]
+    box = {}
+
+    def run():
+        try:
+            box["ranks"] = run_world(dist_check.tp_train_program, WORLD, backend="gloo",
+                                     device="cpu", timeout_s=240, args=(grads, (), ft))
+        except Exception as e:  # re-raised below, in the test's thread
+            box["error"] = e
+
+    runner = threading.Thread(target=run)
+    runner.start()
+    try:
+        refs = {}
+        for label, (jcfg, jparams, batch) in inits.items():
+            jb = {k: jnp.asarray(v) for k, v in batch.items()}
+            refs[label] = jax.tree.map(np.asarray, jax.jit(jax.grad(
+                lambda p: jmodel.lm_loss(jcfg, p, jb)))(jparams))
+        refs["train phase 2"] = train.run(dist_check.TRAIN_ARCH, rounds=1,
+                                          use_fed3r_init=False, device="cpu", verbose=False,
+                                          **dist_check.TRAIN)
+    finally:
+        runner.join()
+    if "error" in box:
+        raise box["error"]
+    return box["ranks"], refs
+
+
 def _served_reference(jcfg, jparams, prompts, tokens):
     """The reference's logits of the prefill of ``prompts`` and of decode
     steps teacher-forced on the tokens a sharded ``serve`` picked (all but
@@ -305,11 +363,56 @@ def test_fallback_layouts_match_the_reference(world, label):
     assert len({ranks[r][label]["digest"].__repr__() for r in range(WORLD)}) == 1
 
 
-@pytest.mark.parametrize("case", ["train phase 2", "hybrid backward", "audio backward"])
+@pytest.mark.parametrize("case", ["scaffold under psum", "cross-attention split"])
 def test_unported_layouts_and_paths_raise(world, case):
+    """What stays refused under "model" 2: Scaffold's rounds under psum (as
+    in the reference) and a cross-attention (k, v) split over the frames."""
     ranks, _ = world
     kind, msg = ranks[0]["refusals"][case]
-    assert kind == "NotImplementedError" and "item 13b(ii)" in msg, (kind, msg)
+    if case == "scaffold under psum":
+        assert kind == "ValueError" and "scaffold" in msg, (kind, msg)
+    else:
+        assert kind == "NotImplementedError" and "item 13b(ii)" in msg, (kind, msg)
+
+
+@pytest.mark.parametrize("case", ["train phase 2", "hybrid backward", "audio backward"])
+def test_formerly_refused_backward_matches_the_reference(backward_world, case):
+    """Under "model" 2 (data 2): ``train.run``'s phase 2 against the
+    one-process driver (the proxy smoke computes in bf16: within 4 bf16
+    ulps of max|dtheta|, the head bitwise); the hybrid's and Whisper's
+    gathered ``lm_loss`` gradient against ``jax.grad`` of the reference,
+    each leaf within REL of its max|g| (an attention key bias, whose
+    gradient is zero in exact arithmetic, of the tree's largest |g|;
+    Whisper's decoder cross-attention q and k leaves and the norm before
+    it, whose gradients the softmax's centring cancels, within 1e-3)."""
+    ranks, refs = backward_world
+    if case == "train phase 2":
+        got = ranks[0][case]["params"]
+        one = refs[case]
+        want, start = one["ft"]["state"].params["backbone"], one["params0"]
+        err = scale = 0.0
+        for g, w, s in zip(jax.tree.leaves(got["backbone"]),
+                           jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), want)),
+                           jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), start))):
+            err = max(err, float(np.abs((g - s) - (w - s)).max()))
+            scale = max(scale, float(np.abs(w - s).max()))
+        assert scale > 0 and err <= 4 * 2.0 ** -8 * scale, (err, scale)
+        assert np.array_equal(got["head"]["W"], one["ft"]["state"].params["head"]["W"].numpy())
+        return
+    cfg = get_config(BACKWARD[case]).replace(dtype="float32")
+    flat = {}
+    map_with_path(ranks[0][case]["sound"]["grads"],
+                  lambda path, x: flat.__setitem__("/".join(path), x))
+    want = {}
+    map_with_path(params_from_jax(cfg, refs[case], device="cpu"),
+                  lambda path, x: want.__setitem__("/".join(path), x.numpy()))
+    assert set(flat) == set(want)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for path, w in want.items():
+        scale = top if path.endswith("/bk") else float(np.abs(w).max())
+        rel = 1e-3 if re.search(r"dec_layers/\d+/(cross_attn/(wq|wk|bq)|norm2/(scale|bias))$",
+                                path) else REL
+        assert float(np.abs(flat[path] - w).max()) <= rel * scale, path
 
 
 @pytest.mark.parametrize("label", list(SERVED))
