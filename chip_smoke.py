@@ -153,6 +153,23 @@ counts just after.
                 round-1 checkpoint bitwise the uninterrupted run; ms a
                 round, peak a rank.  No sync-debug gate (gloo stages
                 through the host).
+16c. dryrun -- ``launch/dryrun.py``, one process as one rank of a fake
+                world (every collective a no-op): (a) at (data 2, model 2),
+                full width cut to 2 layers (deepseek-coder's to 1), FSDP on,
+                command-r-plus-104b's prefill and deepseek-coder-33b's
+                train step, rank 0 of the
+                fake world (a subprocess) against rank 0 of 4 gloo ranks
+                sharing the card running the same rank program: the census
+                of collectives equal, the peak within DRYRUN_PEAK_TOL; then
+                deepseek-coder-33b's FSDP gradient within TP_GRAD_REL of the
+                unsharded one, two planted FSDP faults above it; (b) after
+                (a)'s real ranks have ended, rank 0 of the 16 x 16
+                production mesh at full width and depth (DRYRUN_PROD:
+                llama4-scout's prefill_32k (FSDP), mamba2-1.3b's
+                statistics step; the rest cut for time): each record's
+                per-rank memory, collectives, roofline terms and warm
+                step, flash launches one an attention layer in a prefill
+                and fed3r_stats one in the statistics step.
 17. serve    -- ``launch/serve.py`` on ``qwen2-7b`` at full width (28
                 layers, d_model 3584, GQA 28/4, vocab 152,064), bf16, random
                 weights: batch 8, 2048-token prompts, 64 tokens; flash_attention
@@ -502,6 +519,56 @@ TP_FT_RESUME = (1, 4)
 # against the per-client loop in one process) would leave 10% of margin.
 TP_STATS_REL = 7.2e-3
 TP_FT_REL = 3.6e-3
+# [dryrun] (a): launch/dryrun.py's rank program at (data 2, model 2), full
+# width cut to 2 layers, FSDP on: rank 0 of a fake world (every collective
+# a no-op) against rank 0 of DRYRUN_WORLD gloo ranks sharing the card,
+# which run it for real.  command-r-plus-104b's prefill (FSDP in
+# production serving); the train step on deepseek-coder-33b (FSDP in
+# production train): command-r-plus's fp32 step at (2, 2) holds ≈ 28 GB a
+# rank (its 256,000 x 12,288 embedding is split over "model" only, and
+# with its bf16 copy, gradient and the step's flat fp32 mean it passes 4 x
+# 80 GB), so four of them do not share one card; deepseek-coder's batch is
+# cut to one row of 4096 a data rank (at two, the four ranks ran out of the
+# card's 80 GB: 15.25 GiB a rank, a 1024 x 4096 score chunk of its 28
+# heads 0.9 GB), and its train step runs at 1 layer for time (at 2 the
+# job took 24-31 s through gloo).  The census must be equal
+# (kinds, bytes, group sizes, in order), the peak within DRYRUN_PEAK_TOL
+# of the real rank's (max_memory_allocated of each process: the same
+# tensors, but gloo stages CUDA tensors through host buffers the fake
+# world never makes).  Then deepseek-coder-33b's FSDP gradient (fp32, 1
+# layer: at 2, each of its three passes took 21 s through gloo; 4 x 256
+# tokens) leaf by leaf against the unsharded one within TP_GRAD_REL, and
+# the two planted FSDP faults above it.  Read on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W): peak gaps 0.0040 (prefill) and 0.0002 (train); the
+# gradient's largest leaf gap 4.2283e-6 (4.5683e-6 at 2 layers); the faults
+# 0.98761 and 1.0000.
+DRYRUN_WORLD = 4
+DRYRUN_MESH = (2, 2)
+DRYRUN_REAL = (
+    dict(name="command-r-plus-104b prefill", arch="command-r-plus-104b",
+         overrides={"n_layers": 2}, fsdp=True,
+         shape=dict(name="prefill_32k", seq_len=4096, global_batch=4, kind="prefill")),
+    dict(name="deepseek-coder-33b train", arch="deepseek-coder-33b",
+         overrides={"n_layers": 1}, fsdp=True,
+         shape=dict(name="train_4k", seq_len=4096, global_batch=2, kind="train")),
+)
+DRYRUN_GRAD = dict(arch="deepseek-coder-33b", overrides={"n_layers": 1, "dtype": "float32"},
+                   B=4, S=256)
+DRYRUN_PEAK_TOL = 0.10
+# [dryrun] (b): rank 0 of the 16 x 16 production mesh at full width and
+# depth: (arch, shape, step kind override), each a path through a kernel.
+# Cut for time (NVIDIA H100 80GB HBM3, 700 W): the train steps (qwen2-7b's
+# train_4k 58.6 s with its counted cold run, command-r-plus's 169.2 s) run
+# in launch/dryrun.py --all (PERF.md §6) and at (2, 2) in (a); qwen2-7b's
+# prefill_32k, decode_32k and long_500k likewise (the decodes launch no
+# kernel; with the prefill and long_500k the whole script took 1213.6 s on
+# one host, past its 1200 s limit); the statistics step runs on
+# mamba2-1.3b (qwen2-7b's took 68 s: its feature pass runs the plain
+# attention over 32,768 keys on all 28 heads, twice).  They run after
+# (a)'s real ranks have ended, alone on the card, so their step times are
+# the rank's own.
+DRYRUN_PROD = (("llama4-scout-17b-a16e", "prefill_32k", None), ("mamba2-1.3b", "prefill_32k", "fed3r"))
+DRYRUN_TIMEOUT_S = 900
 # the dense serving path (launch/serve.py) at Qwen2-7B's full width, bf16
 SERVE_ARCH = "qwen2-7b"
 SERVE_FULL = dict(batch=8, prompt_len=2048, gen=64)
@@ -3363,6 +3430,197 @@ def phase_tp_train(torch, ops) -> dict:
     return {"launches": launches, "gaps": gaps, "dtheta_scale": dw_scale}
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: launch/dryrun.py, one rank of a fake world, on the card
+# ---------------------------------------------------------------------------
+
+
+def _start_python(code: str, payload):
+    """Start ``code`` in a fresh Python process with ``payload`` unpickled
+    from ``sys.argv[1]``, its result to be pickled to ``sys.argv[2]`` (a
+    fake world never enters this process); its output goes to files.
+    Returns the handle :func:`_finish_python` takes."""
+    import pickle
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    src, dst = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "out.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(payload, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(os.path.join(tmp, "out.txt"), "w") as out, \
+            open(os.path.join(tmp, "err.txt"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code, src, dst], env=env, stdout=out,
+                                stderr=err)
+    return proc, tmp, dst
+
+
+def _finish_python(started, timeout_s: float, kill: bool = False):
+    """Wait for (or with ``kill``, stop) a :func:`_start_python` process;
+    log its output and return its result."""
+    import pickle
+    import shutil
+
+    proc, tmp, dst = started
+    try:
+        if kill:
+            proc.kill()
+        proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        with open(os.path.join(tmp, "out.txt")) as f:
+            for line in f.read().splitlines():
+                log(line)
+        with open(os.path.join(tmp, "err.txt")) as f:
+            err = f.read()
+    try:
+        if proc.returncode:
+            raise RuntimeError(f"[dryrun] subprocess exited {proc.returncode}:\n{err[-4000:]}")
+        with open(dst, "rb") as f:
+            return pickle.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# rank 0 of the fake world of DRYRUN_MESH (its own process: a fake world
+# never enters the script's)
+_FAKE_RANK = """
+import pickle, sys
+from repro_torch.launch import dist_check
+sizes, jobs = pickle.load(open(sys.argv[1], "rb"))
+fake = dist_check.fake_world_jobs(sizes, [0], jobs, device="cuda")[0]
+pickle.dump(fake, open(sys.argv[2], "wb"))
+"""
+# rank 0 of 16 x 16 for each of DRYRUN_PROD
+_PRODUCTION = """
+import pickle, sys
+import torch.distributed as dist
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_dryrun_mesh
+combos = pickle.load(open(sys.argv[1], "rb"))
+mesh = make_dryrun_mesh()
+recs = []
+try:
+    for arch, shape, kind in combos:
+        rec = dryrun.lower_one(arch, shape, mesh=mesh, kind_override=kind)
+        print(dryrun._line(rec), flush=True)
+        recs.append(rec)
+finally:
+    dist.destroy_process_group()
+pickle.dump(recs, open(sys.argv[2], "wb"))
+"""
+
+
+def phase_dryrun(torch, ops) -> dict:
+    """launch/dryrun.py on the card: (a) the rank program of DRYRUN_REAL at
+    DRYRUN_MESH, rank 0 of a fake world (a subprocess) against rank 0 of
+    DRYRUN_WORLD gloo ranks sharing the card (launch/dist_check.py::
+    fsdp_program), whose FSDP gradient is held against the unsharded one
+    with the planted FSDP faults above the limit; (b) once those ranks have
+    ended, rank 0 of the 16 x 16 production mesh at full width and depth
+    for DRYRUN_PROD (a subprocess, alone on the card), each record's
+    per-rank memory, collectives, roofline terms and warm step time, and
+    its flash_attention and fed3r_stats launches gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist_check import FSDP_FAULTS, fsdp_program, grad_batch
+    from repro_torch.launch.world import run_world
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    d, m = DRYRUN_MESH
+    gcfg = get_config(DRYRUN_GRAD["arch"]).replace(**DRYRUN_GRAD["overrides"])
+    jobs = [dict(name="grad", job="grad", arch=DRYRUN_GRAD["arch"], data=d, model=m,
+                 overrides=DRYRUN_GRAD["overrides"], seed=0,
+                 batch=grad_batch(gcfg, 21, DRYRUN_GRAD["B"], DRYRUN_GRAD["S"]),
+                 reference=True, faults=FSDP_FAULTS, fsdp=True)]
+    jobs += [dict(job, job="dryrun", data=d, model=m) for job in DRYRUN_REAL]
+    # the fake rank of (a) runs beside the real ones: each process its own
+    # memory and peak; the real ranks mostly wait on gloo's host staging
+    t0 = time.perf_counter()
+    started = _start_python(_FAKE_RANK, ({"data": d, "model": m}, list(DRYRUN_REAL)))
+    try:
+        ranks = run_world(fsdp_program, DRYRUN_WORLD, backend="gloo", device="cuda",
+                          timeout_s=DRYRUN_TIMEOUT_S, args=(jobs,))
+    except BaseException:
+        _finish_python(started, 60.0, kill=True)
+        raise
+    real_s = time.perf_counter() - t0
+    fake = _finish_python(started, DRYRUN_TIMEOUT_S)
+    fake_s = time.perf_counter() - t0
+    recs = _finish_python(_start_python(_PRODUCTION, list(DRYRUN_PROD)), DRYRUN_TIMEOUT_S)
+    prod_s = time.perf_counter() - t0 - fake_s
+
+    checks = {}
+    launches = {"flash_attention": 0, "fed3r_stats": 0}
+    for job in DRYRUN_REAL:
+        name = job["name"]
+        got, want = fake[name], ranks[0][name]
+        peak_gap = abs(got["peak_bytes"] - want["peak_bytes"]) / want["peak_bytes"]
+        checks[f"(a) {name}: the fake world's census equals the real rank 0's "
+               f"({len(want['census'])} collectives)"] = got["census"] == want["census"]
+        checks[f"(a) {name}: the fake world's peak within {DRYRUN_PEAK_TOL:g} of the real "
+               "rank 0's"] = peak_gap <= DRYRUN_PEAK_TOL
+        kinds = {}
+        for rec in want["census"]:
+            kinds[rec[0]] = kinds.get(rec[0], 0) + 1
+        for k in launches:
+            launches[k] += got["launches"][k] + sum(r[name]["launches"][k] for r in ranks)
+        log(f"[dryrun] (a) {name} at (data {d}, model {m}), FSDP: census {kinds}; peak fake "
+            f"{got['peak_bytes'] / 2**30:.3f} GiB, real "
+            + " ".join(f"{r[name]['peak_bytes'] / 2**30:.3f}" for r in ranks)
+            + f" GiB (gap {peak_gap:.4f}); warm step fake {got['step_s']:.3f} s, real "
+            + " ".join(f"{r[name]['step_s']:.3f}" for r in ranks) + " s; flash "
+            f"{got['launches']['flash_attention']} a rank")
+    grad = ranks[0]["grad"]
+    gap, leaf = _grad_gap(grad["sound"]["gaps"])
+    checks[f"(a) FSDP gradient within {TP_GRAD_REL:g} of the unsharded one "
+           f"({len(grad['sound']['gaps'])} leaves)"] = gap <= TP_GRAD_REL
+    faults = ""
+    for fault in FSDP_FAULTS:
+        fgap, fleaf = _grad_gap(grad[fault]["gaps"])
+        checks[f"(a) the planted fault ({fault}) reads above {TP_GRAD_REL:g}"] = fgap > TP_GRAD_REL
+        faults += f"; planted fault ({fault}) {fgap:.4e} at {fleaf}"
+    log(f"[dryrun] (a) {DRYRUN_GRAD['arch']} {DRYRUN_GRAD['overrides']} FSDP gradient at "
+        f"(data {d}, model {m}), {DRYRUN_GRAD['B']} x {DRYRUN_GRAD['S']}: largest leaf gap "
+        f"{gap:.4e} at {leaf} (limit {TP_GRAD_REL:g}){faults}; unsharded "
+        f"{grad['unsharded']['ms']:.1f} ms, a rank "
+        + " ".join(f"{r['grad']['sound']['ms']:.1f}" for r in ranks) + " ms")
+
+    for rec in recs:
+        label = f"(b) {rec['arch']} {rec['shape']} {rec['kind']}"
+        checks[f"{label}: ok"] = rec["status"] == "ok"
+        if rec["status"] != "ok":
+            log(f"[dryrun] {label}: {rec.get('error')}\n{rec.get('traceback')}")
+            continue
+        cfg = get_config(rec["arch"])
+        want = {"flash_attention": _attention_layers(cfg) if rec["kind"] == "prefill" else 0,
+                "fed3r_stats": 1 if rec["kind"] == "fed3r" else 0}
+        checks[f"{label}: launches {want}"] = rec["launches"] == want
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        r = rec["roofline"]
+        log(f"[dryrun] {label} on {rec['mesh']}: fsdp {rec['fsdp']}, M "
+            f"{rec['num_microbatches']}, per-rank {rec['per_device_gb']} GB (fits_hbm "
+            f"{rec['fits_hbm']}), arguments {rec['argument_size_in_bytes'] / 1e9:.3f} GB, "
+            f"collectives {rec['collectives']}, wire {rec['collective_wire_bytes_per_chip'] / 1e6:.1f}"
+            f" MB; compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
+            f"collective {r['collective_s'] * 1e3:.3f} ms ({r['dominant']}); useful "
+            f"{rec['useful_flops_ratio']:.3f}; step {rec['step_s']:.3f} s (cold {rec['cold_s']:.3f}"
+            f" s, set-up {rec['setup_s']:.3f} s); launches {rec['launches']}")
+    log(f"[dryrun] real ranks {real_s:.1f}s; beside them the fake rank 0 of (2, 2) done at "
+        f"{fake_s:.1f}s; then rank 0 of 16 x 16 alone in {prod_s:.1f}s; the phase in "
+        f"{time.perf_counter() - t_all:.1f}s on {card()}")
+    for name, ok in checks.items():
+        log(f"[dryrun] {'ok  ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError(f"[dryrun] failed: {[n for n, ok in checks.items() if not ok]}")
+    return {"launches": launches, "records": recs}
+
+
 def half_way_matrix(tiles_down, tiles_across, tile, seed):
     """An fp32 matrix whose every entry but one a tile sits exactly half-way
     between two integers of its tile's quantization grid (x/s = k + 1/2, no
@@ -4664,6 +4922,7 @@ def main() -> int:
     del ft
     tp = phase_tp(torch, ops)
     tp_train = phase_tp_train(torch, ops)
+    dry = phase_dryrun(torch, ops)
     srv = phase_serve(torch, ops)
     phase_serve_consistency(torch, ops)
     moe = phase_serve_moe(torch, ops)
@@ -4694,7 +4953,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/fed3r_stats.py:57",
          "launches": sl["launches"] + asy["launches"]["fed3r_stats"]
          + tiers["launches"]["fed3r_stats"] + dist["launches"]["fed3r_stats"]
-         + tp_train["launches"], **kern},
+         + tp_train["launches"] + dry["launches"]["fed3r_stats"], **kern},
         {"name": "rff", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rff.cu",
          "replaces": "src/repro/kernels/rff.py:42", "launches": rf["launches"],
          **{k: v for k, v in kern_rff.items() if k != "gemm_only_ms"}},
@@ -4722,7 +4981,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:85",
          "launches": srv["full"]["launches"] + moe["full"]["launches"]
-         + sum(f["full"]["launches"] for f in fams.values()) + tp["launches"], **kern_flash},
+         + sum(f["full"]["launches"] for f in fams.values()) + tp["launches"]
+         + dry["launches"]["flash_attention"], **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
     print(card())

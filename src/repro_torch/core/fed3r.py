@@ -75,7 +75,8 @@ def masked_design(
         y = y * m
         n = m.sum()
     else:
-        n = torch.tensor(float(features.shape[0]), dtype=torch.float32, device=z.device)
+        # a fill on the device: no host-to-device copy
+        n = torch.full((), float(features.shape[0]), dtype=torch.float32, device=z.device)
     return z, y, n
 
 

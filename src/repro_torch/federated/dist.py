@@ -55,6 +55,7 @@ import torch.distributed as dist
 
 from repro_torch.federated.telemetry import Telemetry, get_telemetry
 from repro_torch.launch.mesh import axis_size, data_axes, data_parallel_size
+from repro_torch.sharding import hints
 from repro_torch.sharding.specs import data_parallel_spec
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -117,14 +118,18 @@ def _flat_collective(tree: Any, collective: Callable[[torch.Tensor], Any]) -> An
 def broadcast_tree(tree: Any, src: int = 0) -> Any:
     """Every leaf of ``tree`` as global rank ``src`` holds it, on every rank
     of the world: one broadcast a dtype."""
-    return _flat_collective(tree, lambda flat: dist.broadcast(flat, src=src))
+    def bcast(flat):  # each rank receives the buffer once: priced as a permute
+        hints.collective("collective-permute", flat.numel() * flat.element_size(), (None,),
+                         lambda: dist.broadcast(flat, src=src))
+
+    return _flat_collective(tree, bcast)
 
 
 def psum_axis(tree: Any, mesh: Any, axis: str) -> Any:
     """One all-reduce stage: sum over the mesh axis ``axis``, one collective
     a dtype of the tree's leaves, each a contiguous buffer of them."""
     group = mesh.get_group(axis)
-    return _flat_collective(tree, lambda flat: dist.all_reduce(flat, group=group))
+    return _flat_collective(tree, lambda flat: hints.all_reduce(flat, (group,)))
 
 
 def two_stage_psum(tree: Any, mesh: Any, axis_names: Sequence[str]) -> Any:
@@ -286,19 +291,8 @@ class DistContext:
         k = tensors[0].shape[0]
         widths = [t[0].numel() for t in tensors]
         rows = torch.cat([t.reshape(k, -1) for t in tensors], dim=1)
-        mesh = self.cfg.mesh
         for ax in reversed(self.cfg.axis_names):  # innermost first, as the layout nests
-            group = mesh.get_group(ax)
-            size = axis_size(mesh, ax)
-            me = mesh.get_local_rank(ax)
-            out = rows.new_empty((size * rows.shape[0], rows.shape[1]))
-            span = rows.shape[0]
-            for j in range(size):
-                buf = out[j * span:(j + 1) * span]
-                if j == me:
-                    buf.copy_(rows)
-                dist.broadcast(buf, src=dist.get_global_rank(group, j), group=group)
-            rows = out
+            rows = hints.gather_rows(rows, self.cfg.mesh.get_group(ax))
         parts = torch.split(rows, widths, dim=1)
         return [p.reshape((rows.shape[0],) + tuple(t.shape[1:])) for p, t in zip(parts, tensors)]
 

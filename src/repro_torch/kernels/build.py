@@ -16,9 +16,15 @@ minutes for a PyTorch extension), then loaded with ``ctypes``.  A
 
 Every source exports ``<name>_error_string(int)`` beside its launch
 functions, so a wrapper can name the ``cudaError_t`` a launch returned.
+
+A launch through ``ctypes`` is invisible to PyTorch's dispatcher, so a
+counter of FLOPs or bytes over aten ops misses it: the wrappers on the dry
+run's path (``fed3r_stats``, ``flash_attention``) add their kernel's own
+count to each active :func:`work_meter` where they launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +33,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/ → the checkout root, whose build/ git ignores
@@ -196,3 +202,26 @@ def launch(device, fn, *args) -> int:
         return fn(*args, current_stream_handle(index))
     with torch.cuda.device(index):
         return fn(*args, current_stream_handle(index))
+
+
+_METERS: List[Dict[str, float]] = []
+
+
+@contextlib.contextmanager
+def work_meter() -> Iterator[Dict[str, float]]:
+    """{"flops", "bytes"} of the kernels launched inside the block, each
+    its kernel's own count (meters nest)."""
+    meter = {"flops": 0.0, "bytes": 0.0}
+    _METERS.append(meter)
+    try:
+        yield meter
+    finally:  # by identity: two meters may hold equal counts
+        _METERS[:] = [m for m in _METERS if m is not meter]
+
+
+def count_work(flops: float, nbytes: float) -> None:
+    """Add one launch's FLOPs and bytes (each input read once, each output
+    written once) to every active :func:`work_meter`."""
+    for meter in _METERS:
+        meter["flops"] += flops
+        meter["bytes"] += nbytes

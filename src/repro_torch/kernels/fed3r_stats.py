@@ -97,6 +97,8 @@ def _launch(Z: torch.Tensor, Y: torch.Tensor, tile: int = 0) -> Tuple[torch.Tens
                         tile or pick_tile(d, C, sms))
     LIBRARY.check(err, "fed3r_stats")
     fed3r_stats.launches += 1
+    # 2·n·d·(d + C) FLOPs; Z, Y read and A, b written once, fp32
+    _build.count_work(2.0 * n * d * (d + C), 4.0 * (n * d + n * C + d * d + d * C))
     return A, b
 
 

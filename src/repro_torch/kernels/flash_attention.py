@@ -102,7 +102,27 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     )
     LIBRARY.check(err, "flash_attention")
     flash_attention.launches += 1
+    _build.count_work(*flash_work(B, S, H, k.shape[2], hd, causal, window, q.element_size()))
     return out
+
+
+def kept_pairs(S: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs of S positions the mask keeps."""
+    W = window or S
+    if causal:
+        W = min(W, S)
+        return W * (W + 1) // 2 + (S - W) * W
+    if W >= S:
+        return S * S
+    return S * S - (S - W) * (S - W + 1) // 2
+
+
+def flash_work(B: int, S: int, H: int, KV: int, hd: int, causal: bool,
+               window: Optional[int], elem_bytes: int) -> tuple:
+    """(FLOPs, bytes) of one launch: 4·hd a kept (query, key) pair and
+    head; q, k and v read once and the output written once."""
+    flops = 4.0 * hd * kept_pairs(S, causal, window) * H * B
+    return flops, float(elem_bytes * B * S * hd * (2 * H + 2 * KV))
 
 
 def flash_attention(

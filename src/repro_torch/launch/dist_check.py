@@ -26,6 +26,11 @@ tests' sizes, made to run on the port's one-process-a-rank model.
   the features, a prefill and teacher-forced decode steps, ``serve`` with
   its times and peak memory, planted faults, phase 1 of ``train.run``,
   and the refusals.
+* :func:`fsdp_program` — FSDP: the gradient against the unsharded one
+  (and planted faults), ``make_train_step``, prefill and decode logits
+  against the TP-only layout, and the dry run's rank program
+  (``launch/dryrun.py``) on real ranks, which a dry run over a fake world
+  is held against.
 * :func:`tp_train_program` — the backward under a ``"model"`` axis: each
   family's ``lm_loss`` gradient gathered over "model" (or held, leaf by
   leaf on each rank, against the unsharded gradient the ranks computed
@@ -90,6 +95,7 @@ from repro_torch.models.moe import DropTally
 from repro_torch.sharding import hints
 from repro_torch.sharding.specs import map_with_path
 from repro_torch.sharding.shard import (
+    fsdp_leaves,
     full_params,
     gather_params,
     leaf_specs,
@@ -557,16 +563,16 @@ def _planted(fault):
         setattr(module, name, real)
 
 
-def _tp_params(cfg, mesh, dev, params_np, seed, fault):
+def _tp_params(cfg, mesh, dev, params_np, seed, fault, fsdp=False):
     if params_np is not None:
-        return shard_params(cfg, params_from_jax(cfg, params_np, dev), mesh)
+        return shard_params(cfg, params_from_jax(cfg, params_np, dev), mesh, fsdp)
     factory = seeded_factory(seed)
     planted = {"experts offset": lambda f: _expert_offset_factory(f, 1),
                "embed columns swapped": _embed_columns_swapped_factory}.get(fault)
     if planted is not None:
         with hints.use_mesh(mesh):  # the factory reads the rank's model coordinate
             return shard_params_from(cfg, planted(factory), mesh, dev)
-    return shard_params_from(cfg, factory, mesh, dev)
+    return shard_params_from(cfg, factory, mesh, dev, fsdp=fsdp)
 
 
 def _offset(cfg) -> int:
@@ -755,6 +761,10 @@ def tp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict]
 # planted faults of the gradient convention (sharding/hints.py, pieces 1-3)
 GRAD_FAULTS = ("reduce backward identity in the last layer", "replicated sum skipped",
                "loss seeded on every rank")
+# planted faults of FSDP's gradient: the gather's backward keeps the rank's
+# block of the cotangent unsummed over the data ranks; an FSDP leaf's
+# gradient, already their sum, all-reduced and divided over them again
+FSDP_FAULTS = ("reduce-scatter keeps the block unsummed", "FSDP leaf averaged twice over data")
 
 
 class _SumNoBackward(torch.autograd.Function):
@@ -803,12 +813,31 @@ def _last_layer_reduce_identity(cfg):
         tfm_mod.block_apply = real_block
 
 
+@contextlib.contextmanager
+def _unsummed_reduce_scatter():
+    """Over the block: the FSDP gather's backward narrows the cotangent to
+    the rank's block without summing it over the data ranks."""
+    real = hints._reduce_scatter
+
+    def planted(g, dim, axes):
+        n, i = hints._axes_block(axes)
+        k = g.shape[dim] // n
+        return g.narrow(dim, i * k, k).clone()
+
+    hints._reduce_scatter = planted
+    try:
+        yield
+    finally:
+        hints._reduce_scatter = real
+
+
 def rank_gradient(cfg, blocks: Any, batch: Dict[str, torch.Tensor], fault: str = None) -> Any:
     """The rank's gradient of ``cfg``'s ``lm_loss`` over the global batch
     under the ambient mesh (``blocks`` the rank's blocks, ``batch`` its
-    rows): the loss seeded once over "model", the replicated leaves'
-    gradients summed over it, then the mean over the data ranks; with
-    ``fault`` (one of :data:`GRAD_FAULTS`) planted."""
+    rows; under FSDP the FSDP layout's): the loss seeded once over "model",
+    the replicated leaves' gradients summed over it, then the mean over the
+    data ranks (an FSDP leaf's only divided); with ``fault`` (one of
+    :data:`GRAD_FAULTS` or :data:`FSDP_FAULTS`) planted."""
     model = build_model(cfg)
 
     def loss(p):
@@ -816,11 +845,15 @@ def rank_gradient(cfg, blocks: Any, batch: Dict[str, torch.Tensor], fault: str =
         return value if fault == GRAD_FAULTS[2] else hints.seed_loss(value)
 
     with (_last_layer_reduce_identity(cfg) if fault == GRAD_FAULTS[0]
+          else _unsummed_reduce_scatter() if fault == FSDP_FAULTS[0]
           else contextlib.nullcontext()):
         grads = torch.func.grad(loss)(blocks)
     if fault != GRAD_FAULTS[1]:
         grads = hints.sum_replicated(grads, replicated_leaves(cfg, hints.model_size()))
-    return hints.mean_data(grads)
+    summed = None
+    if hints.fsdp_axes() and fault != FSDP_FAULTS[1]:
+        summed = fsdp_leaves(cfg, hints.axis_sizes())
+    return hints.mean_data(grads, summed)
 
 
 def grad_batch(cfg, seed: int = 0, B: int = 2, S: int = 8) -> Dict[str, np.ndarray]:
@@ -854,24 +887,26 @@ def loss_gradient(arch: str, mesh: Any, device: torch.device, params: Any = None
         return rank_gradient(cfg, params, _rows(grad_batch(cfg, **kw), mesh, device))
 
 
-def gathered_gradient(cfg, grads: Any, mesh: Any) -> Any:
-    """A rank's gradient gathered over "model" into whole leaves, numpy (a
-    collective every model rank joins)."""
-    return np_(gather_params(cfg, grads, mesh))
+def gathered_gradient(cfg, grads: Any, mesh: Any, fsdp: bool = False) -> Any:
+    """A rank's gradient (or parameters) gathered over "model" (and under
+    ``fsdp`` the data axes) into whole leaves, numpy (a collective every
+    rank joins)."""
+    return np_(gather_params(cfg, grads, mesh, fsdp))
 
 
 def _unsharded_blocks(cfg, seed: int, batch: Dict[str, np.ndarray], mesh,
-                      dev) -> Tuple[Dict[tuple, torch.Tensor], dict]:
+                      dev, fsdp: bool = False) -> Tuple[Dict[tuple, torch.Tensor], dict]:
     """({key path: this rank's block of the unsharded gradient, on the
     host}, its ms and peak on global rank 0): rank 0 alone makes
     ``seeded_factory(seed)``'s weights whole on ``dev``, takes the plain
     gradient of ``lm_loss`` on the whole batch, keeps it on the host and
-    frees the device; then it scatters each leaf's blocks to the ranks
-    that hold them (gloo takes host tensors)."""
+    frees the device; then it scatters each leaf's blocks (under ``fsdp``
+    the FSDP layout's) to the ranks that hold them (gloo takes host
+    tensors)."""
     sizes, rank = hints.axis_sizes(mesh), dist.get_rank()
     where = [None] * dist.get_world_size()
     dist.all_gather_object(where, hints.coords(mesh))
-    meta, specs = leaf_specs(cfg, sizes)
+    meta, specs = leaf_specs(cfg, sizes, fsdp)
     whole, info = {}, {}
     if rank == 0:
         if dev.type == "cuda":
@@ -923,7 +958,7 @@ def _gaps(grads: Any, ref: Dict[tuple, torch.Tensor]) -> Dict[str, Any]:
 def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
                 overrides: Dict[str, Any] = None, params: Any = None, seed: int = 0,
                 batch: Dict[str, np.ndarray] = None, faults: Sequence[str] = (),
-                reference: bool = False) -> dict:
+                reference: bool = False, fsdp: bool = False) -> dict:
     """``lm_loss``'s gradient of one model on a ``(data, model)`` host mesh:
     its blocks of the reference's weights (``params``, numpy) or of
     ``seeded_factory(seed)``, the rank's rows of ``batch``; then again with
@@ -932,7 +967,8 @@ def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model:
     0; a digest on every rank), or with ``reference`` the leaf-by-leaf gaps
     to the unsharded gradient, which rank 0 computed first and scattered
     (``gaps``, each (max|Δ|, max|g|)), each run's ms and every rank's peak
-    memory."""
+    memory.  With ``fsdp`` the blocks and the gradient are the FSDP
+    layout's."""
     cfg = get_config(arch).replace(**(overrides or {}))
     mesh = make_host_mesh(model, device_type=device.type)
     if hints.axis_sizes(mesh)["data"] != data:
@@ -941,15 +977,15 @@ def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model:
     out: Dict[str, Any] = {"coords": hints.coords(mesh)}
     ref = None
     if reference:  # before any rank holds a block
-        ref, out["unsharded"] = _unsharded_blocks(cfg, seed, batch, mesh, device)
-    blocks = _tp_params(cfg, mesh, device, params, seed, None)
+        ref, out["unsharded"] = _unsharded_blocks(cfg, seed, batch, mesh, device, fsdp)
+    blocks = _tp_params(cfg, mesh, device, params, seed, None, fsdp)
     rows = _rows(batch, mesh, device)
     for fault in (None,) + tuple(faults):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        with hints.use_mesh(mesh):
+        with hints.use_mesh(mesh, fsdp=fsdp):
             grads = rank_gradient(cfg, blocks, rows, fault)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -961,7 +997,7 @@ def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model:
             run["gaps"] = _gaps(grads, ref)
             run["gaps_ms"] = 1e3 * (time.perf_counter() - t0)
         else:
-            gathered = gathered_gradient(cfg, grads, mesh)
+            gathered = gathered_gradient(cfg, grads, mesh, fsdp)
             run["digest"] = digest(gathered)
             run["grads"] = gathered if rank == 0 else None
         out[fault or "sound"] = run
@@ -1087,18 +1123,18 @@ def tp_ft_job(rank: int, device: torch.device, *, arch: str, model: int, run: Di
 
 def tp_step_job(rank: int, device: torch.device, *, arch: str, model: int, params: Any,
                 batch: Dict[str, np.ndarray], lr: float, num_microbatches: int,
-                overrides: Dict[str, Any] = None) -> dict:
+                overrides: Dict[str, Any] = None, fsdp: bool = False) -> dict:
     """One ``steps.make_train_step`` step on a ``(data, model)`` host mesh:
-    the rank's blocks of the reference's weights (``params``, numpy) and
-    its rows of ``batch``.  Returns the new parameters gathered over
-    "model" (numpy, on global rank 0) and the loss."""
+    the rank's blocks of the reference's weights (``params``, numpy; in the
+    FSDP layout with ``fsdp``) and its rows of ``batch``.  Returns the new
+    parameters gathered whole (numpy, on global rank 0) and the loss."""
     mesh = make_host_mesh(model, device_type=device.type)
     cfg = get_config(arch).replace(**(overrides or {}))
-    blocks = shard_params(cfg, params_from_jax(cfg, params, device), mesh)
+    blocks = shard_params(cfg, params_from_jax(cfg, params, device), mesh, fsdp)
     step = steps.make_train_step(cfg, lr=lr, num_microbatches=num_microbatches)
-    with hints.use_mesh(mesh):
+    with hints.use_mesh(mesh, fsdp=fsdp):
         new, loss = step(blocks, _rows(batch, mesh, device))
-    whole = gathered_gradient(cfg, new, mesh)
+    whole = gathered_gradient(cfg, new, mesh, fsdp)
     return {"loss": float(loss), "params": whole if rank == 0 else None}
 
 
@@ -1123,4 +1159,142 @@ def tp_train_program(rank: int, world: int, device: torch.device, grads: Sequenc
                       flush=True)
     if refusals:
         out["refusals"] = tp_refusals(rank, device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP, and the dry run's rank program on real ranks
+# ---------------------------------------------------------------------------
+
+
+def fsdp_serve_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
+                   overrides: Dict[str, Any] = None, seed: int = 0, prompts: np.ndarray,
+                   decode: np.ndarray) -> dict:
+    """A prefill of ``prompts`` and ``decode``'s columns teacher-forced on a
+    ``(data, model)`` host mesh, in the TP-only layout and in the FSDP
+    layout, each from ``seeded_factory(seed)``'s blocks: both runs' logits
+    (the rank's rows, numpy) and the collectives of the FSDP prefill."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    if hints.axis_sizes(mesh)["data"] != data:
+        raise ValueError(f"a world of {dist.get_world_size()} ranks has no (data {data}, "
+                         f"model {model}) mesh")
+    cfg = get_config(arch).replace(**(overrides or {}))
+    rows = _rows({"prompts": prompts, "decode": decode}, mesh, device)
+    capacity = prompts.shape[1] + decode.shape[1]
+    out: Dict[str, Any] = {}
+    for fsdp in (False, True):
+        blocks = _tp_params(cfg, mesh, device, None, seed, None, fsdp)
+        with hints.use_mesh(mesh, fsdp=fsdp), torch.no_grad(), hints.census() as recs:
+            got = _forced(cfg, blocks, rows["prompts"], rows["decode"], {}, capacity)
+        out["fsdp" if fsdp else "tp"] = np_({"prefill": got["prefill"], "decode": got["decode"]})
+        out["census fsdp" if fsdp else "census tp"] = [tuple(r) for r in recs]
+    return out
+
+
+def _dryrun_on(mesh: Any, device: torch.device, *, arch: str, shape: Dict[str, Any],
+               kind: str = None, overrides: Dict[str, Any] = None, fsdp: bool = None) -> dict:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shp = ShapeConfig(**shape)
+    rec = dryrun.plan(arch, shp, hints.axis_sizes(mesh), kind, overrides, fsdp)
+    cfg = rec.pop("cfg")
+    prog = dryrun.rank_program(cfg, rec["kind"], shp, mesh, device, rec["fsdp"],
+                               rec["num_microbatches"], count=False)
+    prog["census"] = [tuple(r) for r in prog["census"]]
+    return dict(prog, plan=rec)
+
+
+def dryrun_job(rank: int, device: torch.device, *, data: int, model: int, **job) -> dict:
+    """The dry run's rank program (``launch/dryrun.py::rank_program``) of
+    one combination on a real ``(data, model)`` host mesh: what a dry run
+    over a fake world is held against.  ``job``: ``arch``, ``shape`` (a
+    ``ShapeConfig``'s fields), and optionally ``kind``, ``overrides`` and
+    ``fsdp``, as ``dryrun.plan`` takes them.  Returns its census (as
+    tuples), peak memory, times and kernel launches, and the plan's
+    decisions."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    if hints.axis_sizes(mesh)["data"] != data:
+        raise ValueError(f"a world of {dist.get_world_size()} ranks has no (data {data}, "
+                         f"model {model}) mesh")
+    return _dryrun_on(mesh, device, **job)
+
+
+def fake_world_jobs(sizes: Dict[str, int], ranks: Sequence[int], jobs: Sequence[dict],
+                    device: str = "cpu") -> Dict[int, dict]:
+    """The dry run itself, in this process: for each of ``ranks``, that rank
+    of a fake world of axis ``sizes`` (``make_dryrun_mesh``) runs each job
+    (its ``name`` and :func:`dryrun_job`'s ``job`` keywords); the world is
+    torn down after each rank.  Returns {rank: {name: the job's result}}."""
+    from repro_torch.launch.mesh import make_dryrun_mesh
+
+    dev = torch.device(device)
+    out: Dict[int, dict] = {}
+    for r in ranks:
+        mesh = make_dryrun_mesh(rank=r, device_type=dev.type, sizes=sizes)
+        try:
+            out[r] = {job["name"]: _dryrun_on(mesh, dev, **{k: v for k, v in job.items()
+                                                          if k != "name"})
+                      for job in jobs}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def moe_groups_job(rank: int, device: torch.device, *, arch: str, params: Any,
+                   tokens: np.ndarray, overrides: Dict[str, Any] = None) -> dict:
+    """An MoE model's train forward on the multi-pod host mesh (pod 2, data
+    world / 4, model 1) from the reference's weights (``params``, numpy)
+    on the rank's rows of ``tokens``: G = the "data" axis capacity groups
+    over 2·G data ranks, so a group spans two ranks and the second's
+    positions start after the first's counts.  Returns the logits (the
+    rank's rows) and the drop share over the data ranks."""
+    mesh = make_host_mesh(1, pods=2, device_type=device.type)
+    cfg = get_config(arch).replace(**(overrides or {}))
+    blocks = shard_params(cfg, params_from_jax(cfg, params, device), mesh)
+    drops = DropTally()
+    with hints.use_mesh(mesh), torch.no_grad():
+        fw = build_model(cfg).forward(blocks, {"tokens": _rows({"t": tokens}, mesh, device)["t"]},
+                                      drops=drops)
+    return {"logits": np_(fw.logits), "drop_share": drops.share()}
+
+
+def gather_vmap_job(rank: int, device: torch.device, *, model: int) -> dict:
+    """``hints.gather_data`` and its gradient under ``torch.func.vmap`` on a
+    ``(data, model)`` host mesh under FSDP: a batch of 3 rank-specific
+    blocks gathered along dim 1, mapped and looped (numpy), and the
+    gradient of a sum of squares through it, mapped and looped."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    x = torch.arange(3 * 2 * 4, dtype=torch.float32, device=device).reshape(3, 2, 4) + 100 * rank
+
+    def loss(t):
+        return (hints.gather_data(t, 1) ** 2).sum()
+
+    with hints.use_mesh(mesh, fsdp=True):
+        out = {"looped": torch.stack([hints.gather_data(t, 1) for t in x]),
+               "mapped": torch.func.vmap(lambda t: hints.gather_data(t, 1))(x),
+               "grad looped": torch.stack([torch.func.grad(loss)(t) for t in x]),
+               "grad mapped": torch.func.vmap(torch.func.grad(loss))(x)}
+    return np_(out)
+
+
+_FSDP_JOBS = {"grad": tp_grad_job, "step": tp_step_job, "serve": fsdp_serve_job,
+              "dryrun": dryrun_job, "moe_groups": moe_groups_job, "gather_vmap": gather_vmap_job}
+
+
+def fsdp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict]) -> dict:
+    """Each job of ``jobs`` on this rank: its ``name``, its ``job`` (a key
+    of ``_FSDP_JOBS``: "grad" :func:`tp_grad_job`, "step"
+    :func:`tp_step_job`, "serve" :func:`fsdp_serve_job`, "dryrun"
+    :func:`dryrun_job`, "moe_groups" :func:`moe_groups_job`, "gather_vmap"
+    :func:`gather_vmap_job`) and that function's keyword arguments (rank 0
+    prints each job's seconds)."""
+    out: Dict[str, Any] = {}
+    for job in jobs:
+        job = dict(job)
+        name, fn = job.pop("name"), _FSDP_JOBS[job.pop("job")]
+        t0 = time.perf_counter()
+        out[name] = fn(rank, device, **job)
+        if rank == 0:
+            print(f"[fsdp] rank 0: {name} in {time.perf_counter() - t0:.1f}s", flush=True)
     return out

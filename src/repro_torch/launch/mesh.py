@@ -12,6 +12,10 @@ world, built by ``init_device_mesh``.  The layouts are the reference's:
 * :func:`make_tier_host_mesh` — one axis per aggregation tier, outermost
   (cloud) first, the leaf (edge) tier innermost, plus ``"model"``;
 * :func:`make_production_mesh` — the reference's production axis sizes;
+* :func:`make_dryrun_mesh` — one rank's view of the production mesh, over
+  a fake world (no collective moves data) of 256 or 512 ranks in this one
+  process: what :mod:`repro_torch.launch.dryrun` runs a rank's program on,
+  and nothing else (every other mesh refuses a fake world);
 * :func:`data_axes` (every axis but ``"model"``), :func:`data_parallel_size`
   (the way count the packers pad to) and :func:`n_chips`.
 
@@ -22,8 +26,16 @@ mesh (:func:`repro_torch.sharding.hints.use_mesh`) splits its layers over
 for gloo worlds on the CPU, as the tests run them); the backend is
 whatever the world was initialized with, and nothing here picks one.
 
-The bandwidth constants are the reference's pricing inputs for the tiers of
-an aggregation tree (:class:`repro_torch.federated.tiers.TierSpec`,
+``PEAK_FLOPS_BF16``, ``HBM_BW``, ``NVLINK_BW`` and ``NETWORK_BW`` are the
+card's figures the dry run's roofline divides by: NVIDIA H100 SXM
+data-sheet numbers at its 700 W limit (dense bf16 tensor-core rate, HBM3
+rate, NVLink 4 each way per card, one 400 Gb/s InfiniBand port per card),
+not measurements.  A collective group within one node of
+``hints.RANKS_PER_NODE`` cards rides NVLink; one that spans nodes, as
+every group of the row-major 16 × 16 layout does, the network.
+
+``ICI_BW``, ``DCN_BW`` and ``WAN_BW`` are the reference's pricing inputs
+for the tiers of an aggregation tree (:class:`repro_torch.federated.tiers.TierSpec`,
 :meth:`repro_torch.federated.costs.CostModel.tiered_allreduce`): edge folds
 over the fast intra-host interconnect, region crossings over the data-centre
 network, cloud crossings over the WAN.  They are assumed deployment links,
@@ -31,10 +43,17 @@ not measurements of any device.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+# NVIDIA H100 SXM data sheet at 700 W (not measurements)
+PEAK_FLOPS_BF16 = 989e12  # dense bf16 FLOP/s a card
+HBM_BW = 3.35e12  # bytes/s a card
+NVLINK_BW = 450e9  # bytes/s each way a card, inside an 8-card node
+NETWORK_BW = 50e9  # bytes/s a card over its 400 Gb/s InfiniBand port, across nodes
 
 ICI_BW = 50e9  # bytes/s per link (~per-chip effective for ring collectives)
 DCN_BW = 12.5e9  # bytes/s per pod boundary (~100 Gbps cross-pod effective)
@@ -48,13 +67,45 @@ TIER_BANDWIDTHS = {"ici": ICI_BW, "dcn": DCN_BW, "wan": WAN_BW}
 # The leaf tier keeps the name "edge"; a 1-tier mesh degenerates to it.
 _TIER_AXIS_NAMES = ("cloud", "region", "edge")
 
+FAKE_BACKEND = "fake"
+
+
+def link_bw(cross_node: bool) -> float:
+    """Bytes/s a card of a collective group: the network where the group
+    spans nodes, NVLink inside one."""
+    return NETWORK_BW if cross_node else NVLINK_BW
+
+
 def _world_size() -> int:
     if not dist.is_initialized():
         raise RuntimeError(
             "no torch.distributed world is initialized: start the ranks with "
             "repro_torch.launch.world (run_world, or init_world under torchrun)"
         )
+    if dist.get_backend() == FAKE_BACKEND:
+        raise RuntimeError("a fake world moves no data: only repro_torch.launch.dryrun runs "
+                           "on it (make_dryrun_mesh)")
     return dist.get_world_size()
+
+
+def make_dryrun_mesh(multi_pod: bool = False, rank: int = 0, device_type: str = "cuda",
+                     sizes: Optional[Dict[str, int]] = None) -> DeviceMesh:
+    """Rank ``rank`` of the production mesh (or of one of axis ``sizes``,
+    outermost first) in this process: a world of the fake backend (every
+    collective returns at once and moves nothing, so a buffer it would
+    fill keeps what it held) over all its ranks, and the ``DeviceMesh``
+    with the reference's axes.  Only the dry run runs on it; tear it down
+    with ``torch.distributed.destroy_process_group()``."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sizes = dict(sizes or make_production_mesh(multi_pod=multi_pod))
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed world is already initialized in this process")
+    world = math.prod(sizes.values())
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a world of {world}")
+    dist.init_process_group(FAKE_BACKEND, rank=rank, world_size=world, store=FakeStore())
+    return init_device_mesh(device_type, tuple(sizes.values()), mesh_dim_names=tuple(sizes))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:

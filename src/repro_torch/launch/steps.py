@@ -34,7 +34,7 @@ from repro_torch.federated.simulator import softmax_ce
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import model as model_lib
 from repro_torch.sharding import hints
-from repro_torch.sharding.shard import replicated_leaves
+from repro_torch.sharding.shard import fsdp_leaves, replicated_leaves
 from repro_torch.tree import tree_map
 
 
@@ -58,11 +58,20 @@ def make_train_step(
       over "model", the replicated leaves' gradients are summed over it,
       and the gradient and loss are their means over the data ranks — the
       global batch's, as the reference's step computes with the batch
-      sharded over "data".
+      sharded over "data".  Under FSDP (``use_mesh(mesh, fsdp=True)``) the
+      blocks are the FSDP layout's: each microbatch's gradient of an FSDP
+      leaf comes back reduce-scattered (summed over the data ranks, the
+      rank's block), accumulates in that shape and is only divided.
+      A rank splits its rows into M contiguous microbatches, so global
+      microbatch i is every rank's i-th block: to run the reference's
+      microbatches (global rows [i·B/M, (i+1)·B/M)), give each rank its
+      block of each in turn.  An MoE's capacity and load-balance loss are
+      a microbatch's.
     """
     grads_of = torch.func.grad_and_value(
         lambda pp, b: hints.seed_loss(model_lib.lm_loss(cfg, pp, b)))
     replicated = {}  # model axis size -> the replicated-leaf flags
+    summed = {}  # mesh axis sizes -> the FSDP-leaf flags (their gradients are data sums)
 
     def train_step(params, batch):
         pc = tree_map(
@@ -91,7 +100,13 @@ def make_train_step(
             if m not in replicated:
                 replicated[m] = replicated_leaves(cfg, m)
             grads = hints.sum_replicated(grads, replicated[m])
-        grads, loss = hints.mean_data((grads, loss))
+        flags = None
+        if hints.fsdp_axes():
+            key = tuple(sorted(hints.axis_sizes().items()))
+            if key not in summed:
+                summed[key] = fsdp_leaves(cfg, dict(key))
+            flags = (summed[key], False)
+        grads, loss = hints.mean_data((grads, loss), flags)
         if freeze is not None:
             grads = tree_map(lambda g, f: g * f, grads, freeze)
         params = tree_map(
@@ -155,7 +170,9 @@ def make_fed3r_stats_step(
     exactly nothing).  ``aggregation`` is the engine's server backend:
     ``"merge"`` (the sum IS the aggregation); ``"psum"``: this rank's
     batch statistics all-reduced over the data axes of ``mesh`` before they
-    fold into ``stats``.
+    fold into ``stats``.  Statistics held in the reference's layout under a
+    "model" axis (``sharding.specs.stats_specs``: the ambient mesh's model
+    rank's rows of A and b) take that block of the batch's.
     """
     axes = data_axes(mesh) if mesh is not None else ()
 
@@ -165,6 +182,10 @@ def make_fed3r_stats_step(
         if rff_params is not None:
             feats = rff_map(rff_params, feats)
         new = engine_lib.shard_stats(feats, batch["class_labels"], n_classes, batch.get("mask"))
-        return fed3r.merge(stats, engine_lib.aggregate(new, aggregation, axes, mesh))
+        new = engine_lib.aggregate(new, aggregation, axes, mesh)
+        if stats.A.shape[0] != new.A.shape[0]:  # row-split over "model"
+            new = fed3r.Fed3RStats(hints.model_block(new.A, 0), hints.model_block(new.b, 0),
+                                   new.n)
+        return fed3r.merge(stats, new)
 
     return stats_step

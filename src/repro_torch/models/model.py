@@ -41,7 +41,10 @@ whole (gathered over the vocab, or all-reduced over d_model), the hidden
 states and features are the same on every model rank, and each cache
 leaf is the rank's block of it as ``sharding.specs.cache_specs`` gives it
 (the kv heads, the ring's slots, the SSM's heads and conv channels, the
-RG-LRU's width).
+RG-LRU's width).  Under FSDP (``use_mesh(mesh, fsdp=True)``; the dense
+and MoE families) the parameters are the rank's blocks of the FSDP layout
+(``shard_params(..., fsdp=True)``) and each block, and the final norm,
+gathers its FSDP leaves over the data axes where it is used.
 """
 from __future__ import annotations
 
@@ -64,6 +67,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     unembed_apply,
 )
+from repro_torch.sharding.shard import gather_fsdp
 from repro_torch.tree import tree_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -209,7 +213,7 @@ def forward(
             cfg, kind, params["layers"], x, angles=angles, window=window, mode=mode,
             cache=cache, decode_pos=decode_pos, cache_capacity=capacity, drops=drops,
         )
-    h = norm_apply(cfg, params["final_norm"], h)
+    h = norm_apply(cfg, gather_fsdp(cfg, params["final_norm"], ("final_norm",)), h)
     logits = unembed_apply(cfg, params, h) if return_logits else None
     return ForwardOut(h, logits, new_cache, aux)
 

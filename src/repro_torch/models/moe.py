@@ -41,7 +41,10 @@ groups, G the ambient mesh's ``"data"`` axis size (1 without a mesh),
 halved while it does not divide the global token count; each group holds
 Cg = max(8, ⌈C/G⌉) slots an expert, C taken from the global token count.
 The groups are token-major, and a data rank's batch rows are its group, so
-a rank counts positions over its own tokens only.  Under a ``"model"``
+a rank counts positions over its own tokens only; where a group spans r
+data ranks (the multi-pod mesh: G = 16 over 32 ranks), a rank's positions
+start after the group's earlier ranks' counts, which it gathers (an (r·…,
+E) count table over the data axes).  Under a ``"model"``
 axis the experts are expert-parallel on the E axis (a rank dispatches to
 and runs only its block of experts; where E does not divide, every rank
 runs every expert on its slice of the hidden axis), the shared expert is
@@ -120,16 +123,29 @@ class DropTally:
 def moe_groups(n_tokens: int) -> Tuple[int, int]:
     """(G, the global token count) for a rank's ``n_tokens``: G the ambient
     "data" axis size, halved while it does not divide the global count; the
-    global count is ``n_tokens`` times the data shards."""
+    global count is ``n_tokens`` times the data shards.  A group holds the
+    tokens of one or more whole data ranks."""
     dp = hints.data_shards()
     G = max(hints.mesh_axis_size("data"), 1)
     total = n_tokens * dp
     while total % G:
         G //= 2
     G = max(G, 1)
-    if G != dp:  # a group spans several data ranks' tokens (or a "pod" axis)
+    if dp % G:  # a rank's tokens would fall in several groups
         hints.refuse(f"MoE capacity groups of {G} over {dp} data shards")
     return G, total
+
+
+def _group_offset(counts: torch.Tensor, G: int) -> Optional[torch.Tensor]:
+    """(E,) the entries routed to each expert by the earlier data ranks of
+    this rank's capacity group (None where a group is one rank): the ranks'
+    ``counts`` gathered over the data axes, row-major."""
+    dp = hints.data_shards()
+    if G == dp:
+        return None
+    table = hints.gather_counts(counts)  # (dp, E)
+    _, i = hints.data_block()
+    return table[i - i % (dp // G):i].sum(dim=0)
 
 
 def _expert_layout(cfg: ModelConfig) -> Tuple[str, int]:
@@ -172,14 +188,18 @@ def moe_apply(
     onehot = torch.zeros((E, T * k), dtype=torch.int32, device=x.device)
     onehot.scatter_(0, idx[None, :], 1)
     pos = onehot.cumsum(1).gather(0, idx[None, :])[0] - 1  # (T·k,)
+    offset = _group_offset(onehot.sum(dim=1), G)
+    if offset is not None:  # after the group's earlier ranks' entries
+        pos = pos + offset[idx]
     C = max(8, -(-_capacity(cfg, T_all) // G))  # a group's slots an expert
     kept = pos < C
 
     # load-balance loss (Switch/Gshard form), over every data rank's tokens
     me = probs.mean(dim=0)
     dispatch_frac = onehot.reshape(E, T, k).sum(dim=2).to(torch.float32).mean(dim=1) / k
-    if G > 1:  # equal token counts a rank: the global means are the ranks' mean
-        stats = hints.reduce_data(torch.stack([me, dispatch_frac])) / G
+    dp = hints.data_shards()
+    if dp > 1:  # equal token counts a rank: the global means are the ranks' mean
+        stats = hints.reduce_data(torch.stack([me, dispatch_frac])) / dp
         me, dispatch_frac = stats[0], stats[1]
     aux = E * torch.sum(me * dispatch_frac)
     if drops is not None:

@@ -29,6 +29,11 @@ again, collectives included, then their backward (the all-reduces of
 recomputes the same blocks in the same order, so the collectives line up,
 and an MoE block routes on the all-reduced x, the same bits on every model
 rank, in the forward and in its recompute.
+
+Under FSDP (``hints.use_mesh(mesh, fsdp=True)``) a dense or MoE block
+gathers its FSDP leaves over the data axes when it starts and drops them
+when it ends; a recomputed block gathers them again in its backward, whose
+gradient reduce-scatters them (ZeRO-3).  The other stacks refuse FSDP.
 """
 from __future__ import annotations
 
@@ -44,7 +49,11 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attn_apply, attn_init, cross_attn_apply
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.sharding import hints
+from repro_torch.sharding.shard import gather_fsdp
 from repro_torch.tree import tree_leaves, tree_map
+
+FSDP_FAMILIES = ("dense", "moe")  # the stacks whose blocks gather FSDP leaves
+_BLOCK = ("layers", "0")  # every block of the stack has the first one's layout
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str = "attn") -> dict:
@@ -268,6 +277,8 @@ def apply_stack(
     recompute = mode == "train" and torch.is_grad_enabled()
     if recompute and drops is not None:
         raise ValueError("drops are counted outside a gradient (torch.no_grad)")
+    if hints.fsdp_axes() and cfg.arch_type not in FSDP_FAMILIES:
+        hints.refuse_fsdp(f"a {cfg.arch_type!r} model's layers")
     kinds = [kind] * len(layers) if isinstance(kind, str) else kind
     aux, caches = None, []
     for i, p in enumerate(layers):
@@ -275,7 +286,8 @@ def apply_stack(
             x, a = _recomputed_block(cfg, kinds[i], p, x, angles, window, enc_states)
         else:
             x, c, a = block_apply(
-                cfg, kinds[i], p, x, angles=angles, window=window, mode=mode,
+                cfg, kinds[i], gather_fsdp(cfg, p, _BLOCK), x, angles=angles, window=window,
+                mode=mode,
                 cache=cache[i] if mode == "decode" else None, decode_pos=decode_pos,
                 cache_capacity=cache_capacity, drops=drops, enc_states=enc_states,
             )
@@ -339,8 +351,8 @@ def _recomputed_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, ang
     def fn(h, angles_, *leaves):
         it = iter(leaves)
         params = tree_map(lambda _: next(it), p)  # p's structure, fn's leaves
-        y, _, aux = block_apply(cfg, kind, params, h, angles=angles_, window=window,
-                                enc_states=next(it, None))
+        y, _, aux = block_apply(cfg, kind, gather_fsdp(cfg, params, _BLOCK), h,
+                                angles=angles_, window=window, enc_states=next(it, None))
         return (y, aux) if moe else y
 
     out = _Recompute.apply(fn, x, angles, *tree_leaves(p), *extra)

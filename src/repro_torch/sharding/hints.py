@@ -75,24 +75,42 @@ runs the same graph, so the collectives of a backward line up.
 :func:`max_model` (decode's context-parallel combine) has no backward.
 What these layers do not implement raises ``NotImplementedError``
 (:func:`refuse`): any layout the rules pick that a layer lacks.
+
+FSDP (``use_mesh(mesh, fsdp=True)``; fully sharded data parallelism: the
+parameters split over the data axes too, as ``param_specs(..., fsdp=True)``
+lays them out) runs in the dense and MoE stacks: a block gathers its FSDP
+leaves over the data axes when it starts (:func:`gather_data`) and drops
+them when it ends, and under a gradient its recompute gathers them again
+(ZeRO-3).  The gather's backward is a reduce-scatter: the data ranks'
+cotangents summed, the rank's block kept, so an FSDP leaf's gradient is
+already the sum over the data ranks, which :func:`mean_data` only divides.
+
+Every collective the port issues goes through :func:`collective`, which
+records it in each active :func:`census` as the logical collective:
+(kind, buffer bytes, group size, whether the group spans nodes).  An
+all-gather or reduce-scatter that gloo has to emulate by a zero-filled
+all-reduce (gloo gathers no CUDA tensor) is recorded as what it stands
+for; launch/hlo_analysis.py prices the records.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 13b(ii)"
+FSDP_ROADMAP_ITEM = "ROADMAP Queue 1 item 13d"
 
-# the ambient mesh with its axis sizes and this rank's coordinates, read
-# once (a DeviceMesh recomputes its layout on every read of .mesh)
-_AMBIENT: List[Tuple[Any, Dict[str, int], Dict[str, int]]] = []
+# the ambient mesh with its axis sizes, this rank's coordinates (read once:
+# a DeviceMesh recomputes its layout on every read of .mesh) and the data
+# axes its parameters are FSDP-split over (() without FSDP)
+_AMBIENT: List[Tuple[Any, Dict[str, int], Dict[str, int], Tuple[str, ...]]] = []
 
 
 def _read(mesh: Any) -> Tuple[Dict[str, int], Dict[str, int]]:
@@ -101,9 +119,21 @@ def _read(mesh: Any) -> Tuple[Dict[str, int], Dict[str, int]]:
     return sizes, {a: int(mesh.get_local_rank(a)) for a in names}
 
 
-def set_mesh(mesh: Any) -> None:
-    """Make ``mesh`` (a ``DeviceMesh``, or None to clear) the ambient mesh."""
-    _AMBIENT[:] = [] if mesh is None else [(mesh, *_read(mesh))]
+def fsdp_axis_of(sizes: Dict[str, int]) -> Tuple[str, ...]:
+    """The axes FSDP splits parameters over on a mesh of axis ``sizes``:
+    ``("pod", "data")`` on the multi-pod layout, else ``("data",)`` (the
+    reference's ``fsdp_axis``)."""
+    return tuple(a for a in ("pod", "data") if a in sizes)
+
+
+def set_mesh(mesh: Any, fsdp: bool = False) -> None:
+    """Make ``mesh`` (a ``DeviceMesh``, or None to clear) the ambient mesh;
+    with ``fsdp`` its parameters are FSDP-split over its data axes."""
+    if mesh is None:
+        _AMBIENT[:] = []
+        return
+    sizes, where = _read(mesh)
+    _AMBIENT[:] = [(mesh, sizes, where, fsdp_axis_of(sizes) if fsdp else ())]
 
 
 def get_mesh() -> Optional[Any]:
@@ -112,14 +142,26 @@ def get_mesh() -> Optional[Any]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Any) -> Iterator[Any]:
-    """``mesh`` as the ambient mesh inside the block, the previous one after."""
+def use_mesh(mesh: Any, fsdp: bool = False) -> Iterator[Any]:
+    """``mesh`` as the ambient mesh inside the block (its parameters
+    FSDP-split with ``fsdp``), the previous one after."""
     prev = list(_AMBIENT)
-    set_mesh(mesh)
+    set_mesh(mesh, fsdp)
     try:
         yield mesh
     finally:
         _AMBIENT[:] = prev
+
+
+def fsdp_axes() -> Tuple[str, ...]:
+    """The data axes the ambient mesh FSDP-splits parameters over; () where
+    it does not (or without a mesh)."""
+    return _AMBIENT[-1][3] if _AMBIENT else ()
+
+
+def refuse_fsdp(what: str) -> None:
+    """Raise for a model that has no FSDP layers."""
+    raise NotImplementedError(f"{what} under FSDP: not implemented, {FSDP_ROADMAP_ITEM}")
 
 
 def axis_sizes(mesh: Any = None) -> Dict[str, int]:
@@ -181,6 +223,76 @@ def _group(axis: str):
     return get_mesh().get_group(axis)
 
 
+# ---------------------------------------------------------------------------
+# the census: every collective the port issues, recorded as what it stands for
+# ---------------------------------------------------------------------------
+
+RANKS_PER_NODE = 8  # cards a node: a group within one node rides NVLink
+
+
+class Collective(NamedTuple):
+    """One collective as a rank issued it: ``kind`` (``"all-reduce"``,
+    ``"all-gather"``, ``"reduce-scatter"``, ``"all-to-all"`` or
+    ``"collective-permute"``), the bytes of its buffer (an all-reduce's
+    operand, an all-gather's gathered result, a reduce-scatter's result
+    block), the ranks of its group and whether the group spans nodes."""
+
+    kind: str
+    nbytes: int
+    group: int
+    cross_node: bool
+
+
+_CENSUSES: List[List[Collective]] = []
+
+
+@contextlib.contextmanager
+def census() -> Iterator[List[Collective]]:
+    """The collectives issued inside the block, in order (a list filled as
+    they are issued; censuses nest)."""
+    recs: List[Collective] = []
+    _CENSUSES.append(recs)
+    try:
+        yield recs
+    finally:  # by identity: two censuses may hold equal records
+        _CENSUSES[:] = [r for r in _CENSUSES if r is not recs]
+
+
+def _span(group: Any) -> Tuple[int, bool]:
+    """(ranks, whether they span nodes) of a process group (None: the world)."""
+    ranks = (range(dist.get_world_size()) if group is None
+             else dist.get_process_group_ranks(group))
+    return len(ranks), len({r // RANKS_PER_NODE for r in ranks}) > 1
+
+
+def collective(kind: str, nbytes: int, groups: Sequence[Any], issue: Callable[[], Any]) -> Any:
+    """Run ``issue()`` (the c10d calls) and record it in every active census
+    as one ``kind`` collective of ``nbytes`` over the product of ``groups``
+    (several groups: the axes of one logical group, e.g. ("pod", "data"))."""
+    if _CENSUSES:
+        n, cross = 1, False
+        for g in groups:
+            size, spans = _span(g)
+            n, cross = n * size, cross or spans
+        rec = Collective(kind, int(nbytes), n, cross)
+        for recs in _CENSUSES:
+            recs.append(rec)
+    return issue()
+
+
+def all_reduce(t: torch.Tensor, groups: Sequence[Any], op: Any = None) -> None:
+    """``t`` all-reduced in place over each of ``groups`` in turn (the sum
+    unless ``op``), recorded as one all-reduce over their product."""
+    def issue():
+        for g in groups:
+            dist.all_reduce(t, group=g) if op is None else dist.all_reduce(t, op=op, group=g)
+    collective("all-reduce", t.numel() * t.element_size(), groups, issue)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class _Sum(torch.autograd.Function):
     """The sum of ``x`` over ``groups`` (all-reduced one group after the
     other), in fp32 where ``fp32`` else in x's dtype, returned in x's dtype;
@@ -191,8 +303,7 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(x, groups, fp32):
         t = x.to(torch.float32 if fp32 else x.dtype, copy=True).contiguous()
-        for g in groups:
-            dist.all_reduce(t, group=g)
+        all_reduce(t, groups)
         return t.to(x.dtype)
 
     @staticmethod
@@ -264,7 +375,7 @@ def max_model(x: torch.Tensor) -> torch.Tensor:
                                   "torch.no_grad")
     t = x.to(torch.float32, copy=True).contiguous()
     if model_size() > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_group("model"))
+        all_reduce(t, (_group("model"),), op=dist.ReduceOp.MAX)
     return t
 
 
@@ -290,10 +401,145 @@ def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, model_rank() * n, n)
 
 
+def _axes_block(axes: Sequence[str]) -> Tuple[int, int]:
+    """(ranks, this rank's block index) of the ambient mesh's ``axes``,
+    row-major over them (the first axis outermost)."""
+    sizes, where = _AMBIENT[-1][1], _AMBIENT[-1][2]
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * sizes[a], i * sizes[a] + where[a]
+    return n, i
+
+
+def gather_block(block: torch.Tensor, index: Tuple[slice, ...], shape: Sequence[int],
+                 groups: Sequence[Any]) -> torch.Tensor:
+    """The whole tensor of ``shape`` of which every rank of ``groups`` holds
+    the block at ``index`` (a tuple of slices): the rank's ``block`` placed
+    in zeros, all-reduced over each group in its dtype (exact: every entry
+    is one rank's, the others add zeros; gloo gathers no CUDA tensor),
+    recorded as one all-gather of the whole."""
+    whole = block.new_zeros(tuple(shape))
+    whole[index] = block
+
+    def issue():
+        for g in groups:
+            dist.all_reduce(whole, group=g)
+    collective("all-gather", _nbytes(whole), groups, issue)
+    return whole
+
+
+def gather_rows(rows: torch.Tensor, group: Any) -> torch.Tensor:
+    """The group's ranks' ``rows`` concatenated along dim 0, in group-rank
+    order: one broadcast from each rank, recorded as one all-gather (gloo
+    moves CUDA tensors by ``all_reduce`` and ``broadcast`` only; unlike
+    :func:`gather_block`'s sum, this keeps a -0.0 bit for bit)."""
+    size, me = dist.get_world_size(group), dist.get_rank(group)
+    span = rows.shape[0]
+    out = rows.new_empty((size * span,) + tuple(rows.shape[1:]))
+
+    def issue():
+        for j in range(size):
+            buf = out[j * span:(j + 1) * span]
+            if j == me:
+                buf.copy_(rows)
+            dist.broadcast(buf, src=dist.get_global_rank(group, j), group=group)
+    collective("all-gather", _nbytes(out), (group,), issue)
+    return out
+
+
+def _gather(x: torch.Tensor, dim: int, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The ranks' blocks ``x`` of ``axes`` concatenated along ``dim``
+    (:func:`gather_block` over each axis's group)."""
+    n, i = _axes_block(axes)
+    k = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * k
+    index = (slice(None),) * dim + (slice(i * k, (i + 1) * k),)
+    return gather_block(x, index, shape, tuple(_group(a) for a in reversed(axes)))
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The sum of ``g`` over the ranks of ``axes``, in fp32, cut to the
+    rank's block of ``dim`` and cast back: an all-reduce then a narrow,
+    recorded as one reduce-scatter of the block."""
+    n, i = _axes_block(axes)
+    t = g.to(torch.float32, copy=True).contiguous()
+    groups = tuple(_group(a) for a in reversed(axes))
+    k = t.shape[dim] // n
+
+    def issue():
+        for grp in groups:
+            dist.all_reduce(t, group=grp)
+    collective("reduce-scatter", _nbytes(t) // n, groups, issue)
+    return t.narrow(dim, i * k, k).to(g.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    """The all-gather of ``x``'s blocks over ``axes`` along ``dim`` (a
+    non-negative dim of x); its backward the reduce-scatter of the
+    cotangent (:class:`_ReduceScatter`).  Under ``vmap`` the physical
+    batched tensor is gathered along the shifted dim."""
+
+    @staticmethod
+    def forward(x, dim, axes):
+        return _gather(x, dim, axes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.axes = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatter.apply(g, ctx.dim, ctx.axes), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, axes):
+        if in_dims[0] is None:
+            return _gather(x, dim, axes), None
+        return _gather(x.movedim(in_dims[0], 0), dim + 1, axes), 0
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The reduce-scatter of ``g`` over ``axes`` along ``dim``; its backward
+    the all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(g, dim, axes):
+        return _reduce_scatter(g, dim, axes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.axes = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Gather.apply(g, ctx.dim, ctx.axes), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, g, dim, axes):
+        if in_dims[0] is None:
+            return _reduce_scatter(g, dim, axes), None
+        return _reduce_scatter(g.movedim(in_dims[0], 0), dim + 1, axes), 0
+
+
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The model ranks' blocks ``x`` concatenated along ``dim`` (exact: each
-    entry is one rank's, the others add zeros)."""
-    return reduce_model(pad_block(x, dim))
+    """The model ranks' blocks ``x`` concatenated along ``dim`` (exact);
+    its backward the reduce-scatter of the cotangent over "model" (x itself
+    without a model axis)."""
+    if model_size() == 1:
+        return x
+    return _Gather.apply(x, dim % x.dim(), ("model",))
+
+
+def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """An FSDP leaf's data-axis blocks ``x`` concatenated along ``dim`` over
+    the ambient FSDP axes (exact): the leaf as the rank holds it without
+    FSDP.  Its backward reduce-scatters the cotangent: the data ranks'
+    summed, in fp32, the rank's block kept."""
+    axes = fsdp_axes()
+    if not axes or _axes_block(axes)[0] == 1:
+        return x
+    return _Gather.apply(x, dim % x.dim(), axes)
 
 
 def as_partial(y: torch.Tensor) -> torch.Tensor:
@@ -322,6 +568,19 @@ def _data_groups(mesh: Any) -> Tuple[tuple, int]:
     mesh = get_mesh() if mesh is None else mesh
     axes = [a for a, n in sizes.items() if a != "model" and n > 1]
     return tuple(mesh.get_group(a) for a in reversed(axes)), math.prod(sizes[a] for a in axes)
+
+
+def data_block() -> Tuple[int, int]:
+    """(the data ranks of the ambient mesh, this rank's index among them,
+    row-major over the data axes)."""
+    return _axes_block(data_axes()) if _AMBIENT else (1, 0)
+
+
+def gather_counts(x: torch.Tensor) -> torch.Tensor:
+    """The data ranks' ``x`` stacked on a new leading dim, row-major over
+    the data axes (a (1, …) tensor without one); no backward."""
+    axes = tuple(a for a in data_axes() if mesh_axis_size(a) > 1)
+    return _gather(x[None], 0, axes) if axes else x[None]
 
 
 def reduce_data(x: torch.Tensor, mesh: Any = None) -> torch.Tensor:
@@ -371,12 +630,19 @@ def sum_replicated(grads: Any, replicated: Any) -> Any:
     return tree_map(lambda g, r: next(summed) if r else g, grads, replicated)
 
 
-def mean_data(tree: Any) -> Any:
+def mean_data(tree: Any, summed: Any = None) -> Any:
     """The mean of every leaf of ``tree`` over the ambient mesh's data
     ranks: one fp32 all-reduce, each leaf cast back once (``tree`` itself
-    without a data axis)."""
+    without a data axis).  ``summed`` (a tree of bools of ``tree``'s
+    structure) flags the leaves that are already sums over the data ranks
+    (an FSDP leaf's gradient, reduce-scattered by :func:`gather_data`'s
+    backward): those are only divided."""
     groups, n = _data_groups(None)
     if not groups:
         return tree
-    summed = iter(_flat_sum(list(tree_leaves(tree)), groups, 1.0 / n))
-    return tree_map(lambda _: next(summed), tree)
+    flags = tree_map(lambda _: False, tree) if summed is None else summed
+    picked: List[torch.Tensor] = []
+    tree_map(lambda x, s: None if s else picked.append(x), tree, flags)
+    out = iter(_flat_sum(picked, groups, 1.0 / n) if picked else ())
+    return tree_map(lambda x, s: (x.to(torch.float32) * (1.0 / n)).to(x.dtype) if s else next(out),
+                    tree, flags)

@@ -2,8 +2,10 @@
 
 A rank of a mesh with a ``"model"`` axis holds only its block of every
 parameter, the block :func:`repro_torch.sharding.specs.param_specs` gives
-it (tensor and expert parallelism; no FSDP: the layers never gather a
-parameter):
+it: tensor and expert parallelism, and with ``fsdp=True`` the FSDP layout
+too (big dims split over the data axes as well, which the dense and MoE
+blocks gather where they start, :func:`repro_torch.sharding.hints.gather_data`;
+:func:`fsdp_dims` says which dim of each leaf):
 
 * :func:`shard_params` cuts a whole tree, e.g. the reference's weights
   carried over by :func:`repro_torch.models.convert.params_from_jax`;
@@ -26,12 +28,12 @@ sharded layers do not implement raises where a layer meets it
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
-from typing import Any, Callable, Sequence, Tuple, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.sharding import hints
 from repro_torch.sharding.specs import PartitionSpec, map_with_path, param_specs
@@ -39,11 +41,12 @@ from repro_torch.sharding.specs import PartitionSpec, map_with_path, param_specs
 Factory = Callable[[str, Tuple[int, ...], Tuple[slice, ...], torch.device], torch.Tensor]
 
 
-def shard_params(cfg: Any, params: Any, mesh: Any) -> Any:
+def shard_params(cfg: Any, params: Any, mesh: Any, fsdp: bool = False) -> Any:
     """The rank's block of every leaf of ``params`` (a copy for a split
-    leaf, the leaf itself for a replicated one)."""
+    leaf, the leaf itself for a replicated one); with ``fsdp`` in the FSDP
+    layout over the mesh's data axes."""
     sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
-    specs = param_specs(cfg, params, sizes)
+    specs = _specs(cfg, params, sizes, fsdp)
     flat = {}
     map_with_path(specs, lambda path, spec: flat.__setitem__(path, spec))
 
@@ -54,16 +57,67 @@ def shard_params(cfg: Any, params: Any, mesh: Any) -> Any:
     return map_with_path(params, cut)
 
 
-def leaf_specs(cfg: Any, sizes: dict) -> Tuple[Any, dict]:
+def _specs(cfg: Any, params: Any, sizes: dict, fsdp: bool) -> Any:
+    """``param_specs`` of ``params`` under the mesh axis ``sizes``, in the
+    FSDP layout over the reference's FSDP axes where ``fsdp``."""
+    if not fsdp:
+        return param_specs(cfg, params, sizes or {"model": 1})
+    return param_specs(cfg, params, sizes, fsdp=True, fsdp_axis=hints.fsdp_axis_of(sizes))
+
+
+def leaf_specs(cfg: Any, sizes: dict, fsdp: bool = False) -> Tuple[Any, dict]:
     """(``cfg``'s whole parameters on the meta device, {key path (a tuple):
-    the leaf's spec under the mesh axis ``sizes``})."""
+    the leaf's spec under the mesh axis ``sizes``, FSDP-split with
+    ``fsdp``})."""
     from repro_torch.launch.shapes import abstract_params  # shapes imports the models
 
     meta = abstract_params(cfg)
     flat = {}
-    map_with_path(param_specs(cfg, meta, sizes or {"model": 1}),
-                  lambda path, spec: flat.__setitem__(path, spec))
+    map_with_path(_specs(cfg, meta, sizes, fsdp), lambda path, spec: flat.__setitem__(path, spec))
     return meta, flat
+
+
+def _data_dim(spec: PartitionSpec) -> Optional[int]:
+    """The dim an FSDP spec splits over the data axes, or None."""
+    for i, e in enumerate(spec):
+        if e is not None and "data" in (e if isinstance(e, tuple) else (e,)):
+            return i
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def _fsdp_dims(cfg: Any, sizes: Tuple[Tuple[str, int], ...]) -> dict:
+    _, flat = leaf_specs(cfg, dict(sizes), fsdp=True)
+    return {path: d for path, spec in flat.items() if (d := _data_dim(spec)) is not None}
+
+
+def fsdp_dims(cfg: Any, prefix: Tuple[str, ...]) -> dict:
+    """{key path under ``prefix``: the dim FSDP splits over the data axes}
+    of the leaves of ``cfg``'s parameters at ``prefix`` (e.g. ``("layers",
+    "0")``, a block; ``("final_norm",)``) under the ambient mesh; the other
+    leaves are whole over the data axes."""
+    dims = _fsdp_dims(cfg, tuple(sorted(hints.axis_sizes().items())))
+    n = len(prefix)
+    return {path[n:]: d for path, d in dims.items() if path[:n] == prefix}
+
+
+def gather_fsdp(cfg: Any, tree: Any, prefix: Tuple[str, ...]) -> Any:
+    """``tree`` (the rank's blocks of the leaves at ``prefix``) with each
+    FSDP leaf gathered over the ambient FSDP axes (:func:`hints.gather_data`):
+    the blocks as the rank holds them without FSDP (``tree`` itself without
+    FSDP).  Every block of a stack has the same layout: pass its first."""
+    if not hints.fsdp_axes():
+        return tree
+    dims = fsdp_dims(cfg, prefix)
+    return map_with_path(tree, lambda path, leaf: hints.gather_data(leaf, dims[path])
+                         if path in dims else leaf)
+
+
+def fsdp_leaves(cfg: Any, sizes: dict) -> Any:
+    """A tree of bools of ``cfg``'s parameters: True where FSDP splits a
+    leaf over the data axes of a mesh of axis ``sizes``."""
+    meta, flat = leaf_specs(cfg, sizes, fsdp=True)
+    return map_with_path(meta, lambda path, _: _data_dim(flat[path]) is not None)
 
 
 def replicated_leaves(cfg: Any, model: int) -> Any:
@@ -73,43 +127,42 @@ def replicated_leaves(cfg: Any, model: int) -> Any:
     return map_with_path(meta, lambda path, _: flat[path].is_replicated())
 
 
-def gather_params(cfg: Any, blocks: Any, mesh: Any) -> Any:
-    """Every leaf whole from the model ranks' ``blocks`` (one tree of
-    ``cfg``'s parameter structure a rank, as :func:`shard_params` cut it):
-    a collective over ``mesh``'s "model" group that every model rank joins,
-    and every one gets the whole tree.  Exact: each rank places its block
-    in zeros and the ranks' copies are summed (gloo all-reduces CUDA
-    tensors, but gathers none)."""
+def gather_params(cfg: Any, blocks: Any, mesh: Any, fsdp: bool = False) -> Any:
+    """Every leaf whole from the ranks' ``blocks`` (one tree of ``cfg``'s
+    parameter structure a rank, as :func:`shard_params` cut it, with
+    ``fsdp`` in the FSDP layout): a collective over the groups of the axes
+    each leaf is split over, which every rank joins, and every one gets the
+    whole tree (:func:`repro_torch.sharding.hints.gather_block`: exact,
+    recorded as one all-gather a leaf)."""
     sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
-    if sizes.get("model", 1) == 1:
+    if sizes.get("model", 1) == 1 and not fsdp:
         return blocks
-    meta, flat = leaf_specs(cfg, sizes)
+    meta, flat = leaf_specs(cfg, sizes, fsdp)
     shapes = {}
     map_with_path(meta, lambda path, leaf: shapes.__setitem__(path, tuple(leaf.shape)))
-    group = mesh.get_group("model")
 
     def gather(path, block):
         spec = flat[path]
-        if spec.is_replicated():
+        axes = [a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))
+                if sizes[a] > 1]
+        if not axes:
             return block
-        whole = torch.zeros(shapes[path], dtype=block.dtype, device=block.device)
-        whole[spec.index(shapes[path], where, sizes)] = block
-        dist.all_reduce(whole, group=group)
-        return whole
+        return hints.gather_block(block, spec.index(shapes[path], where, sizes), shapes[path],
+                                  [mesh.get_group(a) for a in axes])
 
     return map_with_path(blocks, gather)
 
 
 def shard_params_from(cfg: Any, factory: Factory, mesh: Any,
-                      device: Union[str, torch.device]) -> Any:
+                      device: Union[str, torch.device], fsdp: bool = False) -> Any:
     """The rank's blocks of ``cfg``'s parameters, made one block at a time
     by ``factory(path, shape, index, device)``: the leaf at key path
     ``path`` ("/"-joined) has global ``shape`` and the rank's block is
-    ``index`` (a tuple of slices).  With ``mesh=None`` every block is the
-    whole leaf."""
+    ``index`` (a tuple of slices), in the FSDP layout with ``fsdp``.  With
+    ``mesh=None`` every block is the whole leaf."""
     dev = torch.device(device)
     sizes, where = hints.axis_sizes(mesh), hints.coords(mesh)
-    meta, flat = leaf_specs(cfg, sizes)
+    meta, flat = leaf_specs(cfg, sizes, fsdp and mesh is not None)
 
     def make(path, leaf):
         spec: PartitionSpec = flat[path]
