@@ -162,7 +162,17 @@ counts just after.
                 sharing the card running the same rank program: the census
                 of collectives equal, the peak within DRYRUN_PEAK_TOL; then
                 deepseek-coder-33b's FSDP gradient within TP_GRAD_REL of the
-                unsharded one, two planted FSDP faults above it; (b) after
+                unsharded one, two planted FSDP faults above it; in the same
+                world FSDP outside the dense and MoE stacks
+                (DRYRUN_HYBRID, DRYRUN_DATA4): recurrentgemma-9b at full width cut to 3
+                layers (rec, rec, attn) with FSDP at (2, 2), its prefill of
+                2 x 4096 tokens past the 2048 window (flash launched) and 16
+                teacher-forced decode steps bitwise the TP-only layout's,
+                its FSDP gradient within TP_GRAD_REL, the FSDP faults above
+                it, its statistics step (fed3r_stats once a rank, census
+                equal to the fake rank's); whisper-large-v3 (1 + 1 layers)
+                and qwen2-vl-2b (1 layer) FSDP gradients at (data 4,
+                model 1) within TP_GRAD_REL; (b) after
                 (a)'s real ranks have ended, rank 0 of the 16 x 16
                 production mesh at full width and depth (DRYRUN_PROD:
                 llama4-scout's prefill_32k (FSDP), mamba2-1.3b's
@@ -254,7 +264,10 @@ counts just after.
                 (a CUDA graph of the calls replayed) beside the call time
                 (flash attention at the serve, long, hd-256, serve-moe,
                 serve-hybrid (window 2048), serve-vlm and serve-audio
-                encoder (causal off) and decoder shapes;
+                encoder (causal off) and decoder shapes, [tp]'s rank-local
+                heads and [dryrun]'s recurrentgemma-9b rank at (2, 2);
+                fed3r_stats at the slice's, simulator's, rf's and that
+                rank's statistics step's shapes;
                 quantize_tiles and dequant_acc also at 5000 x 5000, where
                 no one PyTorch call computes them).
 
@@ -268,6 +281,7 @@ result where torch sees no CUDA card or the port's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -275,6 +289,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -387,8 +402,10 @@ DIST_INT8_REL = 1e-2
 #   + the shared one, vocab 202,048), 2 of 48 layers (6.47 B parameters,
 #   25.9 GB fp32; the 48 are ~103 B and fit no card), 4 x 256 + 8;
 # * recurrentgemma-9b (d_model 4096, RG-LRU width 4096 = 1024 a rank, MQA
-#   16/1 x 256 in a 2048 window, vocab 256,000), 6 of 38 layers (two (rec,
-#   rec, attn) superblocks), 2 x 2556 + 8: the prompt passes the window, and
+#   16/1 x 256 in a 2048 window, vocab 256,000), 3 of 38 layers (one (rec,
+#   rec, attn) superblock; 6 until [dryrun] took on FSDP for this model,
+#   cut for time: its serves took about 50 s of the phase's 182 s on an
+#   H100, NVIDIA H100 80GB HBM3, 700 W), 2 x 2556 + 8: the prompt passes the window, and
 #   the ring's 2048 slots are 512 a rank (its one kv head does not divide
 #   4), so the decode slots 508-514 cross from rank 0's block into rank 1's;
 # * qwen2-vl-2b (d_model 1536, GQA 12/2 x 128: 3 q heads a rank, k and v
@@ -409,7 +426,7 @@ DIST_INT8_REL = 1e-2
 TP_RUNS = {
     "moe": ("llama4-scout-17b-a16e", {"n_layers": 2}, dict(batch=4, prompt_len=256, gen=8),
             "experts offset", ("float32", "bfloat16")),
-    "hybrid": ("recurrentgemma-9b", {"n_layers": 6}, dict(batch=2, prompt_len=2556, gen=8),
+    "hybrid": ("recurrentgemma-9b", {"n_layers": 3}, dict(batch=2, prompt_len=2556, gen=8),
                "rglru width blocks swapped", ("float32",)),
     "vlm": ("qwen2-vl-2b", {"n_layers": 2}, dict(batch=4, prompt_len=248, gen=8),
             "combine unscaled", ("float32",)),
@@ -435,7 +452,8 @@ TP_TIMEOUT_S = 900
 # above both limits in both metrics): it read fp32 7.4220e-2 / 2.6580e-2
 # and bf16 7.1356e-2 / 2.7076e-2 (max / mean).
 # The other families read once on an H100 (PERF.md §6; NVIDIA H100
-# 80GB HBM3, 700 W): fp32 max 6.0222e-7 (hybrid), 1.0363e-6 (vlm),
+# 80GB HBM3, 700 W; the hybrid at its former 6 layers, at 3 fp32 max
+# 3.0149e-7 and bf16 mean 8.4677e-3): fp32 max 6.0222e-7 (hybrid), 1.0363e-6 (vlm),
 # 5.4919e-7 (audio), 1.3941e-6 (ssm); bf16 mean 1.0244e-2, 6.5621e-3,
 # 4.9711e-3, 5.1345e-3, each limit twice its family's; faults (fp32, max /
 # mean) 4.7897e-2 / 2.1362e-1 (width blocks swapped), 2.1618e-1 /
@@ -449,7 +467,7 @@ TP_BF16_REL = {"moe": 1.25e-2, "hybrid": 2.05e-2, "vlm": 1.32e-2, "audio": 9.95e
 # quarter of the weights, the activations and casts of its heads, experts
 # and channels, beside the activations every rank holds whole), read in
 # the whole script on an H100 (NVIDIA H100 80GB HBM3, 700 W; fp32 /
-# bf16): moe 0.256 / 0.252, hybrid 0.294 / 0.256, vlm 0.312 / 0.279,
+# bf16): moe 0.256 / 0.252, hybrid 0.294 / 0.256 (0.308 / 0.257 at 3 layers), vlm 0.312 / 0.279,
 # audio 0.545 / 0.596 (the encoder's (4, 1500, 1280) states, its gathered
 # embedding and the all-reduces' fp32 copies are whole on every rank),
 # ssm 0.435 / 0.364 (the gathered in_proj and conv outputs); each limit
@@ -551,10 +569,45 @@ DRYRUN_REAL = (
     dict(name="deepseek-coder-33b train", arch="deepseek-coder-33b",
          overrides={"n_layers": 1}, fsdp=True,
          shape=dict(name="train_4k", seq_len=4096, global_batch=2, kind="train")),
+    dict(name="recurrentgemma-9b fed3r", arch="recurrentgemma-9b", overrides={"n_layers": 3},
+         fsdp=True, kind="fed3r",
+         shape=dict(name="prefill_32k", seq_len=4096, global_batch=2, kind="prefill")),
 )
 DRYRUN_GRAD = dict(arch="deepseek-coder-33b", overrides={"n_layers": 1, "dtype": "float32"},
                    B=4, S=256)
 DRYRUN_PEAK_TOL = 0.10
+# the allocator setting of (a)'s processes (PYTORCH_CUDA_ALLOC_CONF)
+DRYRUN_ALLOC = "expandable_segments:True"
+# GiB of the card each real rank of (a) may hold (fsdp_program's
+# card_share), 71 of 79.18 in all, the rest the script's (2.1 GiB) and the
+# processes' contexts: rank 0 makes the unsharded references (the hybrid's
+# peak 21.58 GiB), every rank runs the sharded jobs (peaks up to 10.33 GiB
+# allocated; uncapped, the hybrid gradient's caches reached 15.57 GiB a
+# rank and left 13.09 GiB of the card free).  Read on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W)
+DRYRUN_RANK_GIB = (26.0, 15.0, 15.0, 15.0)
+# FSDP outside the dense and MoE stacks, in (a)'s world.  The reference
+# picks FSDP for recurrentgemma-9b at (2, 2) for every shape (its 38
+# layers' bf16 parameters pass FSDP_INFERENCE_THRESHOLD over 2 model
+# ranks), and for whisper-large-v3's and qwen2-vl-2b's train_4k at (data
+# 4, model 1); full width, depth cut for time, FSDP forced on:
+# * recurrentgemma-9b 3 layers (one (rec, rec, attn) super-block), bf16:
+#   a prefill of 2 x 4096 tokens (one row a data rank), past the 2048
+#   window, through flash on each rank's 8 of 16 heads, then 16
+#   teacher-forced decode steps, in the TP-only and the FSDP layouts from
+#   the same seeded weights: logits bitwise equal (a gather is exact);
+# * its lm_loss gradient in fp32 on 2 x 256 tokens against the unsharded
+#   one (TP_GRAD_REL a leaf) and FSDP_FAULTS above it;
+# * its statistics step (--kind fed3r, 2 x 4096 tokens) in DRYRUN_REAL:
+#   one fed3r_stats launch a rank, the census equal to the fake rank's;
+# * one train_4k-style gradient, fp32, (B, S) below, for whisper-large-v3
+#   (1 + 1 layers, 1500 frames a row) and qwen2-vl-2b (1 layer, 256 stub
+#   patches before the text) at (4, 1), TP_GRAD_REL a leaf.
+DRYRUN_HYBRID = dict(arch="recurrentgemma-9b", overrides={"n_layers": 3})
+DRYRUN_HYBRID_SERVE = dict(B=2, S=4096, T=16)
+DRYRUN_HYBRID_GRAD = dict(B=2, S=256)
+DRYRUN_DATA4 = (("whisper-large-v3", {"n_layers": 1, "n_encoder_layers": 1}, 4, 64),
+                ("qwen2-vl-2b", {"n_layers": 1}, 4, 128))
 # [dryrun] (b): rank 0 of the 16 x 16 production mesh at full width and
 # depth: (arch, shape, step kind override), each a path through a kernel.
 # Cut for time (NVIDIA H100 80GB HBM3, 700 W): the train steps (qwen2-7b's
@@ -721,20 +774,23 @@ FAMILY_ORACLE = {"ssm": (512, 1e-4), "hybrid": (2048, 1e-4), "vlm": (512, 1e-4),
 # over 256 tokens, recurrentgemma-9b's 4/1 x 256 over 2556 in its 2048
 # window, qwen2-vl-2b's 3/1 x 128 (a rank's 3 q heads in a group of 6) over
 # 256 patches + 248, and whisper-large-v3's 5/5 x 64, the encoder's over
-# 1500 frames with causal off and the decoder's causal over 64; times
-# (bf16) at the shapes and windows FLASH_TIMED names
+# 1500 frames with causal off and the decoder's causal over 64, and
+# [dryrun] (a)'s recurrentgemma-9b prefill at (data 2, model 2): a rank's
+# row of 4096 tokens on its 8 of 16 heads in the 2048 window; times (bf16)
+# at the shapes and windows FLASH_TIMED names
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
                 (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64),
                 (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96), (8, 2048, 16, 16, 128),
                 (8, 2304, 12, 2, 128), (16, 1500, 20, 20, 64), (2, 1500, 20, 20, 64),
                 (16, 224, 20, 20, 64), (4, 256, 10, 2, 128), (2, 2556, 4, 1, 256),
-                (4, 504, 3, 1, 128), (4, 1500, 5, 5, 64), (4, 64, 5, 5, 64)]
+                (4, 504, 3, 1, 128), (4, 1500, 5, 5, 64), (4, 64, 5, 5, 64), (1, 4096, 8, 1, 256)]
 # the (causal, window) runs of a shape; else causal with no window and with 128
 FLASH_MODES = {(2, 4096, 16, 1, 256): ((True, None), (True, 2048), (True, 128)),
                (3, 77, 4, 1, 64): ((True, None), (True, 128), (False, None)),
                (16, 1500, 20, 20, 64): ((False, None),), (2, 1500, 20, 20, 64): ((False, None),),
-               (2, 2556, 4, 1, 256): ((True, 2048),), (4, 1500, 5, 5, 64): ((False, None),)}
+               (2, 2556, 4, 1, 256): ((True, 2048),), (4, 1500, 5, 5, 64): ((False, None),),
+               (1, 4096, 8, 1, 256): ((True, 2048),)}
 FLASH_TIMED = {((8, 2048, 28, 4, 128), None): "serve", ((1, 8192, 28, 4, 128), None): "long",
                ((2, 4096, 16, 1, 256), None): "hd-256",
                ((8, 2048, 16, 16, 128), None): "serve-moe",
@@ -745,7 +801,8 @@ FLASH_TIMED = {((8, 2048, 28, 4, 128), None): "serve", ((1, 8192, 28, 4, 128), N
                ((4, 256, 10, 2, 128), None): "tp",
                ((2, 2556, 4, 1, 256), 2048): "tp hybrid", ((4, 504, 3, 1, 128), None): "tp vlm",
                ((4, 1500, 5, 5, 64), None): "tp audio encoder",
-               ((4, 64, 5, 5, 64), None): "tp audio decoder"}
+               ((4, 64, 5, 5, 64), None): "tp audio decoder",
+               ((1, 4096, 8, 1, 256), 2048): "dryrun hybrid"}
 # the bf16 kernel's row log-sum-exp m + log l against an fp32 logsumexp of
 # the scaled, masked scores: max |difference| over the rows.  The sound
 # kernel read at most 1.907e-6 (measured on one H100: ex2.approx and the fp32
@@ -1222,12 +1279,27 @@ def timed(name, shape, kernel, plain, library, library_label, b) -> dict:
             "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
 
 
-def phase_kernel(torch, ops, ref, slice_shape, sim_shape, rf_shape) -> dict:
-    """fed3r_stats against its plain version; times at the slice's shape."""
+def dryrun_stats_shape() -> tuple:
+    """(n, d, C) of the fed3r_stats launch in a rank of [dryrun] (a)'s
+    statistics step: the rank's rows of the batch, the model's pooled
+    d_model features, the dry run's classes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import FED3R_N_CLASSES
+
+    job = next(j for j in DRYRUN_REAL if j.get("kind") == "fed3r")
+    return (job["shape"]["global_batch"] // DRYRUN_MESH[0],
+            get_config(job["arch"]).d_model, FED3R_N_CLASSES)
+
+
+def phase_kernel(torch, ops, ref, slice_shape, sim_shape, rf_shape, dry_shape) -> dict:
+    """fed3r_stats against its plain version; times at the slice's shape,
+    and by name at the simulator's, the rf one's and [dryrun]'s."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results, abs_err = {}, 0.0
-    for i, (n, d, C) in enumerate([slice_shape, sim_shape, rf_shape] + KERNEL_SHAPES_RAGGED):
+    labels = ("slice", "simulator", "rf", "dryrun hybrid")
+    layouts, results, abs_err = {}, {}, 0.0
+    for i, (n, d, C) in enumerate([slice_shape, sim_shape, rf_shape, dry_shape]
+                                  + KERNEL_SHAPES_RAGGED):
         Z, Y = _kernel_inputs(torch, n, d, C, seed=10 + i)
         A, b = ops.fed3r_stats(Z, Y)
         torch.cuda.synchronize()
@@ -1247,17 +1319,19 @@ def phase_kernel(torch, ops, ref, slice_shape, sim_shape, rf_shape) -> dict:
             if not same:
                 raise AssertionError("fed3r_stats is not bitwise repeatable at the rf shape")
             del A2, b2
-        if i > 2:
+        if i >= len(labels):
             continue
         ZY = torch.cat([Z, Y], dim=1)
-        t = timed("fed3r_stats", ("slice", "simulator", "rf")[i] + f" shape n={n} d={d} C={C}",
+        t = timed("fed3r_stats", labels[i] + f" shape n={n} d={d} C={C}",
                   lambda: ops.fed3r_stats(Z, Y), lambda: ref.fed3r_stats_ref(Z, Y),
                   lambda: torch.matmul(Z.T, ZY),
                   "library_ms (torch.matmul of Z^T [Z|Y], fp32, no TF32)",
                   bound(stats_flops(Z, Y), 4.0 * (n * d + n * C + d * d + d * C)))
+        layouts[labels[i]] = {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         if i == 0:
             results = t
-    return {"max_abs_err": abs_err, **results}
+        del ZY
+    return {"max_abs_err": abs_err, **results, "layouts": layouts}
 
 
 def rff_check(torch, ops, ref, Z, omega, beta, label) -> float:
@@ -3515,6 +3589,47 @@ pickle.dump(recs, open(sys.argv[2], "wb"))
 """
 
 
+@contextlib.contextmanager
+def _least_free(torch, every_s: float = 0.2):
+    """Over the block, the card's least free memory (bytes) and when it was
+    read (s from the block's start), polled from a thread of this process:
+    yields the dict {"bytes", "at_s"} that the poller fills."""
+    low = {"bytes": None, "at_s": 0.0}
+    stop = threading.Event()
+    t0 = time.perf_counter()
+
+    def poll():
+        while not stop.is_set():
+            free = torch.cuda.mem_get_info()[0]
+            if low["bytes"] is None or free < low["bytes"]:
+                low["bytes"], low["at_s"] = free, time.perf_counter() - t0
+            stop.wait(every_s)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        yield low
+    finally:
+        stop.set()
+        th.join()
+
+
+@contextlib.contextmanager
+def _environ(**kw):
+    """``os.environ`` with ``kw`` set over the block (the processes started
+    in it inherit them), as it was afterwards."""
+    was = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in was.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_dryrun(torch, ops) -> dict:
     """launch/dryrun.py on the card: (a) the rank program of DRYRUN_REAL at
     DRYRUN_MESH, rank 0 of a fake world (a subprocess) against rank 0 of
@@ -3531,24 +3646,59 @@ def phase_dryrun(torch, ops) -> dict:
 
     t_all = time.perf_counter()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[dryrun] before its world: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.3f} reserved), the card "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
     d, m = DRYRUN_MESH
     gcfg = get_config(DRYRUN_GRAD["arch"]).replace(**DRYRUN_GRAD["overrides"])
-    jobs = [dict(name="grad", job="grad", arch=DRYRUN_GRAD["arch"], data=d, model=m,
-                 overrides=DRYRUN_GRAD["overrides"], seed=0,
-                 batch=grad_batch(gcfg, 21, DRYRUN_GRAD["B"], DRYRUN_GRAD["S"]),
-                 reference=True, faults=FSDP_FAULTS, fsdp=True)]
-    jobs += [dict(job, job="dryrun", data=d, model=m) for job in DRYRUN_REAL]
+    # the fake rank's jobs first: it ends before the gradients' peaks
+    jobs = [dict(job, job="dryrun", data=d, model=m) for job in DRYRUN_REAL]
+    jobs.append(dict(name="grad", job="grad", arch=DRYRUN_GRAD["arch"], data=d, model=m,
+                     overrides=DRYRUN_GRAD["overrides"], seed=0,
+                     batch=grad_batch(gcfg, 21, DRYRUN_GRAD["B"], DRYRUN_GRAD["S"]),
+                     reference=True, faults=FSDP_FAULTS, fsdp=True))
+    hcfg = get_config(DRYRUN_HYBRID["arch"]).replace(**DRYRUN_HYBRID["overrides"])
+    hs = DRYRUN_HYBRID_SERVE
+    toks = np.random.default_rng(31).integers(0, hcfg.vocab_size, (hs["B"], hs["S"] + hs["T"]))
+    jobs.append(dict(name="hybrid serve", job="serve", data=d, model=m, seed=0,
+                     prompts=toks[:, :hs["S"]], decode=toks[:, hs["S"]:], **DRYRUN_HYBRID))
+    hover = dict(DRYRUN_HYBRID["overrides"], dtype="float32")
+    jobs.append(dict(name="hybrid grad", job="grad", arch=DRYRUN_HYBRID["arch"], data=d, model=m,
+                     overrides=hover, seed=0,
+                     batch=grad_batch(hcfg.replace(dtype="float32"), 21,
+                                      DRYRUN_HYBRID_GRAD["B"], DRYRUN_HYBRID_GRAD["S"]),
+                     reference=True, faults=FSDP_FAULTS, fsdp=True))
+    for arch, over, B, S in DRYRUN_DATA4:
+        over = dict(over, dtype="float32")
+        jobs.append(dict(name=f"{arch} grad", job="grad", arch=arch, data=DRYRUN_WORLD, model=1,
+                         overrides=over, seed=0, batch=grad_batch(get_config(arch).replace(**over),
+                                                                  21, B, S),
+                         reference=True, fsdp=True))
     # the fake rank of (a) runs beside the real ones: each process its own
-    # memory and peak; the real ranks mostly wait on gloo's host staging
-    t0 = time.perf_counter()
-    started = _start_python(_FAKE_RANK, ({"data": d, "model": m}, list(DRYRUN_REAL)))
-    try:
-        ranks = run_world(fsdp_program, DRYRUN_WORLD, backend="gloo", device="cuda",
-                          timeout_s=DRYRUN_TIMEOUT_S, args=(jobs,))
-    except BaseException:
-        _finish_python(started, 60.0, kill=True)
-        raise
+    # memory and peak; the real ranks mostly wait on gloo's host staging.
+    # Five processes share the card: their allocators map memory in
+    # expandable segments, so that a rank's cache stays near what it holds
+    # (with fixed segments the hybrid gradient's 1.95 GiB embedding blocks
+    # once left 1.67 GiB of the 79.18 free, and a rank's next one failed)
+    t0, t0_wall = time.perf_counter(), time.time()
+    with _environ(PYTORCH_CUDA_ALLOC_CONF=DRYRUN_ALLOC), _least_free(torch) as low:
+        started = _start_python(_FAKE_RANK, ({"data": d, "model": m}, list(DRYRUN_REAL)))
+        try:
+            ranks = run_world(fsdp_program, DRYRUN_WORLD, backend="gloo", device="cuda",
+                              timeout_s=DRYRUN_TIMEOUT_S,
+                              args=(jobs, [g * 2**30 / total for g in DRYRUN_RANK_GIB]))
+        except BaseException:
+            _finish_python(started, 60.0, kill=True)
+            raise
     real_s = time.perf_counter() - t0
+    fake_end = (f"wrote its result at {os.path.getmtime(started[2]) - t0_wall:.1f} s"
+                if os.path.exists(started[2]) else "was still running")
+    log(f"[dryrun] (a) the card's least free memory while its world ran: "
+        f"{low['bytes'] / 2**30:.2f} of {total / 2**30:.2f} GiB, at {low['at_s']:.1f} s "
+        f"(allocators {DRYRUN_ALLOC}, ranks' caps {DRYRUN_RANK_GIB} GiB); the fake rank "
+        f"{fake_end}")
     fake = _finish_python(started, DRYRUN_TIMEOUT_S)
     fake_s = time.perf_counter() - t0
     recs = _finish_python(_start_python(_PRODUCTION, list(DRYRUN_PROD)), DRYRUN_TIMEOUT_S)
@@ -3575,20 +3725,60 @@ def phase_dryrun(torch, ops) -> dict:
             + f" GiB (gap {peak_gap:.4f}); warm step fake {got['step_s']:.3f} s, real "
             + " ".join(f"{r[name]['step_s']:.3f}" for r in ranks) + " s; flash "
             f"{got['launches']['flash_attention']} a rank")
-    grad = ranks[0]["grad"]
-    gap, leaf = _grad_gap(grad["sound"]["gaps"])
-    checks[f"(a) FSDP gradient within {TP_GRAD_REL:g} of the unsharded one "
-           f"({len(grad['sound']['gaps'])} leaves)"] = gap <= TP_GRAD_REL
-    faults = ""
-    for fault in FSDP_FAULTS:
-        fgap, fleaf = _grad_gap(grad[fault]["gaps"])
-        checks[f"(a) the planted fault ({fault}) reads above {TP_GRAD_REL:g}"] = fgap > TP_GRAD_REL
-        faults += f"; planted fault ({fault}) {fgap:.4e} at {fleaf}"
-    log(f"[dryrun] (a) {DRYRUN_GRAD['arch']} {DRYRUN_GRAD['overrides']} FSDP gradient at "
-        f"(data {d}, model {m}), {DRYRUN_GRAD['B']} x {DRYRUN_GRAD['S']}: largest leaf gap "
-        f"{gap:.4e} at {leaf} (limit {TP_GRAD_REL:g}){faults}; unsharded "
-        f"{grad['unsharded']['ms']:.1f} ms, a rank "
-        + " ".join(f"{r['grad']['sound']['ms']:.1f}" for r in ranks) + " ms")
+    def grad_checks(name, label, shape, faults=()):
+        """The FSDP gradient of job ``name`` within TP_GRAD_REL of the
+        unsharded one, each of ``faults`` above it; one log line."""
+        grad = ranks[0][name]
+        gap, leaf = _grad_gap(grad["sound"]["gaps"])
+        checks[f"{label}: FSDP gradient within {TP_GRAD_REL:g} of the unsharded one "
+               f"({len(grad['sound']['gaps'])} leaves)"] = gap <= TP_GRAD_REL
+        planted = ""
+        for fault in faults:
+            fgap, fleaf = _grad_gap(grad[fault]["gaps"])
+            checks[f"{label}: the planted fault ({fault}) reads above {TP_GRAD_REL:g}"] = \
+                fgap > TP_GRAD_REL
+            planted += f"; planted fault ({fault}) {fgap:.4e} at {fleaf}"
+        runs = ("sound",) + tuple(faults)
+        peak = {k: " ".join(f"{max(r[name][run][k] for run in runs) / 2**30:.2f}" for r in ranks)
+                for k in ("peak_bytes", "reserved_bytes")}
+        log(f"[dryrun] {label} FSDP gradient, fp32, {shape[0]} x {shape[1]}: largest leaf gap "
+            f"{gap:.4e} at {leaf} (limit {TP_GRAD_REL:g}){planted}; unsharded "
+            f"{grad['unsharded']['ms']:.1f} ms (peak {grad['unsharded']['peak_bytes'] / 2**30:.2f}"
+            f" GiB), a rank " + " ".join(f"{r[name]['sound']['ms']:.1f}" for r in ranks)
+            + f" ms, peak a rank {peak['peak_bytes']} GiB ({peak['reserved_bytes']} reserved)")
+
+    grad_checks("grad", f"(a) {DRYRUN_GRAD['arch']} {DRYRUN_GRAD['overrides']} at (data {d}, "
+                f"model {m})", (DRYRUN_GRAD["B"], DRYRUN_GRAD["S"]), FSDP_FAULTS)
+
+    # FSDP outside the dense and MoE stacks
+    fed = next(job["name"] for job in DRYRUN_REAL if job.get("kind") == "fed3r")
+    n_fed = [fake[fed]["launches"]["fed3r_stats"]] + [
+        r[fed]["launches"]["fed3r_stats"] for r in ranks]
+    checks[f"(a) {fed}: one fed3r_stats launch on each real rank and the fake one"] = \
+        n_fed == [1] * (DRYRUN_WORLD + 1)
+    serves = [r["hybrid serve"] for r in ranks]
+    n_attn = _attention_layers(hcfg)
+    label = f"(a) {DRYRUN_HYBRID['arch']} {DRYRUN_HYBRID['overrides']} at (data {d}, model {m})"
+    checks[f"{label}: FSDP prefill logits bitwise TP-only's on every rank"] = all(
+        np.array_equal(sv["fsdp"]["prefill"], sv["tp"]["prefill"]) for sv in serves)
+    checks[f"{label}: FSDP decode logits bitwise TP-only's on every rank ({hs['T']} steps)"] = all(
+        np.array_equal(sv["fsdp"]["decode"], sv["tp"]["decode"]) for sv in serves)
+    checks[f"{label}: flash launched {n_attn} a prefill on every rank, both layouts"] = all(
+        sv["flash tp"] == sv["flash fsdp"] == n_attn for sv in serves)
+    checks[f"{label}: the FSDP prefill gathers over 'data'"] = all(
+        any(c[0] == "all-gather" for c in sv["census fsdp"]) for sv in serves)
+    for sv in serves:
+        launches["flash_attention"] += sv["flash tp"] + sv["flash fsdp"]
+    ms = {k: " ".join(f"{sv['ms ' + k]:.1f}" for sv in serves) for k in ("tp", "fsdp")}
+    log(f"[dryrun] {label}, {hcfg.dtype}, prefill {hs['B']} x {hs['S']} + {hs['T']} decode "
+        f"steps: TP-only {ms['tp']} ms a rank, FSDP {ms['fsdp']} ms a rank; collectives "
+        f"{len(serves[0]['census tp'])} / {len(serves[0]['census fsdp'])}; flash "
+        f"{serves[0]['flash tp']} / {serves[0]['flash fsdp']} a rank")
+    grad_checks("hybrid grad", label, (DRYRUN_HYBRID_GRAD["B"], DRYRUN_HYBRID_GRAD["S"]),
+                FSDP_FAULTS)
+    for arch, over, B, S in DRYRUN_DATA4:
+        grad_checks(f"{arch} grad", f"(a) {arch} {over} at (data {DRYRUN_WORLD}, model 1)",
+                    (B, S))
 
     for rec in recs:
         label = f"(b) {rec['arch']} {rec['shape']} {rec['kind']}"
@@ -4937,7 +5127,8 @@ def main() -> int:
     gates = phase_heads_gates(torch, heads["lru strict"])
 
     kern = phase_kernel(torch, ops, ref, (sl["max_n"], sl["d"], sl["C"]),
-                        (sim["max_n"], sim["d"], sim["C"]), (sim["max_n"], RF_D, sim["C"]))
+                        (sim["max_n"], sim["d"], sim["C"]), (sim["max_n"], RF_D, sim["C"]),
+                        dryrun_stats_shape())
     z, y = wave_design(torch, packed, widest_wave(packed), STREAM["n_classes"])
     kern_rff = phase_kernel_rff(torch, ops, ref, rf["shard"], z, rf["params"].omega,
                                 rf["params"].beta)

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import os
 import time
 from typing import Any, Dict, List, Sequence, Tuple
@@ -91,6 +92,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm_mod
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import table_split
+from repro_torch.models.model import compute_dtype
 from repro_torch.models.moe import DropTally
 from repro_torch.sharding import hints
 from repro_torch.sharding.specs import map_with_path
@@ -740,13 +742,17 @@ def tp_train_phase1(rank: int, device: torch.device, model: int) -> dict:
 def tp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict],
                refusals: bool = False, train_model: int = 0) -> dict:
     """Each job of ``jobs`` (keyword arguments of :func:`tp_job`, plus its
-    ``name``) on this rank; with ``refusals`` :func:`tp_refusals`, with
-    ``train_model`` > 0 :func:`tp_train_phase1` at that model axis."""
+    ``name``) on this rank (rank 0 prints each job's seconds); with
+    ``refusals`` :func:`tp_refusals`, with ``train_model`` > 0
+    :func:`tp_train_phase1` at that model axis."""
     out: Dict[str, Any] = {}
     for job in jobs:
         job = dict(job)
         name = job.pop("name")
+        t0 = time.perf_counter()
         out[name] = tp_job(rank, device, **job)
+        if rank == 0:
+            print(f"[tp] rank 0: {name} in {time.perf_counter() - t0:.1f}s", flush=True)
     if refusals:
         out["refusals"] = tp_refusals(rank, device)
     if train_model:
@@ -831,13 +837,18 @@ def _unsummed_reduce_scatter():
         hints._reduce_scatter = real
 
 
-def rank_gradient(cfg, blocks: Any, batch: Dict[str, torch.Tensor], fault: str = None) -> Any:
+# the faults planted after the loss gradient: a run with one of them
+# finishes the sound run's loss gradient (the same bits) with the fault
+_AFTER_GRAD = (GRAD_FAULTS[1], FSDP_FAULTS[1])
+
+
+def loss_grad(cfg, blocks: Any, batch: Dict[str, torch.Tensor], fault: str = None) -> Any:
     """The rank's gradient of ``cfg``'s ``lm_loss`` over the global batch
     under the ambient mesh (``blocks`` the rank's blocks, ``batch`` its
-    rows; under FSDP the FSDP layout's): the loss seeded once over "model",
-    the replicated leaves' gradients summed over it, then the mean over the
-    data ranks (an FSDP leaf's only divided); with ``fault`` (one of
-    :data:`GRAD_FAULTS` or :data:`FSDP_FAULTS`) planted."""
+    rows; under FSDP the FSDP layout's), the loss seeded once over
+    "model", before any sum of a leaf over the ranks; with ``fault`` (one
+    of :data:`GRAD_FAULTS` or :data:`FSDP_FAULTS` not in ``_AFTER_GRAD``)
+    planted."""
     model = build_model(cfg)
 
     def loss(p):
@@ -847,7 +858,14 @@ def rank_gradient(cfg, blocks: Any, batch: Dict[str, torch.Tensor], fault: str =
     with (_last_layer_reduce_identity(cfg) if fault == GRAD_FAULTS[0]
           else _unsummed_reduce_scatter() if fault == FSDP_FAULTS[0]
           else contextlib.nullcontext()):
-        grads = torch.func.grad(loss)(blocks)
+        return torch.func.grad(loss)(blocks)
+
+
+def finish_gradient(cfg, grads: Any, fault: str = None) -> Any:
+    """:func:`loss_grad`'s ``grads`` with the replicated leaves' gradients
+    summed over "model", then the mean over the data ranks (an FSDP leaf's
+    only divided); with ``fault`` (one of ``_AFTER_GRAD``) planted.
+    ``grads`` is not written."""
     if fault != GRAD_FAULTS[1]:
         grads = hints.sum_replicated(grads, replicated_leaves(cfg, hints.model_size()))
     summed = None
@@ -877,14 +895,15 @@ def _rows(batch: Dict[str, np.ndarray], mesh, dev) -> Dict[str, torch.Tensor]:
 
 def loss_gradient(arch: str, mesh: Any, device: torch.device, params: Any = None,
                   **kw) -> Any:
-    """The rank's :func:`rank_gradient` of ``arch`` in fp32 (its blocks of
-    the reference's weights ``params``, numpy, or of ``seeded_factory(0)``)
-    on :func:`grad_batch`'s batch (``kw``: its seed, B and S), under
-    ``mesh``."""
+    """The rank's gradient of ``arch``'s ``lm_loss`` in fp32 under ``mesh``
+    (:func:`loss_grad`, then :func:`finish_gradient`): its blocks of the
+    reference's weights ``params``, numpy, or of ``seeded_factory(0)``, on
+    :func:`grad_batch`'s batch (``kw``: its seed, B and S)."""
     cfg = get_config(arch).replace(dtype="float32")
     params = _tp_params(cfg, mesh, device, params, 0, None)
     with hints.use_mesh(mesh):
-        return rank_gradient(cfg, params, _rows(grad_batch(cfg, **kw), mesh, device))
+        return finish_gradient(cfg, loss_grad(cfg, params, _rows(grad_batch(cfg, **kw), mesh,
+                                                                  device)))
 
 
 def gathered_gradient(cfg, grads: Any, mesh: Any, fsdp: bool = False) -> Any:
@@ -948,9 +967,11 @@ def _gaps(grads: Any, ref: Dict[tuple, torch.Tensor]) -> Dict[str, Any]:
     map_with_path(grads, lambda path, g: (paths.append(path), found.append(g)))
     stats = torch.zeros((2, len(paths)), dtype=torch.float64)
     for i, (path, g) in enumerate(zip(paths, found)):
-        want = ref[path].to(g.device)
-        stats[0, i] = float((g - want).abs().max())
-        stats[1, i] = float(want.abs().max())
+        # one copy of the block on the device, the difference taken in place
+        want = ref[path].to(g.device, copy=True)
+        stats[1, i] = float(torch.linalg.vector_norm(want, math.inf))
+        stats[0, i] = float(torch.linalg.vector_norm(want.sub_(g), math.inf))
+        del want
     dist.all_reduce(stats, op=dist.ReduceOp.MAX)
     return {"/".join(p): (float(stats[0, i]), float(stats[1, i])) for i, p in enumerate(paths)}
 
@@ -962,13 +983,14 @@ def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model:
     """``lm_loss``'s gradient of one model on a ``(data, model)`` host mesh:
     its blocks of the reference's weights (``params``, numpy) or of
     ``seeded_factory(seed)``, the rank's rows of ``batch``; then again with
-    each of ``faults`` planted.  Returns, for the sound run and each fault,
+    each of ``faults`` planted (those planted after the loss gradient
+    finish the sound run's).  Returns, for the sound run and each fault,
     the gradient gathered over "model" (``"grads"``, numpy, on global rank
     0; a digest on every rank), or with ``reference`` the leaf-by-leaf gaps
     to the unsharded gradient, which rank 0 computed first and scattered
     (``gaps``, each (max|Δ|, max|g|)), each run's ms and every rank's peak
-    memory.  With ``fsdp`` the blocks and the gradient are the FSDP
-    layout's."""
+    memory (allocated and reserved).  With ``fsdp`` the blocks and the
+    gradient are the FSDP layout's."""
     cfg = get_config(arch).replace(**(overrides or {}))
     mesh = make_host_mesh(model, device_type=device.type)
     if hints.axis_sizes(mesh)["data"] != data:
@@ -980,18 +1002,30 @@ def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model:
         ref, out["unsharded"] = _unsharded_blocks(cfg, seed, batch, mesh, device, fsdp)
     blocks = _tp_params(cfg, mesh, device, params, seed, None, fsdp)
     rows = _rows(batch, mesh, device)
-    for fault in (None,) + tuple(faults):
+    # the faults that finish the sound run's loss gradient run first, so
+    # that it is dropped before any other run takes its own
+    faults = sorted(faults, key=lambda f: f not in _AFTER_GRAD)
+    n_after = sum(f in _AFTER_GRAD for f in faults)
+    sound = None  # the sound run's loss gradient, which the _AFTER_GRAD faults finish
+    for i, fault in enumerate([None] + faults):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         with hints.use_mesh(mesh, fsdp=fsdp):
-            grads = rank_gradient(cfg, blocks, rows, fault)
+            raw = sound if fault in _AFTER_GRAD else loss_grad(cfg, blocks, rows, fault)
+            if fault is None and n_after:
+                sound = raw
+            grads = finish_gradient(cfg, raw, fault)
+            del raw
+            if i == n_after:
+                sound = None
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        cuda = device.type == "cuda"
         run = {"ms": 1e3 * (time.perf_counter() - t0),
-               "peak_bytes": torch.cuda.max_memory_allocated(device)
-               if device.type == "cuda" else None}
+               "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+               "reserved_bytes": torch.cuda.max_memory_reserved(device) if cuda else None}
         if reference:
             t0 = time.perf_counter()
             run["gaps"] = _gaps(grads, ref)
@@ -1002,7 +1036,7 @@ def tp_grad_job(rank: int, device: torch.device, *, arch: str, data: int, model:
             run["grads"] = gathered if rank == 0 else None
         out[fault or "sound"] = run
         del grads
-    del blocks, ref
+    del blocks, ref, sound
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -1169,25 +1203,40 @@ def tp_train_program(rank: int, world: int, device: torch.device, grads: Sequenc
 
 def fsdp_serve_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
                    overrides: Dict[str, Any] = None, seed: int = 0, prompts: np.ndarray,
-                   decode: np.ndarray) -> dict:
-    """A prefill of ``prompts`` and ``decode``'s columns teacher-forced on a
-    ``(data, model)`` host mesh, in the TP-only layout and in the FSDP
-    layout, each from ``seeded_factory(seed)``'s blocks: both runs' logits
-    (the rank's rows, numpy) and the collectives of the FSDP prefill."""
+                   decode: np.ndarray, inputs: Dict[str, np.ndarray] = None) -> dict:
+    """A prefill of ``prompts`` (with the rank's rows of ``inputs``: a VLM's
+    ``patch_embeds``, an audio model's ``audio_frames``) and ``decode``'s
+    columns teacher-forced on a ``(data, model)`` host mesh, in the TP-only
+    layout and in the FSDP layout, each from ``seeded_factory(seed)``'s
+    blocks cast to the compute dtype (bf16 weights serve a bf16 model, as
+    the dry run's serving steps hold them): both runs' logits (the rank's
+    rows, numpy fp32), the collectives of each, their flash_attention
+    launches and the ms of each run."""
     mesh = make_host_mesh(model, device_type=device.type)
     if hints.axis_sizes(mesh)["data"] != data:
         raise ValueError(f"a world of {dist.get_world_size()} ranks has no (data {data}, "
                          f"model {model}) mesh")
     cfg = get_config(arch).replace(**(overrides or {}))
     rows = _rows({"prompts": prompts, "decode": decode}, mesh, device)
-    capacity = prompts.shape[1] + decode.shape[1]
-    out: Dict[str, Any] = {}
+    extra = _rows(inputs or {}, mesh, device)
+    capacity = _offset(cfg) + prompts.shape[1] + decode.shape[1]
+    dt, out = compute_dtype(cfg), {}
     for fsdp in (False, True):
-        blocks = _tp_params(cfg, mesh, device, None, seed, None, fsdp)
+        name = "fsdp" if fsdp else "tp"
+        blocks = tree_map(lambda t: t.to(dt), _tp_params(cfg, mesh, device, None, seed, None, fsdp))
+        launches = ops.flash_attention.launches
+        t0 = time.perf_counter()
         with hints.use_mesh(mesh, fsdp=fsdp), torch.no_grad(), hints.census() as recs:
-            got = _forced(cfg, blocks, rows["prompts"], rows["decode"], {}, capacity)
-        out["fsdp" if fsdp else "tp"] = np_({"prefill": got["prefill"], "decode": got["decode"]})
-        out["census fsdp" if fsdp else "census tp"] = [tuple(r) for r in recs]
+            got = _forced(cfg, blocks, rows["prompts"], rows["decode"], extra, capacity)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out[f"ms {name}"] = 1e3 * (time.perf_counter() - t0)
+        out[f"flash {name}"] = ops.flash_attention.launches - launches
+        out[name] = np_({k: got[k].float() for k in ("prefill", "decode")})  # bf16 exactly
+        out[f"census {name}"] = [tuple(r) for r in recs]
+        del blocks, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1282,13 +1331,19 @@ _FSDP_JOBS = {"grad": tp_grad_job, "step": tp_step_job, "serve": fsdp_serve_job,
               "dryrun": dryrun_job, "moe_groups": moe_groups_job, "gather_vmap": gather_vmap_job}
 
 
-def fsdp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict]) -> dict:
+def fsdp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict],
+                 card_share: Sequence[float] = None) -> dict:
     """Each job of ``jobs`` on this rank: its ``name``, its ``job`` (a key
     of ``_FSDP_JOBS``: "grad" :func:`tp_grad_job`, "step"
     :func:`tp_step_job`, "serve" :func:`fsdp_serve_job`, "dryrun"
     :func:`dryrun_job`, "moe_groups" :func:`moe_groups_job`, "gather_vmap"
     :func:`gather_vmap_job`) and that function's keyword arguments (rank 0
-    prints each job's seconds)."""
+    prints each job's seconds).  ``card_share`` (ranks sharing one card):
+    the share of the card's memory rank r's allocator may hold, by rank;
+    past it the allocator frees its own cache before it fails, so that no
+    rank's cache starves another."""
+    if card_share is not None and device.type == "cuda":
+        torch.cuda.set_per_process_memory_fraction(card_share[rank], device)
     out: Dict[str, Any] = {}
     for job in jobs:
         job = dict(job)

@@ -100,9 +100,13 @@ def single_rank_world(backend: str, device: str = "cuda", *,
             dist.destroy_process_group()
 
 
-def _rank_main(fn, rank, world_size, backend, device, store, timeout_s, args, results):
-    """One spawned rank: join the group, run ``fn``, report, leave."""
+def _rank_main(fn, rank, world_size, backend, device, store, timeout_s, results):
+    """One spawned rank: read ``fn``'s arguments from ``store + ".args"``,
+    join the group, run ``fn``, write its result to ``store + ".<rank>"``,
+    report, leave."""
     try:
+        with open(store + ".args", "rb") as f:
+            args = pickle.load(f)
         torch.set_num_threads(1)
         dev = _bind_device(torch.device(device), rank)
         dist.init_process_group(
@@ -113,9 +117,14 @@ def _rank_main(fn, rank, world_size, backend, device, store, timeout_s, args, re
             out = fn(rank, world_size, dev, *args)
         finally:
             dist.destroy_process_group()
-        # pickled here, whole: a tensor put on the queue as it is would
-        # travel as a handle to this process's memory, gone once it exits
-        results.put((rank, True, pickle.dumps(out)))
+        # pickled whole into a file (a tensor put on the queue as it is
+        # would travel as a handle to this process's memory, gone once it
+        # exits); the queue carries only its name: a pipe moves a large
+        # result to the parent an order of magnitude slower than a file
+        path = f"{store}.{rank}"
+        with open(path, "wb") as f:
+            pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+        results.put((rank, True, path))
     except BaseException:  # reported to the parent, which re-raises it
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -137,8 +146,12 @@ def run_world(
     modulo the host's cards) and joins the group over a ``file://`` store
     in a temporary directory.  The parent waits at most ``timeout_s``
     seconds in all; a rank that raised has its traceback re-raised here as
-    ``RuntimeError``, and every rank still alive then is killed.  Results
-    travel pickled (CPU tensors, numpy arrays and plain Python values).
+    ``RuntimeError``, and every rank still alive then is killed.  ``args``
+    and the results travel pickled (CPU tensors, numpy arrays and plain
+    Python values) through files in that directory: a spawned process
+    receives its start-up data through a pipe, and one larger than the
+    pipe's buffer makes each start wait for the previous rank to import
+    its modules.
     """
     _check_backend(backend, device)
     ctx = mp.get_context("spawn")
@@ -146,10 +159,12 @@ def run_world(
     deadline = time.monotonic() + timeout_s
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
+        with open(store + ".args", "wb") as f:
+            pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [
             ctx.Process(
                 target=_rank_main,
-                args=(fn, r, world_size, backend, device, store, timeout_s, tuple(args), results),
+                args=(fn, r, world_size, backend, device, store, timeout_s, results),
                 daemon=True,
             )
             for r in range(world_size)
@@ -174,7 +189,8 @@ def run_world(
                         failure = f"rank {dead[0]} exited with code {procs[dead[0]].exitcode}"
                     continue
                 if ok:
-                    got[rank] = pickle.loads(out)
+                    with open(out, "rb") as f:
+                        got[rank] = pickle.load(f)
                 else:
                     failure = f"rank {rank} raised:\n{out}"
             for p in procs:

@@ -41,10 +41,12 @@ whole (gathered over the vocab, or all-reduced over d_model), the hidden
 states and features are the same on every model rank, and each cache
 leaf is the rank's block of it as ``sharding.specs.cache_specs`` gives it
 (the kv heads, the ring's slots, the SSM's heads and conv channels, the
-RG-LRU's width).  Under FSDP (``use_mesh(mesh, fsdp=True)``; the dense
-and MoE families) the parameters are the rank's blocks of the FSDP layout
-(``shard_params(..., fsdp=True)``) and each block, and the final norm,
-gathers its FSDP leaves over the data axes where it is used.
+RG-LRU's width).  Under FSDP (``use_mesh(mesh, fsdp=True)``; every
+family) the parameters are the rank's blocks of the FSDP layout
+(``shard_params(..., fsdp=True)``) and each block, the final norm and an
+audio model's encoder norm gather their FSDP leaves over the data axes
+where they are used (the embedding, the LM head and the decoder position
+table are never FSDP-split).
 """
 from __future__ import annotations
 
@@ -247,8 +249,8 @@ def _forward_encdec(
         frames = batch["audio_frames"].to(dtype)
         pos = sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device)
         enc_x, _, _ = tfm.apply_stack(cfg, "enc", params["enc_layers"], frames + pos.to(dtype),
-                                      mode=mode)
-        enc_states = norm_apply(cfg, params["enc_norm"], enc_x)
+                                      mode=mode, stack="enc_layers")
+        enc_states = norm_apply(cfg, gather_fsdp(cfg, params["enc_norm"], ("enc_norm",)), enc_x)
     tokens = batch["tokens"]
     start = int(decode_pos) if mode == "decode" else 0
     pos_emb = dec_positions(params, start, tokens.shape[1])
@@ -256,9 +258,9 @@ def _forward_encdec(
     h, new_cache, aux = tfm.apply_stack(
         cfg, "dec", params["dec_layers"], x, mode=mode, cache=cache,
         decode_pos=None if decode_pos is None else int(decode_pos),
-        cache_capacity=cache_capacity, enc_states=enc_states,
+        cache_capacity=cache_capacity, enc_states=enc_states, stack="dec_layers",
     )
-    h = norm_apply(cfg, params["final_norm"], h)
+    h = norm_apply(cfg, gather_fsdp(cfg, params["final_norm"], ("final_norm",)), h)
     logits = unembed_apply(cfg, params, h) if return_logits else None
     return ForwardOut(h, logits, new_cache, aux)
 

@@ -30,10 +30,14 @@ recomputes the same blocks in the same order, so the collectives line up,
 and an MoE block routes on the all-reduced x, the same bits on every model
 rank, in the forward and in its recompute.
 
-Under FSDP (``hints.use_mesh(mesh, fsdp=True)``) a dense or MoE block
-gathers its FSDP leaves over the data axes when it starts and drops them
-when it ends; a recomputed block gathers them again in its backward, whose
-gradient reduce-scatters them (ZeRO-3).  The other stacks refuse FSDP.
+Under FSDP (``hints.use_mesh(mesh, fsdp=True)``) every block gathers its
+FSDP leaves over the data axes when it starts and drops them when it ends;
+a recomputed block gathers them again in its backward, whose gradient
+reduce-scatters them (ZeRO-3).  Which leaves a block gathers, and along
+which dim, is read at the block's own key path (its stack's key and its
+index): a hybrid's ``rec`` and ``attn`` blocks, Whisper's ``enc`` and
+``dec`` blocks, and a layer the reference stacks and one it unrolls each
+have their own layout.
 """
 from __future__ import annotations
 
@@ -51,9 +55,6 @@ from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.sharding import hints
 from repro_torch.sharding.shard import gather_fsdp
 from repro_torch.tree import tree_leaves, tree_map
-
-FSDP_FAMILIES = ("dense", "moe")  # the stacks whose blocks gather FSDP leaves
-_BLOCK = ("layers", "0")  # every block of the stack has the first one's layout
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str = "attn") -> dict:
@@ -260,10 +261,13 @@ def apply_stack(
     cache_capacity: Optional[int] = None,
     drops: Optional[moe_mod.DropTally] = None,
     enc_states: Optional[torch.Tensor] = None,
+    stack: str = "layers",
 ) -> Tuple[torch.Tensor, Optional[List[dict]], torch.Tensor]:
     """Run the layers in order (the reference's scan over stacked params);
     ``kind`` is every layer's block kind, or one a layer; ``enc_states``
-    reaches every decoder block's cross-attention.
+    reaches every decoder block's cross-attention; ``stack`` is the
+    layers' key in the parameters (layer i's FSDP leaves are those at
+    ``(stack, str(i))``).
 
     Returns (x, the per-layer caches, the summed load-balance loss): the
     caches built in ``prefill``, updated in ``decode`` (in place), None in
@@ -277,16 +281,15 @@ def apply_stack(
     recompute = mode == "train" and torch.is_grad_enabled()
     if recompute and drops is not None:
         raise ValueError("drops are counted outside a gradient (torch.no_grad)")
-    if hints.fsdp_axes() and cfg.arch_type not in FSDP_FAMILIES:
-        hints.refuse_fsdp(f"a {cfg.arch_type!r} model's layers")
     kinds = [kind] * len(layers) if isinstance(kind, str) else kind
     aux, caches = None, []
     for i, p in enumerate(layers):
+        prefix = (stack, str(i))
         if recompute:
-            x, a = _recomputed_block(cfg, kinds[i], p, x, angles, window, enc_states)
+            x, a = _recomputed_block(cfg, kinds[i], p, x, angles, window, enc_states, prefix)
         else:
             x, c, a = block_apply(
-                cfg, kinds[i], gather_fsdp(cfg, p, _BLOCK), x, angles=angles, window=window,
+                cfg, kinds[i], gather_fsdp(cfg, p, prefix), x, angles=angles, window=window,
                 mode=mode,
                 cache=cache[i] if mode == "decode" else None, decode_pos=decode_pos,
                 cache_capacity=cache_capacity, drops=drops, enc_states=enc_states,
@@ -338,20 +341,21 @@ class _Recompute(torch.autograd.Function):
 
 
 def _recomputed_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, angles, window,
-                      enc_states: Optional[torch.Tensor] = None):
+                      enc_states: Optional[torch.Tensor], prefix: Tuple[str, ...]):
     """One train-mode block whose activations are recomputed in the backward:
     a gradient step keeps each block's input, not its internals (a
     fine-tuning round at full width holds 10 clients × 64 × 128 tokens of
     them at once).  ``enc_states`` (a decoder block's) goes in after the
     parameters, so it gets its gradient (the encoder's leaves would get
-    none as ``const``).  Returns (x', the block's load-balance loss or None)."""
+    none as ``const``); ``prefix`` is the block's key path, whose FSDP
+    leaves it gathers.  Returns (x', the block's load-balance loss or None)."""
     moe = "moe" in p
     extra = () if enc_states is None else (enc_states,)
 
     def fn(h, angles_, *leaves):
         it = iter(leaves)
         params = tree_map(lambda _: next(it), p)  # p's structure, fn's leaves
-        y, _, aux = block_apply(cfg, kind, gather_fsdp(cfg, params, _BLOCK), h,
+        y, _, aux = block_apply(cfg, kind, gather_fsdp(cfg, params, prefix), h,
                                 angles=angles_, window=window, enc_states=next(it, None))
         return (y, aux) if moe else y
 

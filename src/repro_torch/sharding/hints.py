@@ -78,12 +78,13 @@ What these layers do not implement raises ``NotImplementedError``
 
 FSDP (``use_mesh(mesh, fsdp=True)``; fully sharded data parallelism: the
 parameters split over the data axes too, as ``param_specs(..., fsdp=True)``
-lays them out) runs in the dense and MoE stacks: a block gathers its FSDP
+lays them out) runs in every family's stacks: a block gathers its FSDP
 leaves over the data axes when it starts (:func:`gather_data`) and drops
 them when it ends, and under a gradient its recompute gathers them again
 (ZeRO-3).  The gather's backward is a reduce-scatter: the data ranks'
 cotangents summed, the rank's block kept, so an FSDP leaf's gradient is
 already the sum over the data ranks, which :func:`mean_data` only divides.
+Over a data axis of 1 the gather is the block itself: TP-only, bit for bit.
 
 Every collective the port issues goes through :func:`collective`, which
 records it in each active :func:`census` as the logical collective:
@@ -105,7 +106,6 @@ import torch.nn.functional as F
 from repro_torch.tree import tree_map
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 13b(ii)"
-FSDP_ROADMAP_ITEM = "ROADMAP Queue 1 item 13d"
 
 # the ambient mesh with its axis sizes, this rank's coordinates (read once:
 # a DeviceMesh recomputes its layout on every read of .mesh) and the data
@@ -157,11 +157,6 @@ def fsdp_axes() -> Tuple[str, ...]:
     """The data axes the ambient mesh FSDP-splits parameters over; () where
     it does not (or without a mesh)."""
     return _AMBIENT[-1][3] if _AMBIENT else ()
-
-
-def refuse_fsdp(what: str) -> None:
-    """Raise for a model that has no FSDP layers."""
-    raise NotImplementedError(f"{what} under FSDP: not implemented, {FSDP_ROADMAP_ITEM}")
 
 
 def axis_sizes(mesh: Any = None) -> Dict[str, int]:
@@ -461,7 +456,9 @@ def _gather(x: torch.Tensor, dim: int, axes: Tuple[str, ...]) -> torch.Tensor:
 def _reduce_scatter(g: torch.Tensor, dim: int, axes: Tuple[str, ...]) -> torch.Tensor:
     """The sum of ``g`` over the ranks of ``axes``, in fp32, cut to the
     rank's block of ``dim`` and cast back: an all-reduce then a narrow,
-    recorded as one reduce-scatter of the block."""
+    recorded as one reduce-scatter of the block.  The block is a copy of
+    its own, so that the whole sum is freed (a narrowed view would hold it
+    for as long as the gradient lives)."""
     n, i = _axes_block(axes)
     t = g.to(torch.float32, copy=True).contiguous()
     groups = tuple(_group(a) for a in reversed(axes))
@@ -471,7 +468,7 @@ def _reduce_scatter(g: torch.Tensor, dim: int, axes: Tuple[str, ...]) -> torch.T
         for grp in groups:
             dist.all_reduce(t, group=grp)
     collective("reduce-scatter", _nbytes(t) // n, groups, issue)
-    return t.narrow(dim, i * k, k).to(g.dtype)
+    return t.narrow(dim, i * k, k).to(g.dtype, copy=True)
 
 
 class _Gather(torch.autograd.Function):

@@ -3,8 +3,8 @@
 A rank of a mesh with a ``"model"`` axis holds only its block of every
 parameter, the block :func:`repro_torch.sharding.specs.param_specs` gives
 it: tensor and expert parallelism, and with ``fsdp=True`` the FSDP layout
-too (big dims split over the data axes as well, which the dense and MoE
-blocks gather where they start, :func:`repro_torch.sharding.hints.gather_data`;
+too (big dims split over the data axes as well, which every block
+gathers where it starts, :func:`repro_torch.sharding.hints.gather_data`;
 :func:`fsdp_dims` says which dim of each leaf):
 
 * :func:`shard_params` cuts a whole tree, e.g. the reference's weights
@@ -91,21 +91,25 @@ def _fsdp_dims(cfg: Any, sizes: Tuple[Tuple[str, int], ...]) -> dict:
     return {path: d for path, spec in flat.items() if (d := _data_dim(spec)) is not None}
 
 
+@functools.lru_cache(maxsize=1024)
+def _fsdp_dims_at(cfg: Any, sizes: Tuple[Tuple[str, int], ...], prefix: Tuple[str, ...]) -> dict:
+    n = len(prefix)
+    return {path[n:]: d for path, d in _fsdp_dims(cfg, sizes).items() if path[:n] == prefix}
+
+
 def fsdp_dims(cfg: Any, prefix: Tuple[str, ...]) -> dict:
     """{key path under ``prefix``: the dim FSDP splits over the data axes}
     of the leaves of ``cfg``'s parameters at ``prefix`` (e.g. ``("layers",
-    "0")``, a block; ``("final_norm",)``) under the ambient mesh; the other
+    "0")``, a block; ``("enc_norm",)``) under the ambient mesh; the other
     leaves are whole over the data axes."""
-    dims = _fsdp_dims(cfg, tuple(sorted(hints.axis_sizes().items())))
-    n = len(prefix)
-    return {path[n:]: d for path, d in dims.items() if path[:n] == prefix}
+    return _fsdp_dims_at(cfg, tuple(sorted(hints.axis_sizes().items())), tuple(prefix))
 
 
 def gather_fsdp(cfg: Any, tree: Any, prefix: Tuple[str, ...]) -> Any:
-    """``tree`` (the rank's blocks of the leaves at ``prefix``) with each
-    FSDP leaf gathered over the ambient FSDP axes (:func:`hints.gather_data`):
-    the blocks as the rank holds them without FSDP (``tree`` itself without
-    FSDP).  Every block of a stack has the same layout: pass its first."""
+    """``tree`` (the rank's blocks of the leaves at ``prefix``, its own key
+    path: a block's ``(stack, index)``) with each FSDP leaf gathered over
+    the ambient FSDP axes (:func:`hints.gather_data`): the blocks as the
+    rank holds them without FSDP (``tree`` itself without FSDP)."""
     if not hints.fsdp_axes():
         return tree
     dims = fsdp_dims(cfg, prefix)

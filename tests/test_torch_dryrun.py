@@ -1,7 +1,9 @@
 """``launch/dryrun.py`` against the reference's dry run, and against real ranks.
 
 * The decisions of every (arch × shape × mesh) combination of the ten
-  assigned archs and four shapes on both production meshes, and of the
+  assigned archs and four shapes on both production meshes and on the
+  4-rank meshes (2, 2), (4, 1) and (1, 4) (where the reference picks FSDP
+  for the hybrid, VLM and audio families too), and of the
   ``--kind fed3r`` statistics step at ``prefill_32k``: FSDP, microbatches,
   variant and the skip record equal the reference's, and the port's
   ``argument_size_in_bytes`` (on the meta device) equals the sum of the
@@ -14,8 +16,11 @@
   collectives (kinds, buffer bytes, group sizes, in order) that the real
   gloo ranks do running the same rank program, for train (FSDP and
   TP-only), prefill, decode and the statistics step of a dense and an MoE
-  smoke widened to d_model 1024 (FSDP splits no dim under 1024); and one
-  dense block issues its known collectives.
+  smoke widened to d_model 1024 (FSDP splits no dim under 1024), and the
+  hybrid's FSDP train and statistics steps; one dense block issues its
+  known collectives; and FSDP over a data axis of 1 (the reference's
+  decision for the hybrid's ``train_4k`` at (1, 4)) serves TP-only's
+  logits bitwise.
 * The command line at smoke width on the CPU writes a JSONL record with
   the reference's keys, and an error exits 1; a fake world is refused by
   every other mesh; the int8 KV cache of full-width ``qwen2-7b`` takes
@@ -28,6 +33,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -48,7 +54,13 @@ from repro_torch.sharding.shard import fsdp_dims  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
-MESHES = {"16x16": {"data": 16, "model": 16}, "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+PRODUCTION = {"16x16": {"data": 16, "model": 16}, "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+# the 4-rank meshes the port runs on real ranks: there the reference picks
+# FSDP for the hybrid, VLM and audio families too
+SMALL = {"2x2": {"data": 2, "model": 2}, "4x1": {"data": 4, "model": 1},
+         "1x4": {"data": 1, "model": 4}}
+MESHES = {**PRODUCTION, **SMALL}
+FAMILY_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b", "qwen2-vl-2b", "whisper-large-v3")
 
 # the reference's decisions and argument bytes of each combination, keyed
 # "arch|shape|mesh|kind"; run in a subprocess of 512 host devices
@@ -69,8 +81,8 @@ _REFERENCE = textwrap.dedent('''
                        * jnp.dtype(l.dtype).itemsize for l, s in zip(leaves, sps)))
 
     devs, out = np.array(jax.devices()), {}
-    for multi in (False, True):
-        dims = (2, 16, 16) if multi else (16, 16)
+    for dims in ((16, 16), (2, 16, 16), (2, 2), (4, 1), (1, 4)):
+        multi = len(dims) == 3
         axes = ("pod", "data", "model") if multi else ("data", "model")
         mesh = Mesh(devs[:math.prod(dims)].reshape(dims), axes)
         ax, da = dict(zip(axes, dims)), tuple(a for a in axes if a != "model")
@@ -78,7 +90,7 @@ _REFERENCE = textwrap.dedent('''
             for name, shape in INPUT_SHAPES.items():
                 kinds = (shape.kind, "fed3r") if name == "prefill_32k" else (shape.kind,)
                 for kind in kinds:
-                    key = "|".join((arch, name, "2x16x16" if multi else "16x16", kind))
+                    key = "|".join((arch, name, "x".join(map(str, dims)), kind))
                     cfg = variant_for(get_config(arch), shape)
                     if cfg is None:  # lower_one returns before it compiles
                         rec = jd.lower_one(arch, name, multi_pod=multi, mesh=mesh,
@@ -135,10 +147,9 @@ def _port(key):
 
 def test_every_combination_is_covered(reference):
     assert sorted(reference) == sorted(KEYS)
-    assert len(KEYS) == len(ASSIGNED_ARCHS) * 4 * 2 + len(ASSIGNED_ARCHS) * 2
+    assert len(KEYS) == (len(ASSIGNED_ARCHS) * 4 + len(ASSIGNED_ARCHS)) * len(MESHES)
     skipped = [k for k, v in reference.items() if v["status"] == "skipped"]
-    assert sorted(skipped) == ["whisper-large-v3|long_500k|16x16|decode",
-                               "whisper-large-v3|long_500k|2x16x16|decode"]
+    assert sorted(skipped) == sorted(f"whisper-large-v3|long_500k|{m}|decode" for m in MESHES)
 
 
 @pytest.mark.parametrize("key", KEYS)
@@ -159,13 +170,33 @@ def test_argument_bytes_equal_the_references_shard_shapes(reference, key):
 
 
 def test_fsdp_picks_the_references_archs(reference):
-    """FSDP in train and serving for command-r-plus and llama4-scout, in
-    train only for deepseek-coder-33b; no other assigned arch passes a
-    threshold."""
-    fsdp = {(k.split("|")[0], k.split("|")[3]) for k, v in reference.items() if v.get("fsdp")}
+    """On the production meshes: FSDP in train and serving for
+    command-r-plus and llama4-scout, in train only for deepseek-coder-33b;
+    no other assigned arch passes a threshold."""
+    fsdp = {(k.split("|")[0], k.split("|")[3]) for k, v in reference.items()
+            if v.get("fsdp") and k.split("|")[2] in PRODUCTION}
     assert {a for a, _ in fsdp} == {"command-r-plus-104b", "llama4-scout-17b-a16e",
                                     "deepseek-coder-33b"}
     assert {k for a, k in fsdp if a == "deepseek-coder-33b"} == {"train"}
+
+
+@pytest.mark.parametrize("mesh", list(SMALL))
+def test_fsdp_reaches_the_other_families_on_small_meshes(reference, mesh):
+    """On the 4-rank meshes the reference picks FSDP for recurrentgemma-9b
+    at (2, 2) and (4, 1) in every step, at (1, 4) for train_4k (over a data
+    axis of 1), and for qwen2-vl-2b's and whisper-large-v3's train_4k at
+    (4, 1); never for mamba2-1.3b."""
+    fsdp = {(k.split("|")[0], k.split("|")[1], k.split("|")[3]) for k, v in reference.items()
+            if v.get("fsdp") and k.split("|")[2] == mesh}
+    want = {
+        "2x2": {("recurrentgemma-9b", n, k) for n, k in
+                [("train_4k", "train"), ("prefill_32k", "prefill"), ("prefill_32k", "fed3r"),
+                 ("decode_32k", "decode"), ("long_500k", "decode")]},
+        "1x4": {("recurrentgemma-9b", "train_4k", "train")},
+    }
+    want["4x1"] = want["2x2"] | {(a, "train_4k", "train")
+                                 for a in ("qwen2-vl-2b", "whisper-large-v3")}
+    assert {f for f in fsdp if f[0] in FAMILY_ARCHS} == want[mesh]
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +205,7 @@ def test_fsdp_picks_the_references_archs(reference):
 
 WIDE = {"d_model": 1024, "d_ff": 2048}  # FSDP splits only dims of 1024 and more
 MOE_WIDE = {"d_model": 1024}
+HYBRID_WIDE = dict(WIDE, lru_width=1024)
 TRAIN = dict(name="train_4k", seq_len=32, global_batch=8, kind="train")
 PREFILL = dict(name="prefill_32k", seq_len=32, global_batch=4, kind="prefill")
 DECODE = dict(name="decode_32k", seq_len=32, global_batch=4, kind="decode")
@@ -194,6 +226,10 @@ JOBS = [
          fsdp=True),
     dict(name="moe prefill fsdp", arch="deepseek-moe-16b-smoke", shape=PREFILL,
          overrides=MOE_WIDE, fsdp=True),
+    dict(name="hybrid train fsdp", arch="recurrentgemma-9b-smoke", shape=TRAIN,
+         overrides=HYBRID_WIDE, fsdp=True),
+    dict(name="hybrid fed3r fsdp", arch="recurrentgemma-9b-smoke", shape=PREFILL,
+         overrides=HYBRID_WIDE, kind="fed3r", fsdp=True),
 ]
 CENSUS_MESHES = [(1, 4), (2, 2)]
 
@@ -214,6 +250,13 @@ def censuses(tmp_path_factory):
     the fake worlds in one subprocess (so no fake world enters pytest)."""
     jobs = [dict(job, name=f"{job['name']}@{d}x{m}", job="dryrun", data=d, model=m)
             for d, m in CENSUS_MESHES for job in JOBS]
+    # FSDP over a data axis of 1, as the reference decides for the hybrid's
+    # train_4k at (1, 4), against TP-only
+    cfg = get_config("recurrentgemma-9b-smoke").replace(**HYBRID_WIDE)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 40))
+    jobs.append(dict(name="data 1", job="serve", arch="recurrentgemma-9b-smoke", data=1,
+                     model=4, overrides=dict(HYBRID_WIDE, dtype="float32"),
+                     prompts=toks[:, :36], decode=toks[:, 36:]))
     real = run_world(dist_check.fsdp_program, 4, backend="gloo", device="cpu", timeout_s=600,
                      args=(jobs,))
     tmp = tmp_path_factory.mktemp("dryrun")
@@ -239,6 +282,17 @@ def test_the_fake_worlds_census_equals_the_real_ranks(censuses, mesh, job):
         assert got["built_bytes"] == want["built_bytes"]
         assert got["peak_bytes"] is None and want["peak_bytes"] is None  # the CPU
     assert len(want["census"]) > 0
+
+
+def test_fsdp_over_a_data_axis_of_1_is_tp_only_bitwise(censuses):
+    """(data 1, model 4) with FSDP: the gathers are the blocks themselves,
+    so prefill and decode logits and the collectives are TP-only's."""
+    real, _ = censuses
+    for r in range(4):
+        got = real[r]["data 1"]
+        assert np.array_equal(got["fsdp"]["prefill"], got["tp"]["prefill"])
+        assert np.array_equal(got["fsdp"]["decode"], got["tp"]["decode"])
+        assert got["census fsdp"] == got["census tp"]
 
 
 def _kinds(census):

@@ -19,8 +19,7 @@ no dim under 1024:
 * MoE capacity groups that span two data ranks (the multi-pod layout:
   pod 2 × data 2, G = 2) against the reference's groups on the whole batch.
 
-Then, on a one-rank world, what FSDP refuses: the SSM, hybrid, VLM and
-audio stacks.
+The SSM, hybrid, VLM and audio stacks under FSDP: ``tests/test_torch_fsdp_families.py``.
 """
 import re
 import threading
@@ -40,13 +39,10 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import dist_check  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.launch.world import run_world, single_rank_world  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
-from repro_torch.sharding import hints  # noqa: E402
-from repro_torch.sharding.shard import seeded_factory, shard_params_from  # noqa: E402
 from repro_torch.sharding.specs import map_with_path  # noqa: E402
+from torch_families import by_microbatch  # noqa: E402
 
 REL = 1e-5  # a leaf's gradient gap over its max|g|: summation order only
 FT_BF16_REL = 4 * 2.0 ** -8  # the bf16 step's dtheta (tests/test_torch_tp_train.py)
@@ -56,18 +52,6 @@ SMOKES = {"dense": ("qwen2-7b-smoke", WIDE), "moe": ("deepseek-moe-16b-smoke", M
 STEP = dict(lr=0.1, num_microbatches=2, B=4, S=16)
 GROUPS = dict(arch="deepseek-moe-16b-smoke", overrides={"dtype": "float32",
                                                         "capacity_factor": 0.5}, B=8, S=8)
-
-
-def _by_microbatch(batch, dp, M):
-    """The global batch's rows laid out so each of ``dp`` data ranks' blocks
-    holds its block of every global microbatch in order: make_train_step
-    splits a rank's rows into M contiguous microbatches, and the
-    reference's microbatch i is global rows [i·B/M, (i+1)·B/M) (MoE
-    capacity and the load-balance loss are per microbatch)."""
-    B = len(next(iter(batch.values())))
-    k = B // (M * dp)
-    order = [i * B // M + d * k + j for d in range(dp) for i in range(M) for j in range(k)]
-    return {name: v[order] for name, v in batch.items()}
 
 
 def _init(arch, over, seed):
@@ -88,7 +72,7 @@ def world():
         batch = dist_check.grad_batch(jcfg, 6, STEP["B"], STEP["S"])
         jobs.append(dict(name=f"step {family}", job="step", arch=arch, model=2, overrides=over,
                          params=jax.tree.map(np.asarray, jparams),
-                         batch=_by_microbatch(batch, 2, STEP["num_microbatches"]),
+                         batch=by_microbatch(batch, 2, STEP["num_microbatches"]),
                          lr=STEP["lr"], num_microbatches=STEP["num_microbatches"], fsdp=True))
         refs[family] = (jcfg, jparams, batch)
     pcfg = get_config("qwen2-7b-smoke").replace(**WIDE)
@@ -219,17 +203,3 @@ def test_the_fsdp_gather_and_its_gradient_under_vmap(world):
         # each data rank's 2·(the gathered x), reduce-scattered: 4x on the block
         assert np.array_equal(got["grad looped"],
                               4 * (np.arange(24, dtype=np.float32).reshape(3, 2, 4) + 100 * r))
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "recurrentgemma-9b-smoke",
-                                  "qwen2-vl-2b-smoke", "whisper-large-v3-smoke"])
-def test_fsdp_is_refused_outside_the_dense_and_moe_stacks(arch):
-    cfg = get_config(arch).replace(dtype="float32")
-    with single_rank_world("gloo", "cpu"):
-        mesh = make_host_mesh(1, device_type="cpu")
-        params = shard_params_from(cfg, seeded_factory(0), mesh, "cpu", fsdp=True)
-        batch = dist_check.grad_batch(cfg, 0, 1, 4)
-        batch = {k: torch.as_tensor(v) for k, v in batch.items() if k != "labels"}
-        with hints.use_mesh(mesh, fsdp=True), torch.no_grad(), \
-                pytest.raises(NotImplementedError, match="item 13d"):
-            build_model(cfg).forward(params, batch)

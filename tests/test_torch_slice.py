@@ -154,10 +154,10 @@ def test_client_sampler_draws_the_reference_clients(replacement, n_clients, per_
     assert got.rounds_to_full_coverage() == want.rounds_to_full_coverage()
 
 
-def test_fed3r_rf_and_finetuning_are_not_ported_yet(fed_data):
-    # both are ported now: FED3R-RF (tests/test_torch_rff.py holds it against
-    # the reference) and fine-tuning (tests/test_torch_ft.py); train.run
-    # takes rounds > 0 and runs phase 2 after phase 1
+def test_fed3r_rf_and_train_phase_2_both_run(fed_data):
+    # FED3R-RF (tests/test_torch_rff.py holds it against the reference) and
+    # fine-tuning (tests/test_torch_ft.py): train.run takes rounds > 0 and
+    # runs phase 2 after phase 1
     _, test, pfed = fed_data
     W, stats, _ = fed3r_driver.run_fed3r(pfed, np.asarray(test.features), np.asarray(test.labels),
                                          Fed3RConfig(n_classes=6, n_random_features=64),

@@ -98,6 +98,18 @@ def batch_np(cfg, B, S, seed=0) -> dict:
     return b
 
 
+def by_microbatch(batch, dp, M) -> dict:
+    """The global batch's rows laid out so each of ``dp`` data ranks' blocks
+    holds its block of every global microbatch in order: make_train_step
+    splits a rank's rows into M contiguous microbatches, and the
+    reference's microbatch i is global rows [i·B/M, (i+1)·B/M) (MoE
+    capacity and the load-balance loss are per microbatch)."""
+    B = len(next(iter(batch.values())))
+    k = B // (M * dp)
+    order = [i * B // M + d * k + j for d in range(dp) for i in range(M) for j in range(k)]
+    return {name: v[order] for name, v in batch.items()}
+
+
 def named_leaves(tree, prefix="") -> dict:
     """{path: leaf} of a cache tree (dicts, and an audio layer's (k, v))."""
     if isinstance(tree, dict):
