@@ -91,6 +91,16 @@ counts just after.
                 1 and (int8) quantize_tiles and dequant_acc 4 a segment; no
                 host sync in an overlapped ``absorb_segment``,
                 ``tier_overlap_efficiency`` 1.0.
+14b. examples -- the six scripts of ``examples_torch/`` (EXAMPLES) on the
+                card at their own sizes, each against the same script on
+                the CPU from the same host-drawn data: the round counts,
+                clients seen and alpha choices equal, accuracies within one
+                test sample, the exact-aggregation gaps within 1e-5,
+                serve_demo's fp32 tokens equal and logits within 2e-4, each
+                script's kernel launched (fed3r_stats, chol_gram,
+                batched_chol_gram, flash_attention, rff); then
+                ``train_fed3r_ft`` at full width (``fed3r-mnv2-proxy``, 1 FT
+                round) on the card; each script's launches printed.
 15. dist     -- the psum backend (``DistConfig(aggregation="psum", mesh=
                 make_host_mesh())``), first at world 1 under NCCL in this
                 process: ``launch/train.py`` phase 1 (A, b bitwise [slice]'s)
@@ -129,8 +139,13 @@ counts just after.
                 peak memory a rank and unsharded; then deepseek-moe-16b-smoke
                 and qwen2-7b-smoke in fp32 on (data 2, model 2), the card
                 against the CPU, the MoE's capacity groups G = 2 with equal
-                drop shares.  gloo stages CUDA tensors through the host, so
-                no sync-debug gate runs here.
+                drop shares; and the layouts the sharded layers once refused
+                (TP_LAYOUT_JOBS, smoke width, fp32): Mamba2 with SSD heads
+                no rank splits, 12 q / 3 kv heads at model 2 (two flash
+                launches a layer a rank), Whisper's cross-attention split
+                over its frames, each within 1e-5 of the same model
+                unsharded on the card.  gloo stages CUDA tensors through the
+                host, so no sync-debug gate runs here.
 16b. tp-train -- the backward under a "model" axis, fp32,
                 ``seeded_factory(0)`` weights, on 4 gloo ranks sharing the
                 card (``launch/dist_check.py::tp_train_program``): each
@@ -144,8 +159,8 @@ counts just after.
                 seeded on every model rank) above it; ms and peak a rank
                 against unsharded.  Then ``launch/train.py``'s ``run`` on
                 ``fed3r-mnv2-proxy`` at full width (phase 1 through
-                fed3r_stats, then 2 FT-FEAT FedAvg rounds of 4 clients x 2
-                steps x 32 x 32 tokens) in this process, then at (1, 4)
+                fed3r_stats, then 2 FT-FEAT FedAvg rounds of 4 clients x 1
+                step x up to 64 x 32 tokens) in this process, then at (1, 4)
                 (the row-parallel attention: 10 heads) and (2, 2)
                 (head-parallel): the gathered dtheta within FT_ROUND_REL of
                 this process's, the replicated leaves bitwise equal across a
@@ -311,12 +326,18 @@ SMOKE_W_ATOL = 1e-2
 # the simulator's W against the centralized solve: Gaussian class clusters
 # with n >> d keep A well-conditioned, so fp32 reassociation only
 SIM_W_ATOL = 1e-4
-KERNEL_SHAPES_RAGGED = [(513, 1281, 37), (64, 32, 5)]
+# (n, d, C): ragged, then the client slots of [examples]' scripts:
+# quickstart's, fed3r_vs_fedavg's (its fed3r and fed3r-rf rows),
+# train_fed3r_ft's at its smoke width and at full width
+KERNEL_SHAPES_RAGGED = [(513, 1281, 37), (64, 32, 5), (128, 64, 10), (128, 48, 20),
+                        (128, 1024, 20), (72, 128, 16), (72, 1280, 16)]
 # FED3R-RF at D = repro_torch.configs.simulator.RF_D, sigma from the config
 # default (paper App. C); psi is bounded by sqrt(2/D), so the kernel holds
 # its plain version within 1e-5 of that bound
 RFF_REL = 1e-5
-RFF_SHAPES_RAGGED = [(37, 100, 130)]
+# (n, d, D): ragged, then fed3r_vs_fedavg's rf row in [examples] (a round's
+# shard, and its test set)
+RFF_SHAPES_RAGGED = [(37, 100, 130), (1280, 48, 1024), (2400, 48, 1024)]
 # both rff instances give the same bits (one fmaf chain an element in k
 # order, whichever thread runs it), each within RFF_REL of the plain
 # version: one sample, d % 4 != 0, D % 4 != 0, d < 16 (the paths' shapes:
@@ -330,8 +351,10 @@ RFF_EDGES = [(1, 37, 130), (37, 130, 130), (130, 37, 4999), (5, 7, 64), (300, 12
 # last tile (single elements)
 QUANT_EDGES = [(7, 5, 1), (100, 96, 16), (130, 100, 64), (1280, 1280, 128), (1280, 100, 128),
                (450, 600, 200), (33, 190, 128), (129, 77, 16)]
-CHOL_SHAPES_RAGGED = [(130, 77, 7)]
-BATCHED_SHAPES_RAGGED = [(3, 130, 77, 7)]  # (K, d, n, C)
+# (d, n, C) and (K, d, n, C): ragged, then streaming_fed3r's wave and
+# personalized_fed3r's cohort in [examples]
+CHOL_SHAPES_RAGGED = [(130, 77, 7), (32, 400, 10)]
+BATCHED_SHAPES_RAGGED = [(3, 130, 77, 7), (16, 32, 272, 10)]
 # the streaming path: the reference driver's own dataset at full width
 STREAM = dict(n_waves=24, rate=4.0, segment=6, n_clients=100, d=1280, n_classes=100,
               ridge_lambda=0.01, seed=0)
@@ -371,6 +394,24 @@ QUANT_SHAPES = [(1280, 1280, 128), (1280, 100, 128), (5000, 5000, 128), (200, 15
 # DIST_WORLD gloo ranks sharing the card (NCCL takes one card a rank), each
 # a deadline; the 32 tenants of the [heads] refit's cohort; the async ring's
 # clients of 64 grid-exact rows at d 1280 (every fp32 partial sum exact)
+# [examples]: the six scripts of examples_torch/ at their own sizes on the
+# card, each against the same script on the CPU (its data and weights drawn
+# on the host: the same numbers on both); serve_demo in fp32 (a bf16
+# near-tie could flip a token; its logits within SMOKE_SERVE's rel);
+# train_fed3r_ft one FT round at its default smoke width against the CPU,
+# then at full width (fed3r-mnv2-proxy, d 1280) on the card alone (the CPU
+# would take minutes there).  The kernel each script must reach on the
+# card: name -> (extra arguments, the kernel)
+EXAMPLES = {
+    "quickstart": ([], "fed3r_stats"),
+    "streaming_fed3r": ([], "chol_gram"),
+    "personalized_fed3r": ([], "batched_chol_gram"),
+    "serve_demo": (["--dtype", "float32"], "flash_attention"),
+    "fed3r_vs_fedavg": ([], "rff"),
+    "train_fed3r_ft": (["--rounds", "1"], "fed3r_stats"),
+}
+EXAMPLES_FULL = ["--arch", "fed3r-mnv2-proxy", "--rounds", "1"]
+EXAMPLE_GAP = 1e-5  # the exact-aggregation gaps (quickstart, the streaming engine, the heads)
 DIST_WORLD = 4
 DIST_TIMEOUT_S = 420
 DIST_HEADS = 32
@@ -481,6 +522,22 @@ TP_PEAK_SHARE = {"moe": 0.34, "hybrid": 0.39, "vlm": 0.41, "audio": 0.78, "ssm":
 TP_SMOKE = ("deepseek-moe-16b-smoke", "qwen2-7b-smoke", "recurrentgemma-9b-smoke",
             "qwen2-vl-2b-smoke", "whisper-large-v3-smoke", "mamba2-1.3b-smoke")
 TP_SMOKE_SHAPE = dict(B=4, S=20, S0=15, T=4)
+# the layouts the sharded layers once refused, in the [tp] world at smoke
+# width in fp32 from seeded_factory(0), against the same model unsharded on
+# the card (tests/test_torch_layouts.py holds them against the reference):
+# label -> (arch, replacements, (data, model), B, prompt S0, decode T).
+# Mamba2 with 3 SSD heads (no rank splits them); 12 q / 3 kv heads at
+# "model" 2 (6 q heads a rank read kv heads 4 + 2 and 2 + 4 times: two flash
+# launches a layer a rank); Whisper with 3 kv heads (its 32 frames split
+# over 4 ranks: the cross-attention combines the ranks' softmax pieces)
+TP_LAYOUT_JOBS = {
+    "mamba2 3 heads": ("mamba2-1.3b-smoke", {"d_model": 96, "ssm_headdim": 64}, (1, 4), 4, 32,
+                       4),
+    "dense 12/3": ("qwen2-7b-smoke", {"n_heads": 12, "n_kv_heads": 3}, (2, 2), 4, 15, 4),
+    "whisper 3 heads": ("whisper-large-v3-smoke", {"n_heads": 3, "n_kv_heads": 3}, (1, 4), 4, 8,
+                        4),
+}
+TP_LAYOUT_REL = 1e-5  # of max|logit|, fp32: summation order only
 # [tp-train]: lm_loss's gradient of each TP_RUNS family at its [tp] depth
 # cut (llama4-scout and recurrentgemma-9b cut further, TP_GRAD_LAYERS), fp32,
 # seeded_factory(0) weights, unsharded first (on rank 0, kept on the host,
@@ -517,15 +574,17 @@ TP_TRAIN_TIMEOUT_S = 900
 # FT-FEAT FedAvg rounds from the seeded head (phase 1's calibrated head is
 # saturated here: every sample carries its class as a prefix token, so the
 # temperature lands on the grid's floor and the rounds' dtheta on 1e-9) of
-# 4 clients x 2 steps x 32 sequences x 32 tokens (cut from 128 tokens: a
-# (1, 4) round all-reduces ~90 whole activations a step through the host,
-# 18-25 s a round at 128 tokens); a resume from the round-1 checkpoint at
-# (1, 4), whose all-reduces sum 4 ranks' partials and whose attention is
+# 4 clients x 1 step x up to 64 sequences x 32 tokens (cut from 128 tokens:
+# a (1, 4) round all-reduces ~90 whole activations a step through the host,
+# 18-25 s a round at 128 tokens; and from 2 steps of 32 sequences, 18 and
+# 12 s a round at (1, 4) on an H100, NVIDIA H100 80GB HBM3, 700 W, when the
+# examples phase came); a resume from the round-1 checkpoint at (1, 4),
+# whose all-reduces sum 4 ranks' partials and whose attention is
 # row-parallel (the resume at (2, 2), bitwise too on an H100, cost its job
-# 52 s, its two compressed 390 MB checkpoint writes the most of it; the
-# CPU tests resume at (1, 2), (2, 2) and (1, 4))
+# 52 s with compressed checkpoints; the CPU tests resume at (1, 2), (2, 2)
+# and (1, 4))
 TP_FT = dict(n_samples=512, seq_len=32, n_classes=16, n_clients=16, clients_per_round=4,
-             rounds=2, local_batch_size=32, use_fed3r_init=False)
+             rounds=2, local_batch_size=64, use_fed3r_init=False)
 TP_FT_MESHES = ((1, 4), (2, 2))
 TP_FT_RESUME = (1, 4)
 # the sharded runs against one process, each twice one sound reading on an
@@ -533,8 +592,12 @@ TP_FT_RESUME = (1, 4)
 # each; the proxy's bf16 features rounded apart where the sharded layers
 # sum partial products) read 3.5804e-3 at (1, 4), 2.6565e-3 at (2, 2); the
 # gathered dtheta after 2 rounds (of max|dtheta| 2.16e-2; bf16 activations)
-# read 1.6666e-3 and 1.8008e-3.  FT_ROUND_REL (2e-3, the round engine
-# against the per-client loop in one process) would leave 10% of margin.
+# read 1.6666e-3 and 1.8008e-3 at 2 local steps, 1.9322e-3 and 1.5451e-3
+# at 1.  FT_ROUND_REL (2e-3, the round engine against the per-client loop
+# in one process) would leave 3.5% of margin.  Since train.run draws its
+# weights and data on the host (other numbers than the card's generator
+# gave) they read 3.9399e-3 and 2.7698e-3 (A and b), 1.5311e-3 and
+# 1.4113e-3 of max|dtheta| 2.3954e-2 (dtheta), the same H100.
 TP_STATS_REL = 7.2e-3
 TP_FT_REL = 3.6e-3
 # [dryrun] (a): launch/dryrun.py's rank program at (data 2, model 2), full
@@ -593,9 +656,12 @@ DRYRUN_RANK_GIB = (26.0, 15.0, 15.0, 15.0)
 # 4, model 1); full width, depth cut for time, FSDP forced on:
 # * recurrentgemma-9b 3 layers (one (rec, rec, attn) super-block), bf16:
 #   a prefill of 2 x 4096 tokens (one row a data rank), past the 2048
-#   window, through flash on each rank's 8 of 16 heads, then 16
-#   teacher-forced decode steps, in the TP-only and the FSDP layouts from
-#   the same seeded weights: logits bitwise equal (a gather is exact);
+#   window, through flash on each rank's 8 of 16 heads, then 4
+#   teacher-forced decode steps (16 until the examples phase came: each
+#   FSDP step re-gathers every block through gloo's host staging, 2 s a
+#   step on an H100, NVIDIA H100 80GB HBM3, 700 W), in the TP-only and the
+#   FSDP layouts from the same seeded weights: logits bitwise equal (a
+#   gather is exact);
 # * its lm_loss gradient in fp32 on 2 x 256 tokens against the unsharded
 #   one (TP_GRAD_REL a leaf) and FSDP_FAULTS above it;
 # * its statistics step (--kind fed3r, 2 x 4096 tokens) in DRYRUN_REAL:
@@ -604,7 +670,7 @@ DRYRUN_RANK_GIB = (26.0, 15.0, 15.0, 15.0)
 #   (1 + 1 layers, 1500 frames a row) and qwen2-vl-2b (1 layer, 256 stub
 #   patches before the text) at (4, 1), TP_GRAD_REL a leaf.
 DRYRUN_HYBRID = dict(arch="recurrentgemma-9b", overrides={"n_layers": 3})
-DRYRUN_HYBRID_SERVE = dict(B=2, S=4096, T=16)
+DRYRUN_HYBRID_SERVE = dict(B=2, S=4096, T=4)
 DRYRUN_HYBRID_GRAD = dict(B=2, S=256)
 DRYRUN_DATA4 = (("whisper-large-v3", {"n_layers": 1, "n_encoder_layers": 1}, 4, 64),
                 ("qwen2-vl-2b", {"n_layers": 1}, 4, 128))
@@ -776,21 +842,34 @@ FAMILY_ORACLE = {"ssm": (512, 1e-4), "hybrid": (2048, 1e-4), "vlm": (512, 1e-4),
 # 256 patches + 248, and whisper-large-v3's 5/5 x 64, the encoder's over
 # 1500 frames with causal off and the decoder's causal over 64, and
 # [dryrun] (a)'s recurrentgemma-9b prefill at (data 2, model 2): a rank's
-# row of 4096 tokens on its 8 of 16 heads in the 2048 window; times (bf16)
-# at the shapes and windows FLASH_TIMED names
+# row of 4096 tokens on its 8 of 16 heads in the 2048 window, and
+# [tp]'s layout jobs (TP_LAYOUT_JOBS, fp32 in the job): dense 12/3 at
+# (2, 2), a rank's two runs of uniform group size 4/1 and 2/1 over 15
+# tokens, the same model unsharded 12/3, Whisper with 3 heads (not split
+# over 4) the encoder's 3/3 over 32 frames with causal off and the
+# decoder's causal over 8, and [examples]' serve_demo (fp32): the hybrid's
+# 4/1 in its 32 window, Whisper's 4/4 over 32 frames with causal off and
+# causal, the dense 8/2; times (bf16) at the shapes and windows FLASH_TIMED
+# names
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_SHAPES = [(8, 2048, 28, 4, 128), (1, 8192, 28, 4, 128), (1, 128, 2, 2, 32),
                 (2, 256, 4, 2, 64), (1, 384, 8, 1, 16), (1, 1000, 28, 4, 128), (3, 77, 4, 1, 64),
                 (2, 4096, 16, 1, 256), (2, 300, 4, 2, 96), (8, 2048, 16, 16, 128),
                 (8, 2304, 12, 2, 128), (16, 1500, 20, 20, 64), (2, 1500, 20, 20, 64),
                 (16, 224, 20, 20, 64), (4, 256, 10, 2, 128), (2, 2556, 4, 1, 256),
-                (4, 504, 3, 1, 128), (4, 1500, 5, 5, 64), (4, 64, 5, 5, 64), (1, 4096, 8, 1, 256)]
+                (4, 504, 3, 1, 128), (4, 1500, 5, 5, 64), (4, 64, 5, 5, 64), (1, 4096, 8, 1, 256),
+                (2, 15, 4, 1, 32), (2, 15, 2, 1, 32), (4, 15, 12, 3, 32), (4, 32, 3, 3, 32),
+                (4, 8, 3, 3, 32), (2, 32, 4, 1, 32), (2, 32, 4, 4, 32), (2, 32, 8, 2, 32)]
 # the (causal, window) runs of a shape; else causal with no window and with 128
 FLASH_MODES = {(2, 4096, 16, 1, 256): ((True, None), (True, 2048), (True, 128)),
                (3, 77, 4, 1, 64): ((True, None), (True, 128), (False, None)),
                (16, 1500, 20, 20, 64): ((False, None),), (2, 1500, 20, 20, 64): ((False, None),),
                (2, 2556, 4, 1, 256): ((True, 2048),), (4, 1500, 5, 5, 64): ((False, None),),
-               (1, 4096, 8, 1, 256): ((True, 2048),)}
+               (1, 4096, 8, 1, 256): ((True, 2048),), (2, 15, 4, 1, 32): ((True, None),),
+               (2, 15, 2, 1, 32): ((True, None),), (4, 15, 12, 3, 32): ((True, None),),
+               (4, 32, 3, 3, 32): ((False, None),), (4, 8, 3, 3, 32): ((True, None),),
+               (2, 32, 4, 1, 32): ((True, 32),), (2, 32, 4, 4, 32): ((True, None), (False, None)),
+               (2, 32, 8, 2, 32): ((True, None),)}
 FLASH_TIMED = {((8, 2048, 28, 4, 128), None): "serve", ((1, 8192, 28, 4, 128), None): "long",
                ((2, 4096, 16, 1, 256), None): "hd-256",
                ((8, 2048, 16, 16, 128), None): "serve-moe",
@@ -2653,6 +2732,117 @@ def phase_tiers(torch, ops) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _within_one(a, b, n) -> bool:
+    """Accuracies within one of ``n`` test samples (lists elementwise)."""
+    return bool(np.abs(np.subtract(a, b)).max() <= 1.0 / n + 1e-9)
+
+
+def _example_checks(name: str, card_: dict, cpu: dict) -> dict:
+    """The gates of one example's figures on the card against the CPU's."""
+    if name == "quickstart":
+        return {"round counts and clients seen equal": (card_["rounds"], card_["clients_seen"])
+                == (cpu["rounds"], cpu["clients_seen"]),
+                "accuracies within one test sample": _within_one(
+                    card_["accuracy"], cpu["accuracy"], card_["n_test"]),
+                f"exact-aggregation gaps within {EXAMPLE_GAP:g}":
+                    max(card_["gap"], cpu["gap"]) <= EXAMPLE_GAP}
+    if name == "streaming_fed3r":
+        return {"waves and dispatches equal": all(card_[k] == cpu[k] for k in (
+                    "n_waves", "n_samples", "dispatches", "legacy_dispatches")),
+                "served accuracy within one test sample": _within_one(
+                    card_["accuracy"], cpu["accuracy"], card_["n_test"]),
+                f"factored engine within {EXAMPLE_GAP:g} of the batch re-solve":
+                    max(card_["err_factored"], cpu["err_factored"]) <= EXAMPLE_GAP}
+    if name == "personalized_fed3r":
+        return {"alpha choices equal": card_["alpha"] == cpu["alpha"],
+                "per-tenant accuracies within one evaluation sample": all(
+                    _within_one(card_[k][i], cpu[k][i], n) for k in ("acc_global",
+                                                                      "acc_personalized")
+                    for i, n in enumerate(card_["n_eval"])),
+                f"engine within {EXAMPLE_GAP:g} of the per-client loop":
+                    max(card_["engine_vs_loop"], cpu["engine_vs_loop"]) <= EXAMPLE_GAP,
+                "alpha = 0 heads bitwise the global one": card_["alpha0_bitwise"]}
+    if name == "serve_demo":
+        from repro_torch.configs import get_config
+
+        out = {}
+        for arch, c in card_.items():
+            rel = _tp_rel(c["logits"], cpu[arch]["logits"])
+            out[f"{arch}: tokens equal, logits within {SMOKE_SERVE['rel']:g} ({rel:.3e})"] = (
+                np.array_equal(c["tokens"], cpu[arch]["tokens"]) and rel <= SMOKE_SERVE["rel"])
+            out[f"{arch}: flash launches {c['prefill_launches']} a prefill (one an attention "
+                "layer), 0 in decode"] = (
+                c["prefill_launches"] == _attention_layers(get_config(arch))
+                and c["decode_launches"] == 0)
+        return out
+    if name == "fed3r_vs_fedavg":
+        rows, want, n = card_["rows"], cpu["rows"], card_["n_test"]
+        return {f"{row}: rounds, upload and FLOPs equal, accuracy within one test sample": (
+                    all(rows[row][k] == want[row][k] for k in ("rounds", "up_bytes", "flops"))
+                    and _within_one(rows[row]["acc"], want[row]["acc"], n)) for row in want}
+    return {"round counts equal": card_["rounds"] == cpu["rounds"],
+            "closed-form and FT accuracies within one test sample": _within_one(
+                [card_["fed3r_acc"]] + card_["ft_acc"], [cpu["fed3r_acc"]] + cpu["ft_acc"],
+                card_["n_test"])}
+
+
+def phase_examples(torch, ops) -> dict:
+    """The six examples_torch/ scripts on the card, each held against the
+    same script on the CPU (EXAMPLES), then train_fed3r_ft at full width
+    on the card; each card run's kernel launches (counts reset before,
+    read after) printed, the kernel it must reach launched."""
+    import importlib
+    import io
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    t_all = time.perf_counter()
+    checks, launches = {}, {}
+    for name, (extra, kernel) in EXAMPLES.items():
+        mod = importlib.import_module(f"examples_torch.{name}")
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        card_ = mod.main(["--device", "cuda"] + extra)
+        torch.cuda.synchronize()
+        counts = read_counts(ops)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = mod.main(["--device", "cpu"] + extra)
+        t_cpu = time.perf_counter() - t0
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        checks[f"{name}: {kernel} launched on the card"] = counts[kernel] > 0
+        for what, ok in _example_checks(name, card_, cpu).items():
+            checks[f"{name}: {what}"] = ok
+        log(f"[examples] {name} {' '.join(extra)}: card {t_card:.1f}s, CPU {t_cpu:.1f}s; "
+            f"launches {dict((k, v) for k, v in counts.items() if v)}")
+    mod = importlib.import_module("examples_torch.train_fed3r_ft")
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    full = mod.main(["--device", "cuda"] + EXAMPLES_FULL)
+    torch.cuda.synchronize()
+    counts = read_counts(ops)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    checks["train_fed3r_ft at full width: fed3r_stats launched, accuracies in [0, 1]"] = (
+        counts["fed3r_stats"] > 0 and 0.0 <= full["fed3r_acc"] <= 1.0
+        and all(0.0 <= a <= 1.0 for a in full["ft_acc"]))
+    log(f"[examples] train_fed3r_ft {' '.join(EXAMPLES_FULL)} on the card in "
+        f"{time.perf_counter() - t0:.1f}s: closed-form accuracy {full['fed3r_acc']:.4f}, after "
+        f"{full['rounds']} FT round(s) {full['ft_acc']}, a round "
+        f"{full['round_ms'][-1]:.1f} ms; launches {dict((k, v) for k, v in counts.items() if v)}")
+    log(f"[examples] the phase in {time.perf_counter() - t_all:.1f}s on {card()}; launches "
+        f"{launches}")
+    for what, ok in checks.items():
+        log(f"[examples] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"[examples] failed: {[n for n, ok in checks.items() if not ok]}")
+    return {"launches": launches}
+
+
 def _digest(*tensors) -> str:
     """sha256 of the tensors' bits (equal bits across ranks: equal digests)."""
     import hashlib
@@ -3264,6 +3454,74 @@ def _tp_gates(family: str, u: dict, ranks: list, checks: dict, gaps: dict) -> in
     return launches
 
 
+def _layout_unsharded(torch, ops) -> dict:
+    """Each of TP_LAYOUT_JOBS unsharded on the card from seeded_factory(0):
+    its prompts, decode tokens and frames (numpy, seeded), and the prefill
+    and teacher-forced decode logits, with the prefill's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist_check import forced
+    from repro_torch.sharding.shard import full_params, seeded_factory
+
+    out = {}
+    for i, (label, (arch, over, _, B, S0, T)) in enumerate(TP_LAYOUT_JOBS.items()):
+        cfg = get_config(arch).replace(**over, dtype="float32")
+        toks, inputs = _tp_inputs(cfg, dict(batch=B, prompt_len=S0 + T), 31 + i)
+        params = full_params(cfg, seeded_factory(0), "cuda")
+        reset_counts(ops)
+        with torch.no_grad():
+            got = forced(cfg, params, torch.from_numpy(toks[:, :S0]).cuda(),
+                         torch.from_numpy(toks[:, S0:]).cuda(),
+                         {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}, S0 + T)
+        torch.cuda.synchronize()
+        out[label] = {"prompts": toks[:, :S0], "decode": toks[:, S0:], "inputs": inputs,
+                      "prefill": got["prefill"].cpu().numpy(),
+                      "logits_decode": got["decode"].cpu().numpy(),
+                      "flash": read_counts(ops)["flash_attention"], "cfg": cfg}
+        del params, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layout_gates(layouts: dict, ranks: list, checks: dict, gaps: dict) -> int:
+    """TP_LAYOUT_JOBS' gates on the ranks' results against the unsharded
+    runs: prefill and decode logits within TP_LAYOUT_REL of max|logit|,
+    equal bits on a data group's model ranks, the prefill through flash on
+    every rank (one launch a run of uniform GQA groups a layer), Whisper's
+    cross (k, v) the rank's frames.  Checks and gaps added in place;
+    returns the ranks' flash launches."""
+    launches = 0
+    for label, (arch, over, (d, m), _, _, _) in TP_LAYOUT_JOBS.items():
+        u, res = layouts[label], [r[f"layout {label}"] for r in ranks]
+        cfg = u["cfg"]
+        V = cfg.vocab_size
+        rel = max(_tp_rel(np.concatenate([res[g * m]["prefill"] for g in range(d)])[..., :V],
+                          u["prefill"][..., :V]),
+                  _tp_rel(np.concatenate([res[g * m]["decode"] for g in range(d)], axis=1)
+                          [..., :V], u["logits_decode"][..., :V]))
+        gaps[f"layout {label}"] = rel
+        flash = [r["prefill_flash_launches"] for r in res]
+        launches += u["flash"] + sum(flash)
+        runs = {"dense 12/3": 2}.get(label, 1)  # the rank's runs of uniform GQA groups
+        checks.update({
+            f"layout {label} at ({d}, {m}): prefill and decode within {TP_LAYOUT_REL:g} of the "
+            "unsharded run's max|logit|": rel <= TP_LAYOUT_REL,
+            f"layout {label}: model ranks of a data group equal": all(
+                res[r]["digest"] == res[r - r % m]["digest"] for r in range(TP_WORLD)),
+            f"layout {label}: the prefill through flash, {runs} launch(es) an attention layer "
+            "a rank": all(f == runs * _attention_layers(cfg) for f in flash)
+            and u["flash"] == _attention_layers(cfg),
+        })
+        if cfg.arch_type == "audio":
+            checks[f"layout {label}: each rank's cross (k, v) hold its block of the frames"] = all(
+                all(s[1] == cfg.n_audio_frames // m for p, s in r["cache_shapes"].items()
+                    if "/cross/" in p) for r in res)
+        log(f"[tp] layout {label}: {arch} {over} at (data {d}, model {m}), fp32, "
+            f"prefill + {u['decode'].shape[1]} decode steps within {rel:.4e} of the unsharded "
+            f"run's max|logit| (limit {TP_LAYOUT_REL:g}); flash launches a prefill "
+            f"{u['flash']} unsharded, {flash} by rank")
+    return launches
+
+
 def phase_tp(torch, ops) -> dict:
     """Each of TP_RUNS at full width, its depth cut, served unsharded here
     (fp32, bf16), then over a (data 1, model 4) mesh on TP_WORLD gloo ranks
@@ -3316,12 +3574,19 @@ def phase_tp(torch, ops) -> dict:
                              model=2, overrides={"dtype": "float32"}, seed=0, tokens=toks,
                              prompts=x[:, :sh["S0"]], decode=x[:, sh["S0"]:], inputs=inputs,
                              on_cpu=on_cpu))
+    layouts = _layout_unsharded(torch, ops)
+    for label, (arch, over, (d, m), _, _, _) in TP_LAYOUT_JOBS.items():
+        u = layouts[label]
+        jobs.append(dict(name=f"layout {label}", arch=arch, data=d, model=m,
+                         overrides={**over, "dtype": "float32"}, seed=0, prompts=u["prompts"],
+                         decode=u["decode"], inputs=u["inputs"]))
     t0 = time.perf_counter()
     ranks = run_world(tp_program, TP_WORLD, backend="gloo", device="cuda",
                       timeout_s=TP_TIMEOUT_S, args=(jobs,))
     wall = time.perf_counter() - t0
-
     checks, gaps = {}, {}
+    launches += _layout_gates(layouts, ranks, checks, gaps)
+
     for family, u in unsharded.items():
         launches += _tp_gates(family, u, ranks, checks, gaps)
     for arch in TP_SMOKE:
@@ -4289,6 +4554,9 @@ def phase_serve_moe_consistency(torch, ops, params) -> dict:
         del got
         real = moe_mod.route_top_k
         moe_mod.route_top_k = _first_choice_rolled(real, cfg.n_experts)
+        # the 63 GiB of fp32 weights leave a few GiB: return the forward's
+        # cached blocks first (a prefill once found 1.85 GiB free of 4.9)
+        torch.cuda.empty_cache()
         try:
             bad = _prefill_decode(model, params, toks, S, T)
         finally:
@@ -5092,36 +5360,48 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}  torch {torch.__version__}  CUDA "
         f"{torch.version.cuda}  card {name}  capability {torch.cuda.get_device_capability(0)}")
     t_all = time.perf_counter()
-    phase_build(build, ops)
-    sl = phase_slice(torch, ops)
-    sim = phase_simulator(torch, ops)
-    ft = phase_ft(torch, ops, sim)
-    rf = phase_rf(torch, ops, ref, sim)
-    stream = phase_stream(torch, ops)
+    secs = {}
+
+    def phase(label, fn, *args):
+        """Run one phase, its seconds logged and kept."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[label] = time.perf_counter() - t0
+        log(f"[time] {label} {secs[label]:.1f}s")
+        return out
+
+    phase("build", phase_build, build, ops)
+    sl = phase("slice", phase_slice, torch, ops)
+    sim = phase("simulator", phase_simulator, torch, ops)
+    ft = phase("ft", phase_ft, torch, ops, sim)
+    rf = phase("rf", phase_rf, torch, ops, ref, sim)
+    stream = phase("stream", phase_stream, torch, ops)
     packed = stream["arrival"]["packed"]
-    srf = phase_stream_rf(torch, ops, ref, packed, rf["params"])
-    phase_stream_slots(torch, ops, stream["arrival"]["W"])
-    heads = phase_heads(torch, ops)
-    wire = phase_wire(torch, ops, ref, sim)
-    phase_stream_int8(torch, ops, stream["arrival"]["W"])
-    phase_uplink(torch, ops, sim)
-    phase_secure(torch, ops, sim)
-    asy = phase_async(torch, ops)
-    tiers = phase_tiers(torch, ops)
-    dist = phase_dist(torch, ops, sl, ft, stream["arrival"])
+    srf = phase("stream-rf", phase_stream_rf, torch, ops, ref, packed, rf["params"])
+    phase("stream-slots", phase_stream_slots, torch, ops, stream["arrival"]["W"])
+    heads = phase("heads", phase_heads, torch, ops)
+    wire = phase("wire", phase_wire, torch, ops, ref, sim)
+    phase("stream-int8", phase_stream_int8, torch, ops, stream["arrival"]["W"])
+    phase("uplink", phase_uplink, torch, ops, sim)
+    phase("secure", phase_secure, torch, ops, sim)
+    asy = phase("async", phase_async, torch, ops)
+    tiers = phase("tiers", phase_tiers, torch, ops)
+    exa = phase("examples", phase_examples, torch, ops)
+    dist = phase("dist", phase_dist, torch, ops, sl, ft, stream["arrival"])
     del ft
-    tp = phase_tp(torch, ops)
-    tp_train = phase_tp_train(torch, ops)
-    dry = phase_dryrun(torch, ops)
-    srv = phase_serve(torch, ops)
-    phase_serve_consistency(torch, ops)
-    moe = phase_serve_moe(torch, ops)
-    phase_serve_moe_consistency(torch, ops, moe.pop("params"))
+    tp = phase("tp", phase_tp, torch, ops)
+    tp_train = phase("tp-train", phase_tp_train, torch, ops)
+    dry = phase("dryrun", phase_dryrun, torch, ops)
+    srv = phase("serve", phase_serve, torch, ops)
+    phase("serve-consistency", phase_serve_consistency, torch, ops)
+    moe = phase("serve-moe", phase_serve_moe, torch, ops)
+    phase("serve-moe-consistency", phase_serve_moe_consistency, torch, ops, moe.pop("params"))
     torch.cuda.empty_cache()
     fams = {}
     for family in FAMILY_SERVE:
-        fams[family] = phase_serve_family(torch, ops, family)
-        phase_family_consistency(torch, ops, family, fams[family].pop("params"))
+        fams[family] = phase(f"serve-{family}", phase_serve_family, torch, ops, family)
+        phase(f"{family}-consistency", phase_family_consistency, torch, ops, family,
+              fams[family].pop("params"))
         torch.cuda.empty_cache()
     t_phases = time.perf_counter() - t_all
     gates = phase_heads_gates(torch, heads["lru strict"])
@@ -5136,6 +5416,8 @@ def main() -> int:
     kern_batched = phase_kernel_batched(torch, ops, ref, gates["state"].L, gates["packed"])
     kern_quant = phase_kernel_quant(torch, ops, ref, wire["case"])
     kern_flash = phase_kernel_flash(torch, ops, ref)
+    secs["gates and kernels"] = time.perf_counter() - t_all - t_phases
+    log("[time] " + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + f" on {card()}")
     log(f"[done] paths in {t_phases:.1f}s, all phases in {time.perf_counter() - t_all:.1f}s")
 
     entries = [
@@ -5144,19 +5426,23 @@ def main() -> int:
          "replaces": "src/repro/kernels/fed3r_stats.py:57",
          "launches": sl["launches"] + asy["launches"]["fed3r_stats"]
          + tiers["launches"]["fed3r_stats"] + dist["launches"]["fed3r_stats"]
-         + tp_train["launches"] + dry["launches"]["fed3r_stats"], **kern},
+         + tp_train["launches"] + dry["launches"]["fed3r_stats"]
+         + exa["launches"]["fed3r_stats"], **kern},
         {"name": "rff", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rff.cu",
-         "replaces": "src/repro/kernels/rff.py:42", "launches": rf["launches"],
+         "replaces": "src/repro/kernels/rff.py:42",
+         "launches": rf["launches"] + exa["launches"]["rff"],
          **{k: v for k, v in kern_rff.items() if k != "gemm_only_ms"}},
         {"name": "chol_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/chol_gram.cu",
          "replaces": "src/repro/kernels/chol_update.py:86",
-         "launches": stream["arrival"]["launches"] + dist["launches"]["chol_gram"],
+         "launches": stream["arrival"]["launches"] + dist["launches"]["chol_gram"]
+         + exa["launches"]["chol_gram"],
          **kern_chol},
         {"name": "batched_chol_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/batched_chol_gram.cu",
          "replaces": "src/repro/kernels/chol_update.py:189",
-         "launches": heads["lru strict"]["launches"] + dist["launches"]["batched_chol_gram"],
+         "launches": heads["lru strict"]["launches"] + dist["launches"]["batched_chol_gram"]
+         + exa["launches"]["batched_chol_gram"],
          **kern_batched},
         {"name": "quantize_tiles", "route": "cuda", "source": "src/repro_torch/kernels/csrc/quant.cu",
          "replaces": "src/repro/kernels/quant.py:77",
@@ -5173,7 +5459,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:85",
          "launches": srv["full"]["launches"] + moe["full"]["launches"]
          + sum(f["full"]["launches"] for f in fams.values()) + tp["launches"]
-         + dry["launches"]["flash_attention"], **kern_flash},
+         + dry["launches"]["flash_attention"] + exa["launches"]["flash_attention"],
+         **kern_flash},
     ]
     print(json.dumps({"kernels": entries}))
     print(card())

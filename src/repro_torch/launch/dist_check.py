@@ -13,7 +13,7 @@ test_dist.py``, ``tests/test_tiers.py`` (mesh trees) and
 ``tests/test_round_engine.py`` (psum round) scenarios at the reference
 tests' sizes, made to run on the port's one-process-a-rank model.
 
-* :func:`layer_program` — meshes and their refusals, ``DistConfig``
+* :func:`layer_program` — meshes and what they refuse, ``DistConfig``
   validation, the two-stage psum against a flat one, ``aggregate_mesh``,
   and the shard-count invariance inputs (:func:`invariance_program`).
 * :func:`engines_program` — the statistics, streaming, round,
@@ -25,12 +25,14 @@ tests' sizes, made to run on the port's one-process-a-rank model.
   context-parallel over a ``(data, model)`` host mesh: the train forward,
   the features, a prefill and teacher-forced decode steps, ``serve`` with
   its times and peak memory, planted faults, phase 1 of ``train.run``,
-  and the refusals.
+  what stays refused (Scaffold under psum) and the cross-attention split
+  over the frames.
 * :func:`fsdp_program` — FSDP: the gradient against the unsharded one
   (and planted faults), ``make_train_step``, prefill and decode logits
   against the TP-only layout, and the dry run's rank program
   (``launch/dryrun.py``) on real ranks, which a dry run over a fake world
-  is held against.
+  is held against; and any job of :func:`tp_job` or the context-parallel
+  combine (:func:`combine_job`) beside them.
 * :func:`tp_train_program` — the backward under a ``"model"`` axis: each
   family's ``lm_loss`` gradient gathered over "model" (or held, leaf by
   leaf on each rank, against the unsharded gradient the ranks computed
@@ -243,8 +245,8 @@ def layer_program(rank: int, world: int, device: torch.device) -> dict:
     pods = make_host_mesh(pods=2, device_type=dt)
     tiers = make_tier_host_mesh((2, world // 2), device_type=dt)
     # a "model" axis of 2: the meshes build, an SSM's backward runs over it
-    # (its gradient gathered), and a layout the sharded layers do not
-    # implement refuses to run under it
+    # (its gradient gathered), and a cross-attention whose (k, v) the rules
+    # split over the frames runs under it
     tp = make_host_mesh(2, device_type=dt)
     tp_tiers = make_tier_host_mesh((world // 2,), (), 2, device_type=dt)
     out["model_parallel=2"] = {
@@ -582,18 +584,21 @@ def _offset(cfg) -> int:
     return cfg.n_patches if cfg.arch_type == "vlm" else 0
 
 
-def _forced(cfg, params, prompts, decode, extra, capacity) -> Dict[str, Any]:
+def forced(cfg, params, prompts, decode, extra, capacity) -> Dict[str, Any]:
     """A prefill of ``prompts`` (with the batch's ``extra`` inputs: patches,
     frames) into caches of ``capacity`` slots and one decode step a column
     of ``decode`` (teacher-forced): the logits, gathered over the vocab, the
     prefill's drop share, the shape of every cache leaf (the rank's block),
-    the layouts read off them (:func:`layouts`) and the first ring's slot
-    positions after the prefill (``ring_pos``)."""
+    the layouts read off them (:func:`layouts`), the first ring's slot
+    positions after the prefill (``ring_pos``) and the flash launches of
+    the prefill (0 on the CPU, where the plain version runs)."""
     T = 0 if decode is None else decode.shape[1]
     S, off = prompts.shape[1], _offset(cfg)
     drops = DropTally() if cfg.arch_type == "moe" else None
+    n0 = ops.flash_attention.launches
     logits, cache = steps.make_prefill_step(cfg, cache_capacity=capacity)(
         params, {"tokens": prompts, **extra}, drops)
+    flash = ops.flash_attention.launches - n0
     share = None if drops is None else drops.share()
     shapes, pos = {}, []
     map_with_path(cache, lambda path, leaf: shapes.__setitem__("/".join(path), tuple(leaf.shape)))
@@ -605,7 +610,7 @@ def _forced(cfg, params, prompts, decode, extra, capacity) -> Dict[str, Any]:
         dec.append(lg)
     return {"prefill": logits, "decode": torch.stack(dec) if dec else None,
             "drop_share": share, "cache_shapes": shapes, "layouts": layouts(cfg, shapes),
-            "ring_pos": pos[0] if pos else None}
+            "ring_pos": pos[0] if pos else None, "prefill_flash_launches": flash}
 
 
 def layouts(cfg, cache_shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, Any]:
@@ -674,7 +679,7 @@ def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
             out["logits"], out["aux"] = fw.logits, fw.aux_loss
             out["features"] = mdl.extract_features(blocks, batch)
         if prompts is not None and serve is None:
-            out.update(_forced(cfg, blocks, rows(prompts),
+            out.update(forced(cfg, blocks, rows(prompts),
                                None if decode is None else rows(decode), extra, capacity))
     if serve is not None:
         run = functools.partial(serve_mod.serve, arch, verbose=False, device=dev,
@@ -691,7 +696,7 @@ def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
                         "drop_share": res.prefill_drop_share}
         out["tokens"] = res.tokens
         with hints.use_mesh(mesh), torch.no_grad():
-            out.update(_forced(cfg.replace(dtype=serve.get("dtype") or cfg.dtype), blocks,
+            out.update(forced(cfg.replace(dtype=serve.get("dtype") or cfg.dtype), blocks,
                                rows(prompts), None if decode is None else rows(decode), extra,
                                capacity))
     del blocks
@@ -704,29 +709,47 @@ def tp_job(rank: int, device: torch.device, *, arch: str, data: int, model: int,
     return out
 
 
+# the cross-attention whose (k, v) the rules split over the encoder's
+# frames at "model" 2 and 4: Whisper's smoke with 3 kv heads (neither 2 nor
+# 4 divides them; its 32 frames split)
+CROSS_SPLIT = dict(arch="whisper-large-v3-smoke",
+                   overrides={"n_heads": 3, "n_kv_heads": 3, "dtype": "float32"}, B=4, S0=8, T=3)
+
+
+def cross_split_batch(seed: int = 17) -> Dict[str, np.ndarray]:
+    """:data:`CROSS_SPLIT`'s seeded batch: tokens (B, S0 + T) and the
+    encoder's 0.1·N(0, 1) frames."""
+    cfg = get_config(CROSS_SPLIT["arch"]).replace(**CROSS_SPLIT["overrides"])
+    rng = np.random.default_rng(seed)
+    B, S = CROSS_SPLIT["B"], CROSS_SPLIT["S0"] + CROSS_SPLIT["T"]
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64),
+            "audio_frames": (0.1 * rng.standard_normal((B, cfg.n_audio_frames, cfg.d_model))
+                             ).astype(np.float32)}
+
+
 def tp_refusals(rank: int, device: torch.device) -> dict:
     """What stays refused under "model" 2, as (exception type, message):
     Scaffold's rounds under the psum backend (its cvar scatter needs the
-    whole cohort, as in the reference), and a Whisper smoke of 3 kv heads,
-    whose cross-attention (k, v) the rules would split over the frames."""
+    whole cohort, as in the reference); and the layout refused until the
+    sharded cross-attention learned it, which now runs: :data:`CROSS_SPLIT`
+    from ``seeded_factory(0)`` on :func:`cross_split_batch` over (data
+    world / 2, model 2), its (k, v) split over the frames (:func:`tp_job`'s
+    prefill and teacher-forced decode; every rank's result, in rank order,
+    on every rank)."""
     mesh2 = make_host_mesh(2, device_type=device.type)
-    cfg = get_config("whisper-large-v3-smoke").replace(n_heads=3, n_kv_heads=3,
-                                                      dtype="float32")
-
-    def cross_split():
-        params = shard_params_from(cfg, seeded_factory(0), mesh2, device)
-        batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64, device=device),
-                 "audio_frames": torch.zeros((2, cfg.n_audio_frames, cfg.d_model),
-                                             device=device)}
-        with hints.use_mesh(mesh2), torch.no_grad():
-            build_model(cfg).prefill(params, {k: local_rows(v, mesh2) for k, v in batch.items()},
-                                     8)
-
+    batch = cross_split_batch()
+    S0 = CROSS_SPLIT["S0"]
+    split = tp_job(rank, device, arch=CROSS_SPLIT["arch"], data=dist.get_world_size() // 2,
+                   model=2, overrides=CROSS_SPLIT["overrides"], seed=0,
+                   prompts=batch["tokens"][:, :S0], decode=batch["tokens"][:, S0:],
+                   inputs={"audio_frames": batch["audio_frames"]})
+    everyone: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, split)
     return {
         "scaffold under psum": _raises(train.run, TRAIN_ARCH, rounds=1, use_fed3r_init=False,
                                        algorithm="scaffold", device=device, mesh=mesh2,
                                        verbose=False, **TRAIN),
-        "cross-attention split": _raises(cross_split),
+        "cross-attention split": everyone,
     }
 
 
@@ -1227,7 +1250,7 @@ def fsdp_serve_job(rank: int, device: torch.device, *, arch: str, data: int, mod
         launches = ops.flash_attention.launches
         t0 = time.perf_counter()
         with hints.use_mesh(mesh, fsdp=fsdp), torch.no_grad(), hints.census() as recs:
-            got = _forced(cfg, blocks, rows["prompts"], rows["decode"], extra, capacity)
+            got = forced(cfg, blocks, rows["prompts"], rows["decode"], extra, capacity)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         out[f"ms {name}"] = 1e3 * (time.perf_counter() - t0)
@@ -1327,8 +1350,35 @@ def gather_vmap_job(rank: int, device: torch.device, *, model: int) -> dict:
     return np_(out)
 
 
+def combine_job(rank: int, device: torch.device, *, model: int, seed: int = 0,
+                below: float = 1e4) -> dict:
+    """``attention._cp_combine`` on a ``(data, model)`` host mesh against
+    the whole softmax · v: every rank draws the same scores (2, 3, 8·model)
+    and values (2, 8·model, 16) from ``seed``, model rank 1's keys scored
+    ``below`` under the others' (its scale underflows to 0), takes its
+    block of the keys, and combines its pieces with the others'.  Returns
+    the combined and the whole result (numpy) and whether the combine is
+    finite."""
+    mesh = make_host_mesh(model, device_type=device.type)
+    gen = torch.Generator().manual_seed(seed)
+    n = 8
+    s = torch.randn((2, 3, n * model), generator=gen)
+    v = torch.randn((2, n * model, 16), generator=gen)
+    s[..., n:2 * n] -= below
+    s, v = s.to(device), v.to(device)
+    want = torch.softmax(s, dim=-1) @ v
+    r = hints.coords(mesh)["model"]
+    sr, vr = s[..., r * n:(r + 1) * n], v[:, r * n:(r + 1) * n]
+    m = sr.amax(dim=-1, keepdim=True)
+    p = torch.exp(sr - m)
+    with hints.use_mesh(mesh):
+        got = attn_mod._cp_combine(m, p.sum(dim=-1, keepdim=True), p @ vr)
+    return {"got": np_(got), "want": np_(want), "finite": bool(torch.isfinite(got).all())}
+
+
 _FSDP_JOBS = {"grad": tp_grad_job, "step": tp_step_job, "serve": fsdp_serve_job,
-              "dryrun": dryrun_job, "moe_groups": moe_groups_job, "gather_vmap": gather_vmap_job}
+              "dryrun": dryrun_job, "moe_groups": moe_groups_job, "gather_vmap": gather_vmap_job,
+              "tp": tp_job, "combine": combine_job}
 
 
 def fsdp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dict],
@@ -1337,7 +1387,8 @@ def fsdp_program(rank: int, world: int, device: torch.device, jobs: Sequence[dic
     of ``_FSDP_JOBS``: "grad" :func:`tp_grad_job`, "step"
     :func:`tp_step_job`, "serve" :func:`fsdp_serve_job`, "dryrun"
     :func:`dryrun_job`, "moe_groups" :func:`moe_groups_job`, "gather_vmap"
-    :func:`gather_vmap_job`) and that function's keyword arguments (rank 0
+    :func:`gather_vmap_job`, "tp" :func:`tp_job`, "combine"
+    :func:`combine_job`) and that function's keyword arguments (rank 0
     prints each job's seconds).  ``card_share`` (ranks sharing one card):
     the share of the card's memory rank r's allocator may hold, by rank;
     past it the allocator frees its own cache before it fails, so that no

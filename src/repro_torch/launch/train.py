@@ -177,7 +177,7 @@ def _fed3r_phase(cfg: ModelConfig, params: dict, ds: TokenDataset, *, n_clients:
               f"({seconds:.1f}s)  acc={test_acc:.4f}  T={float(temp):.2f}")
     return {
         "W": W, "W_head": W_head, "stats": acc.stats, "fed3r_acc": test_acc,
-        "temperature": float(temp), "seconds": seconds,
+        "temperature": float(temp), "seconds": seconds, "n_test": n_test,
         "n_slots": packed.n_slots, "max_n": packed.inputs.shape[2],
     }
 
@@ -351,7 +351,7 @@ def _ft_phase(cfg: ModelConfig, params: dict, ds: TokenDataset, W_head: torch.Te
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    log = {"rounds": [], "ft_acc": [], "round_ms": [], "round_tokens": []}
+    log = {"rounds": [], "ft_acc": [], "round_ms": [], "round_tokens": [], "n_test": n_test}
     for rnd in range(start_round, rounds):
         cohort = clients.cohort(rnd, mesh)
         log["round_tokens"].append(cohort.n_samples * clients.tokens.shape[1])
@@ -400,7 +400,9 @@ def run(
     """Random backbone params (seed 0) and a synthetic token dataset (seed
     1), then phase 1 and, with ``rounds > 0``, phase 2 (under ``"ft"``);
     with ``mesh`` (a host mesh over an initialized world) both phases run
-    under the psum backend, from rank 0's parameters.
+    under the psum backend, from rank 0's parameters.  The draws are made
+    on the host and moved to ``device``, so every device starts from the
+    same numbers.
 
     Phase 1 is skipped without ``use_fed3r_init`` (the head is then drawn
     0.01·N(0, 1) from a ``torch.Generator`` seeded 0) and when phase 2
@@ -409,12 +411,14 @@ def run(
     """
     dev = resolve_device(device)
     cfg = get_config(arch)
-    params = build_model(cfg).init(seed=0, device=dev)
+    params = tree_map(lambda t: t.to(dev), build_model(cfg).init(seed=0, device="cpu"))
     if mesh is not None:
         params = broadcast_tree(params, src=0)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator()
     gen.manual_seed(1)
     ds = make_token_dataset(gen, n_samples, seq_len, cfg.vocab_size, n_classes)
+    ds = ds._replace(tokens=ds.tokens.to(dev), labels=ds.labels.to(dev),
+                     lm_labels=ds.lm_labels.to(dev))
     resuming = rounds > 0 and _resume_path(ckpt_dir, resume, mesh) is not None
     out: dict = {"params0": params}
     if use_fed3r_init and not resuming:
@@ -426,7 +430,7 @@ def run(
         W_head = out.get("W_head")
         if W_head is None:
             gen.manual_seed(0)
-            W_head = 0.01 * torch.randn((cfg.d_feat, n_classes), generator=gen, device=dev)
+            W_head = (0.01 * torch.randn((cfg.d_feat, n_classes), generator=gen)).to(dev)
         out["ft"] = ft_phase(
             cfg, params, ds, W_head, n_clients=n_clients, clients_per_round=clients_per_round,
             rounds=rounds, lr=lr, local_batch_size=local_batch_size, algorithm=algorithm,

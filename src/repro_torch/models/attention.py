@@ -45,9 +45,11 @@ Under an ambient mesh with a ``"model"`` axis larger than 1
 projections in the layout ``param_specs`` picks (:func:`tp_layout`): q, k
 and v column-parallel over their head axes, or row-parallel over d_model
 where the heads do not divide (the rank's slice of x times its rows, then
-an all-reduce, and the rank picks the kv heads its q heads need); ``wo``
-row-parallel over the heads (one all-reduce), or split over d_model where
-the heads do not divide.  The prefill runs the kernel on the rank's heads.
+an all-reduce, and the rank's q heads read their own kv heads, in runs of
+uniform group size where the rank's q heads and the kv group do not
+divide one another: :func:`kv_runs`); ``wo`` row-parallel over the heads
+(one all-reduce), or split over d_model where the heads do not divide.
+The prefill runs the kernel on the rank's heads, once a run.
 The KV cache is laid out as ``cache_specs`` lays it out
 (:func:`cache_block`): the rank's kv heads; or, where the kv heads do not
 divide and the slots do, the rank's contiguous block of the slots with
@@ -55,7 +57,10 @@ every kv head (the sequence layout, context-parallel: the prefill and
 decode write only the slots a rank owns, every rank keeps every slot's
 position, and decode gathers q's heads, attends them over the rank's
 slots and combines the ranks' softmax pieces in fp32, :func:`_cp_combine`);
-or all of it where the rules replicate it.
+or all of it where the rules replicate it.  Whisper's cross-attention
+(k, v) follow the same rule over the encoder's frames: where they split, a
+rank attends its frames with every q head and the ranks' pieces combine
+as the ring's do.
 """
 from __future__ import annotations
 
@@ -208,16 +213,6 @@ def cache_block(cfg: ModelConfig, batch: int, capacity: int) -> Tuple[int, int]:
     return capacity, cfg.n_kv_heads
 
 
-def cross_kv_heads(cfg: ModelConfig, batch: int) -> int:
-    """The kv heads of the cross-attention (k, v) a rank holds for its
-    ``batch`` rows (:func:`cache_block` over the encoder's frames); a
-    layout that splits the frames is refused."""
-    frames, KV = cache_block(cfg, batch, cfg.n_audio_frames)
-    if frames != cfg.n_audio_frames:
-        hints.refuse(f"cross-attention (k, v) split over {cfg.n_audio_frames} frames")
-    return KV
-
-
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, dtype: torch.dtype,
                device=None) -> dict:
     """An empty ring cache: zeros, every slot's position −1 (under a "model"
@@ -307,41 +302,55 @@ def cache_decode_update(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: 
 
 
 def _cp_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """softmax · v over every rank's slots from each rank's pieces over its
+    """softmax · v over every rank's keys from each rank's pieces over its
     own: ``m`` its rows' max score, ``l`` the sum of exp(s − m) and ``o`` of
     exp(s − m)·v (fp32, (..., 1), (..., 1), (..., hd)).  Each rank's pieces
     are rescaled by exp(m − the ranks' max), then l and o are summed in one
     all-reduce.  A rank whose slots are all empty has m = −1e30 and l = o =
-    0: its scale is 0, no NaN."""
+    0, and a rank whose keys all score far below the max a scale that
+    underflows to 0: it adds nothing, no NaN.  ``m`` is a constant shift
+    (no gradient: the result does not depend on it); the sum's backward is
+    the same all-reduce."""
     c = torch.exp(m - hints.max_model(m))
     lo = hints.reduce_model(torch.cat([l * c, o * c], dim=-1))
     return lo[..., 1:] / lo[..., :1]
 
 
-def _context_parallel_decode(tp: "TPLayout", q: torch.Tensor, cache: dict, q_pos: torch.Tensor,
-                             window: Optional[int]) -> torch.Tensor:
-    """Decode attention over a sequence-sharded ring: q's heads gathered over
-    "model", every head attends the rank's slots (fp32 scores, the masks
-    of :func:`_valid`), the ranks' pieces combined (:func:`_cp_combine`),
-    and the rank's heads of the result kept for its ``wo``."""
+def _context_parallel(tp: "TPLayout", q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Attention over keys split over "model" (a sequence-sharded ring's
+    slots, or the encoder's frames): q's heads gathered over "model", every
+    head attends the rank's keys ``k``/``v`` (B, Sk_r, KV, hd) in fp32
+    (``valid``, (Sq, Sk_r) or None for every key: the masks of
+    :func:`_valid`), the ranks' pieces combined (:func:`_cp_combine`), and
+    the rank's heads of the result kept for its ``wo``."""
     dtype = q.dtype
     if tp.q == "heads":
         q = hints.gather_model(q, 2)
-    lo, hi = slot_range(cache)
-    k, v = dequantize_kv(cache, "k", dtype), dequantize_kv(cache, "v", dtype)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
     scale = torch.tensor(hd ** -0.5, dtype=dtype).item()
-    s = (torch.einsum("bqkgh,bskh->bkgqs", qg, k) * scale).to(torch.float32)
-    valid = _valid(q_pos, cache["pos"][lo:hi], window, False)
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)  # (B, KV, G, Sq, 1)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
+    s = (torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dtype)) * scale).to(torch.float32)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m = s.detach().amax(dim=-1, keepdim=True)  # (B, KV, G, Sq, 1)
+    p = torch.exp(s - m)
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
     o = torch.einsum("bkgqs,bskh->bkgqh", p, v.to(torch.float32))
     y = _cp_combine(m, p.sum(dim=-1, keepdim=True), o)  # (B, KV, G, Sq, hd)
     y = y.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(dtype)
     return hints.model_block(y, 2) if tp.q == "heads" else y
+
+
+def _context_parallel_decode(tp: "TPLayout", q: torch.Tensor, cache: dict, q_pos: torch.Tensor,
+                             window: Optional[int]) -> torch.Tensor:
+    """Decode attention over a sequence-sharded ring: :func:`_context_parallel`
+    over the rank's slots, with the masks of their positions."""
+    lo, hi = slot_range(cache)
+    k, v = dequantize_kv(cache, "k", q.dtype), dequantize_kv(cache, "v", q.dtype)
+    return _context_parallel(tp, q, k, v, _valid(q_pos, cache["pos"][lo:hi], window, False))
 
 
 # ---------------------------------------------------------------------------
@@ -376,13 +385,44 @@ class TPLayout(NamedTuple):
     """How a rank's attention runs under a "model" axis: each projection
     ``"heads"`` (split over its head axis), ``"rows"`` (over d_model: a
     partial sum) or ``"full"`` (replicated); ``wo`` ``"heads"``, ``"cols"``
-    (its d_model outputs split) or ``"full"``; ``kv_sel`` the heads of the
-    rank's k and v that its q heads read (None: all of them)."""
+    (its d_model outputs split) or ``"full"``; ``kv_runs`` how the rank's
+    q heads read the kv heads it holds (None: q and kv as they are): runs
+    of (q heads, kv heads) slices, each a uniform GQA group size, the q
+    heads of a run in order (:func:`kv_runs`)."""
 
     q: str
     kv: str
     o: str
-    kv_sel: Optional[slice]
+    kv_runs: Optional[Tuple[Tuple[slice, slice], ...]]
+
+
+def kv_runs(H: int, KV: int, m: int, r: int) -> Tuple[Tuple[slice, slice], ...]:
+    """Model rank ``r`` of ``m`` holds q heads h0 … h0 + H/m − 1 (h0 =
+    r·H/m) and every kv head: its q head h reads kv head h // G (G = H/KV).
+    Returns runs of (its q heads, the kv heads they read) in which every
+    kv head serves the same number of q heads, so that each run is one
+    uniform GQA call.  Where H/m and G divide one another that is one run
+    (the rank's whole groups, or its part of one group); else a kv head
+    that the rank shares with a neighbour starts or ends a run of its own
+    (12 q / 3 kv heads at "model" 2: rank 0 reads kv 0 four times, then kv
+    1 twice)."""
+    Hl, G = H // m, H // KV
+    h0 = r * Hl
+    reads: list = []  # [kv head, q heads reading it]
+    for h in range(h0, h0 + Hl):
+        if reads and reads[-1][0] == h // G:
+            reads[-1][1] += 1
+        else:
+            reads.append([h // G, 1])
+    runs: list = []  # [first q, first kv, end kv, q heads a kv head]
+    q0 = 0
+    for j, n in reads:
+        if runs and runs[-1][3] == n:
+            runs[-1][2] = j + 1
+        else:
+            runs.append([q0, j, j + 1, n])
+        q0 += n
+    return tuple((slice(q, q + (k1 - k0) * n), slice(k0, k1)) for q, k0, k1, n in runs)
 
 
 def tp_layout(cfg: ModelConfig) -> Optional[TPLayout]:
@@ -400,14 +440,24 @@ def tp_layout(cfg: ModelConfig) -> Optional[TPLayout]:
     q, kv = proj("wq", H), proj("wk", KV)
     wo = hints.layout("attn/wo", (H, hd, d))
     o = "heads" if wo[0] == "model" else "cols" if wo[2] == "model" else "full"
-    kv_sel = None
-    if q == "heads" and kv != "heads":  # every kv head here: pick the rank's q heads' own
-        Hl, G = H // m, H // KV
-        h0 = hints.model_rank() * Hl
-        if Hl % G and G % Hl:
-            hints.refuse(f"{Hl} q heads a rank in kv groups of {G}")
-        kv_sel = slice(h0 // G, h0 // G + max(Hl // G, 1))
-    return TPLayout(q, kv, o, kv_sel)
+    runs = None
+    if q == "heads" and kv != "heads":  # every kv head here: its q heads read their own
+        runs = kv_runs(H, KV, m, hints.model_rank())
+    return TPLayout(q, kv, o, runs)
+
+
+def _by_runs(tp: Optional[TPLayout], attend, q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """``attend(q, k, v)`` (a GQA attention, (B, S, heads, hd) each) of the
+    rank's q heads over the kv heads they read: one call a run of
+    :attr:`TPLayout.kv_runs`, concatenated over the heads (``attend`` of
+    q, k and v as they are without runs)."""
+    if tp is None or tp.kv_runs is None:
+        return attend(q, k, v)
+    ys = [attend(q if len(tp.kv_runs) == 1 else q[:, :, qs].contiguous(),
+                 k[:, :, ks].contiguous(), v[:, :, ks].contiguous())
+          for qs, ks in tp.kv_runs]
+    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=2)
 
 
 def _tp_project(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], mode: str
@@ -472,9 +522,6 @@ def attn_apply(
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
 
-    def sel(t: torch.Tensor) -> torch.Tensor:  # the kv heads this rank's q heads read
-        return t if tp is None or tp.kv_sel is None else t[:, :, tp.kv_sel].contiguous()
-
     if cache is not None:  # decode: one new token against the ring buffer
         if S != 1 or decode_pos is None:
             raise ValueError(f"decode takes one token and its position, got S={S}, "
@@ -485,20 +532,19 @@ def attn_apply(
         if hi - lo < cache["pos"].shape[0]:  # the sequence layout: context-parallel
             y = _context_parallel_decode(tp, q, cache, q_pos, window)
         else:
-            y = multihead_attention(
-                q, sel(dequantize_kv(cache, "k", x.dtype)),
-                sel(dequantize_kv(cache, "v", x.dtype)), q_pos, cache["pos"], window=window,
-                bidirectional=False,
-            )
+            y = _by_runs(tp, lambda q_, k_, v_: multihead_attention(
+                q_, k_, v_, q_pos, cache["pos"], window=window, bidirectional=False),
+                q, dequantize_kv(cache, "k", x.dtype), dequantize_kv(cache, "v", x.dtype))
     elif build_cache:  # prefill
-        y = ops.flash_attention(q, sel(k), sel(v), causal=not bidirectional, window=window)
+        y = _by_runs(tp, lambda q_, k_, v_: ops.flash_attention(
+            q_, k_, v_, causal=not bidirectional, window=window), q, k, v)
         if not bidirectional:  # an encoder's keys serve this pass only
             cap = cache_capacity or (window if window else S)
             cache = fill_cache_from_prefill(init_cache(cfg, B, cap, k.dtype, x.device), k, v, S)
     else:
         pos = torch.arange(S, device=x.device)
-        y = multihead_attention(q, sel(k), sel(v), pos, pos, window=window,
-                                bidirectional=bidirectional)
+        y = _by_runs(tp, lambda q_, k_, v_: multihead_attention(
+            q_, k_, v_, pos, pos, window=window, bidirectional=bidirectional), q, k, v)
     if tp is None:
         return _out_project(p, y), cache
     return _tp_out(tp, p, y, reduce), cache
@@ -519,25 +565,34 @@ def cross_attn_apply(
     their biases, and returned for the cache) or ``enc_kv``, the cached
     (k, v) (B, F, KV, hd), read as they are.  Returns (y, (k, v)).  Under a
     "model" axis it runs in :func:`tp_layout`'s layout, as the
-    self-attention does; the (k, v) are the rank's kv heads (all of them
-    where k and v are row-parallel).
+    self-attention does, and the (k, v) are the rank's block of them as
+    ``cache_specs`` lays the cache out (:func:`cache_block` over the
+    encoder's frames): its kv heads; its block of the frames (projected
+    whole where k and v are row-parallel, then cut), over which every q
+    head attends and the ranks' pieces combine (:func:`_context_parallel`);
+    or all of both.
     """
     tp = tp_layout(cfg)
     if enc_kv is None:
         if enc_states is None:
             raise ValueError("cross-attention needs enc_states or the cached enc_kv")
-        if tp is not None:
-            cross_kv_heads(cfg, enc_states.shape[0])  # refuses frames split over the ranks
-        enc_kv = _project_kv(p, enc_states) if tp is None else (
-            _tp_project(enc_states, p["wk"], p.get("bk"), tp.kv),
-            _tp_project(enc_states, p["wv"], p.get("bv"), tp.kv))
+        if tp is None:
+            enc_kv = _project_kv(p, enc_states)
+        else:
+            k = _tp_project(enc_states, p["wk"], p.get("bk"), tp.kv)
+            v = _tp_project(enc_states, p["wv"], p.get("bv"), tp.kv)
+            frames, _ = cache_block(cfg, enc_states.shape[0], cfg.n_audio_frames)
+            if frames != k.shape[1]:  # the rank's frames, a copy of their own for the cache
+                k, v = hints.model_block(k, 1).clone(), hints.model_block(v, 1).clone()
+            enc_kv = (k, v)
     k, v = enc_kv
     q = _project_q(p, x) if tp is None else _tp_project(x, p["wq"], p.get("bq"), tp.q)
-    if tp is not None and tp.kv_sel is not None:
-        k, v = k[:, :, tp.kv_sel], v[:, :, tp.kv_sel]
+    if tp is not None and k.shape[1] != cfg.n_audio_frames:  # the frames split over "model"
+        return _tp_out(tp, p, _context_parallel(tp, q, k, v, None), True), enc_kv
     q_pos = torch.arange(x.shape[1], device=x.device)
     k_pos = torch.arange(k.shape[1], device=x.device)
-    y = multihead_attention(q, k.to(x.dtype), v.to(x.dtype), q_pos, k_pos, bidirectional=True)
+    y = _by_runs(tp, lambda q_, k_, v_: multihead_attention(
+        q_, k_.to(x.dtype), v_.to(x.dtype), q_pos, k_pos, bidirectional=True), q, k, v)
     if tp is None:
         return _out_project(p, y), enc_kv
     return _tp_out(tp, p, y, True), enc_kv

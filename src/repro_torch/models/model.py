@@ -270,13 +270,14 @@ def make_cache(cfg: ModelConfig, batch: int, capacity: int,
     """Empty per-layer caches: KV rings of ``capacity`` slots (clamped to the
     sliding window; a hybrid's to its local window), SSM or RG-LRU states;
     an audio model's decoder layers a ring and zero cross (k, v) of
-    (batch, n_audio_frames, KV, hd)."""
+    (batch, n_audio_frames, KV, hd) (under a "model" axis the rank's block
+    of them)."""
     check_family(cfg, "caches")
     dtype, dev = compute_dtype(cfg), resolve_device(device)
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)
     if cfg.arch_type == "audio":
-        cross = (batch, cfg.n_audio_frames, attn_mod.cross_kv_heads(cfg, batch), cfg.hd)
+        cross = (batch, *attn_mod.cache_block(cfg, batch, cfg.n_audio_frames), cfg.hd)
         return [{"self": ring, "cross": (torch.zeros(cross, dtype=dtype, device=dev),
                                          torch.zeros(cross, dtype=dtype, device=dev))}
                 for ring in tfm.stacked_attn_cache(cfg, cfg.n_layers, batch, capacity, dtype, dev)]

@@ -122,17 +122,20 @@ class DropTally:
 
 def moe_groups(n_tokens: int) -> Tuple[int, int]:
     """(G, the global token count) for a rank's ``n_tokens``: G the ambient
-    "data" axis size, halved while it does not divide the global count; the
-    global count is ``n_tokens`` times the data shards.  A group holds the
-    tokens of one or more whole data ranks."""
+    "data" axis size, halved while it does not divide the global count (as
+    the reference does); the global count is ``n_tokens`` times the data
+    shards.  A group holds the tokens of one or more whole data ranks: the
+    "data" axis size divides the data shards (its product with "pod"), so
+    it divides the global count, the halving never runs, and every group
+    is whole ranks."""
     dp = hints.data_shards()
     G = max(hints.mesh_axis_size("data"), 1)
     total = n_tokens * dp
     while total % G:
         G //= 2
     G = max(G, 1)
-    if dp % G:  # a rank's tokens would fall in several groups
-        hints.refuse(f"MoE capacity groups of {G} over {dp} data shards")
+    assert dp % G == 0, (f"MoE capacity groups of {G} over {dp} data shards: the \"data\" axis "
+                         f"divides the data shards, so a group is whole ranks")
     return G, total
 
 

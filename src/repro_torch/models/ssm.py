@@ -26,6 +26,16 @@ conv on its channel block and gathers that, and then runs the SSD and the
 decode's state update on its heads (its ``A_log``, ``dt_bias`` and ``D``,
 its state rows); the gated RMSNorm over the whole d_inner all-reduces a
 partial sum of squares, and ``out_proj`` is row-parallel (one all-reduce).
+
+Where the heads do not divide the axis the rules leave ``A_log``,
+``dt_bias``, ``D`` and the state unsplit, and every rank runs the SSD on
+every head (a replicated leaf is computed whole, never all-reduced): the
+gated norm's sum of squares is then the whole width's, with no
+all-reduce; ``norm_scale`` and ``out_proj`` may still split over d_inner
+(the rank scales its block of the normed y and ``out_proj`` reduces its
+product; the SSD's backward then takes the whole cotangent of y, over m,
+on every rank: ``hints.mean_cotangent``), or, where d_inner does not
+divide either, run whole.
 """
 from __future__ import annotations
 
@@ -151,36 +161,43 @@ def _split_xbc(cfg: ModelConfig, xBC: torch.Tensor):
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   d_full: Optional[int] = None) -> torch.Tensor:
+                   d_full: Optional[int] = None, block: bool = False) -> torch.Tensor:
     """RMSNorm of y·silu(z) over its last dim, or, with ``d_full``, over the
-    ranks' blocks of it together (a rank's sum of squares all-reduced)."""
+    ranks' blocks of it together (a rank's sum of squares all-reduced);
+    with ``block``, the rank's "model" block of the whole width's norm,
+    times ``scale``, the rank's block of the scale (elementwise: the bits
+    of the whole scaled norm's block)."""
     dt = y.dtype
     y = (y * F.silu(z)).to(torch.float32)
     if d_full is None:
         ms = y.square().mean(dim=-1, keepdim=True)
     else:
         ms = hints.reduce_model(y.square().sum(dim=-1, keepdim=True)) / d_full
+    if block:
+        y = hints.model_block(y, -1)
     return (y * torch.rsqrt(ms + 1e-6) * scale).to(dt)
 
 
 class _Mixer:
     """How a rank runs the mixer under the ambient mesh: its in_proj block
     (``"cols"``, ``"rows"`` or ``"full"``), whether the conv's channels are
-    split, and its heads (``heads``: a slice, None without a split)."""
+    split, its heads (``heads``: a slice, None where every rank runs every
+    head) and whether ``norm_scale`` and ``out_proj`` split over d_inner
+    (``inner``)."""
 
     def __init__(self, cfg: ModelConfig):
         d, H = cfg.d_model, cfg.ssm_nheads
         conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
         self.on = hints.model_size() > 1
-        self.in_proj, self.conv, self.heads = "full", False, None
+        self.in_proj, self.conv, self.heads, self.inner = "full", False, None, False
         if not self.on:
             return
         spec = hints.layout("ssm/in_proj", (d, conv_ch + cfg.d_inner + H))
         self.in_proj = "cols" if spec[1] == "model" else "rows" if spec[0] == "model" else "full"
         self.conv = hints.layout("ssm/conv/kernel", (cfg.ssm_conv, conv_ch))[1] == "model"
-        if hints.layout("ssm/A_log", (H,))[0] != "model":
-            hints.refuse(f"a Mamba2 mixer of {H} heads")
-        self.heads = _rank_heads(H)
+        self.inner = hints.layout("ssm/out_proj", (cfg.d_inner, d))[0] == "model"
+        if hints.layout("ssm/A_log", (H,))[0] == "model":
+            self.heads = _rank_heads(H)
 
     def project(self, u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """u @ in_proj, whole on every rank."""
@@ -203,6 +220,22 @@ class _Mixer:
         if self.heads is None:
             return t
         return t[..., self.heads.start * width:self.heads.stop * width]
+
+    def out(self, cfg: ModelConfig, p: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """The gated norm of the SSD's ``y`` (the rank's heads, or every
+        head) and ``out_proj``, whole on every rank: row-parallel (one
+        all-reduce) where ``out_proj`` splits, else computed whole."""
+        w = p["out_proj"].to(y.dtype)
+        if self.heads is not None:
+            return hints.reduce_model(_gated_rmsnorm(y, z, p["norm_scale"], cfg.d_inner) @ w)
+        if self.inner:
+            # each rank uses its block of y, but ran the SSD on every head:
+            # its backward takes the whole cotangent of y over m, not the
+            # rank's block of it, whose A_log and dt_bias gradients would
+            # cancel against the other ranks' in the replicated sum
+            y = hints.mean_cotangent(y)
+            return hints.reduce_model(_gated_rmsnorm(y, z, p["norm_scale"], block=True) @ w)
+        return _gated_rmsnorm(y, z, p["norm_scale"]) @ w
 
 
 def cache_widths(cfg: ModelConfig) -> Tuple[int, int]:
@@ -255,11 +288,7 @@ def ssm_apply(
         Ch.unflatten(2, (Hl, N)), cfg.ssm_chunk,
     )
     y = y + xh * p["D"][None, None, :, None].to(dt_)
-    y = _gated_rmsnorm(y.reshape(B, S, Hl * P), z, p["norm_scale"],
-                       cfg.d_inner if mx.on else None)
-    out = y @ p["out_proj"].to(dt_)
-    if mx.on:
-        out = hints.reduce_model(out)
+    out = mx.out(cfg, p, y.reshape(B, S, Hl * P), z)
 
     cache = None
     if build_cache:
@@ -306,7 +335,4 @@ def ssm_decode_step(
 
     state = _state_step(cache["state"], dA, (dt[..., None] * xh)[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", state, Ch) + xh * p["D"][None, :, None]
-    y = _gated_rmsnorm(y.reshape(B, Hl * P).to(dt_), z, p["norm_scale"],
-                       cfg.d_inner if mx.on else None)
-    y = y @ p["out_proj"].to(dt_)
-    return (hints.reduce_model(y) if mx.on else y)[:, None, :], cache
+    return mx.out(cfg, p, y.reshape(B, Hl * P).to(dt_), z)[:, None, :], cache

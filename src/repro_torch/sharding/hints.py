@@ -23,12 +23,14 @@ the layouts :func:`repro_torch.sharding.specs.param_specs` and
 * attention: q/k/v column-parallel over the (kv-)head axis and ``wo``
   row-parallel (one all-reduce); where a projection falls back to d_model
   it is row-parallel (the rank's slice of x times its rows, then an
-  all-reduce) and each rank picks the kv heads its q heads need; the KV
-  cache holds the rank's kv heads, or its block of the slots (the
-  sequence layout: decode attends all heads over the rank's slots and
-  combines the ranks' softmax pieces, :func:`max_model` then one sum), or
-  all of it where the rules replicate it; Whisper's cross-attention runs
-  head-parallel alike;
+  all-reduce) and each rank's q heads read their own kv heads (in runs of
+  uniform group size where the rank's q heads and the kv group do not
+  divide one another); the KV cache holds the rank's kv heads, or its
+  block of the slots (the sequence layout: decode attends all heads over
+  the rank's slots and combines the ranks' softmax pieces,
+  :func:`max_model` then one sum), or all of it where the rules replicate
+  it; Whisper's cross-attention runs alike, its (k, v) the rank's kv heads
+  or its block of the encoder's frames (combined as the ring's slots);
 * the MLP and the MoE's shared expert column-parallel up, row-parallel
   down (one all-reduce); the routed experts expert-parallel on the E axis
   (a rank dispatches to and runs its experts only), or, where E does not
@@ -36,7 +38,8 @@ the layouts :func:`repro_torch.sharding.specs.param_specs` and
 * the RG-LRU width-sharded (its gates' (W, W) products read the conv's
   output gathered over ``"model"``) and the Mamba2 mixer head-sharded (its
   in_proj and conv blocks gathered, the SSD on the rank's heads, the gated
-  norm's sum of squares all-reduced);
+  norm's sum of squares all-reduced), or, where its heads do not divide,
+  the SSD on every head on every rank;
 * the embedding vocab-sharded (a rank looks up its rows, zeroes the rest,
   all-reduces) or d_model-sharded (the rank's columns, gathered), the LM
   head vocab-sharded (rank-local logits, gathered where logits are
@@ -72,9 +75,9 @@ batched tensor (exact: an all-reduce is elementwise), so the round engine's
 ``torch.func.vmap`` of ``torch.func.grad`` over the cohort and the block
 recompute's ``torch.func.vjp`` reach c10d with plain tensors.  Every rank
 runs the same graph, so the collectives of a backward line up.
-:func:`max_model` (decode's context-parallel combine) has no backward.
-What these layers do not implement raises ``NotImplementedError``
-(:func:`refuse`): any layout the rules pick that a layer lacks.
+:func:`max_model` (the context-parallel combine's shift) passes no
+gradient: the combine does not depend on it.  The layers run every layout
+the rules pick.
 
 FSDP (``use_mesh(mesh, fsdp=True)``; fully sharded data parallelism: the
 parameters split over the data axes too, as ``param_specs(..., fsdp=True)``
@@ -104,8 +107,6 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.tree import tree_map
-
-ROADMAP_ITEM = "ROADMAP Queue 1 item 13b(ii)"
 
 # the ambient mesh with its axis sizes, this rank's coordinates (read once:
 # a DeviceMesh recomputes its layout on every read of .mesh) and the data
@@ -206,12 +207,6 @@ def layout(path: str, shape) -> Any:
     from repro_torch.sharding.specs import rule_spec
 
     return rule_spec(path, shape, {"model": model_size()}).full(len(shape))
-
-
-def refuse(what: str) -> None:
-    """Raise for a layout or path this slice does not implement."""
-    raise NotImplementedError(f"{what} under a 'model' axis of {model_size()}: not "
-                              f"implemented, {ROADMAP_ITEM}")
 
 
 def _group(axis: str):
@@ -352,6 +347,36 @@ class _Scale(torch.autograd.Function):
         return g * ctx.scale, None
 
 
+class _Mean(torch.autograd.Function):
+    """``x`` itself forward; backward the cotangent summed over ``groups``
+    in fp32 and divided by ``m``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, groups, m):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.groups, ctx.m = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Sum.apply(g, ctx.groups, True) / ctx.m, None, None
+
+
+def mean_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """``x``, computed whole on every "model" rank, whose cotangent each
+    rank holds a piece of (the pieces sum to the whole): its backward gives
+    every rank the pieces' mean, so what lies before it differentiates the
+    whole cotangent, over m, on every rank, and not each rank's piece (x
+    itself without a model axis or a gradient)."""
+    if model_size() == 1 or not torch.is_grad_enabled():
+        return x
+    return _Mean.apply(x, (_group("model"),), model_size())
+
+
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
     """Sum of ``x`` over the "model" ranks (x itself without a model axis),
     in fp32, returned in x's dtype; x is not written.  Its backward is the
@@ -361,17 +386,39 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     return _Sum.apply(x, (_group("model"),), True)
 
 
+class _Max(torch.autograd.Function):
+    """The elementwise max of ``x`` over the "model" ranks, in fp32; no
+    gradient flows through it (a shift the caller's result does not depend
+    on).  Under ``vmap`` the physical batched tensor is all-reduced
+    (elementwise: exact)."""
+
+    @staticmethod
+    def forward(x):
+        t = x.to(torch.float32, copy=True).contiguous()
+        all_reduce(t, (_group("model"),), op=dist.ReduceOp.MAX)
+        return t
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        return _Max.forward(x), in_dims[0]
+
+
 def max_model(x: torch.Tensor) -> torch.Tensor:
     """Elementwise max of ``x`` over the "model" ranks, in fp32 (x itself,
-    as fp32, without a model axis); x is not written.  It has no backward:
-    a call under a gradient raises."""
-    if torch.is_grad_enabled() and x.requires_grad and model_size() > 1:
-        raise NotImplementedError("max_model has no backward: decode's combine runs under "
-                                  "torch.no_grad")
-    t = x.to(torch.float32, copy=True).contiguous()
-    if model_size() > 1:
-        all_reduce(t, (_group("model"),), op=dist.ReduceOp.MAX)
-    return t
+    as fp32, without a model axis); x is not written.  It passes no
+    gradient: a caller differentiates only through what does not depend on
+    the max (the context-parallel combine's shift)."""
+    if model_size() == 1:
+        return x.to(torch.float32, copy=True)
+    return _Max.apply(x.detach())
 
 
 def pad_block(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -15,10 +15,11 @@ sharded runs are in ``tests/test_torch_dist_engines.py``.
 Where the reference takes its device count from ``jax.devices()``, the port
 counts the world's ranks; a ``"model"`` axis builds, an SSM's backward
 runs under it (its gathered gradient against ``jax.grad`` of the
-reference), and a layout the sharded layers do not implement raises
-``NotImplementedError`` under it, naming its ROADMAP item (the sharded
+reference), and a cross-attention whose (k, v) the rules split over the
+encoder's frames runs under it and matches the reference (the sharded
 layers themselves are in ``tests/test_torch_tp.py``,
-``tests/test_torch_tp_families.py`` and ``tests/test_torch_tp_train.py``).
+``tests/test_torch_tp_families.py``, ``tests/test_torch_tp_train.py``
+and ``tests/test_torch_layouts.py``).
 """
 import os
 import signal
@@ -52,6 +53,7 @@ from repro_torch.launch.dist_check import C, D, LAM, grid_clients  # noqa: E402
 from repro_torch.launch.world import run_world, single_rank_world  # noqa: E402
 from repro_torch.sharding.specs import data_parallel_spec, replicated, stats_specs  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_families import check_cross_split, cross_split_reference  # noqa: E402
 
 WORLD = 4
 
@@ -74,14 +76,15 @@ def test_make_host_mesh_raises_on_indivisible(ranks):
 
 
 def test_tensor_parallelism_raises_naming_its_item(ranks):
-    """A "model" axis of 2 builds (host and tier meshes); a layout the
-    sharded layers do not implement (a cross-attention (k, v) split over
-    the frames) raises under it, naming its item."""
+    """A "model" axis of 2 builds (host and tier meshes); the layout that
+    raised under it until the sharded cross-attention learned it (a
+    cross-attention (k, v) split over the frames: Whisper's smoke with 3
+    kv heads) now runs, and its prefill and decode logits match the
+    reference's unsharded model within 1e-5 of max|logit|."""
     tp = ranks[0]["model_parallel=2"]
     assert tp["host"] == (("data", "model"), ("data",), (WORLD // 2, 2))
     assert tp["tiers"] == (("edge", "model"), ("edge",), (WORLD // 2, 2))
-    kind, msg = tp["cross-attention split"]
-    assert kind == "NotImplementedError" and "Queue 1 item 13b(ii)" in msg
+    check_cross_split(tp["cross-attention split"], 2, cross_split_reference())
 
 
 def test_ssm_backward_under_a_model_axis_matches_the_reference(ranks):

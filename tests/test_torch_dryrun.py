@@ -364,12 +364,25 @@ def test_the_command_line_writes_the_references_keys(tmp_path):
 
 def test_the_command_line_records_an_error_and_exits_1(tmp_path):
     """A combination that raises is recorded with its traceback, and the
-    run exits 1: the Mamba2 smoke's 8 heads do not divide 16."""
-    got, recs = _cli(tmp_path, "--arch", "mamba2-1.3b-smoke", "--shape", "decode_32k")
+    run exits 1: an arch no config names."""
+    got, recs = _cli(tmp_path, "--arch", "no-such-arch", "--shape", "decode_32k")
     assert got.returncode == 1
     (rec,) = recs
-    assert rec["status"] == "error" and "NotImplementedError" in rec["error"]
+    assert rec["status"] == "error" and "KeyError" in rec["error"]
     assert "Traceback" in rec["traceback"]
+    assert "done: ok=0 failed=1 skipped=0" in got.stdout
+
+
+def test_the_mamba2_smoke_whose_heads_do_not_divide_records_ok(tmp_path):
+    """The Mamba2 smoke's 8 heads do not divide the production mesh's 16
+    model ranks: the rules leave its SSD heads unsplit, every rank runs
+    them all, and the record is ``ok``, as the reference lowers it."""
+    got, recs = _cli(tmp_path, "--arch", "mamba2-1.3b-smoke", "--shape", "decode_32k")
+    assert got.returncode == 0, got.stderr[-2000:]
+    (rec,) = recs
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16" and rec["kind"] == "decode"
+    assert rec["argument_size_in_bytes"] == rec["argument_size_in_bytes_built"]
+    assert "done: ok=1 failed=0 skipped=0" in got.stdout
 
 
 def test_a_fake_world_runs_only_the_dry_run():

@@ -9,6 +9,7 @@
 * The copied ``ClientSampler`` draws exactly the reference's clients.
 * The device rule, and that the port imports without jax.
 """
+import os
 import subprocess
 import sys
 import textwrap
@@ -219,21 +220,30 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_without_jax_or_the_reference_package():
+    """Every module of the port and every script of ``examples_torch/``
+    imports with ``jax`` and ``repro`` unimportable."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
-        import repro_torch
+        import examples_torch, repro_torch
         names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        names += [m.name for m in pkgutil.walk_packages(examples_torch.__path__,
+                                                        "examples_torch.")]
         for name in names:
             importlib.import_module(name)
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
         print(" ".join(names))
     """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env={"PYTHONPATH": ":".join(sys.path)})
+                         env={"PYTHONPATH": ":".join([root] + sys.path)})
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
+    assert {"examples_torch." + n for n in ("quickstart", "fed3r_vs_fedavg", "personalized_fed3r",
+                                            "streaming_fed3r", "serve_demo",
+                                            "train_fed3r_ft")} <= set(names)
+    names = [n for n in names if n.startswith("repro_torch.")]
     assert len(names) >= 30  # every module of the port was imported
     for name in ("federated.personalization", "federated.slots", "launch.serve_heads",
                  "launch.serving_engine", "launch.serve_stream", "kernels.chol_update",

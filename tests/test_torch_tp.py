@@ -65,6 +65,7 @@ from repro_torch.sharding.shard import (  # noqa: E402
     shard_params,
     shard_params_from,
 )
+from torch_families import check_cross_split, cross_split_reference  # noqa: E402
 
 WORLD = 4
 ARCHS = ["qwen2-7b-smoke", "command-r-plus-104b-smoke", "llama4-scout-17b-a16e-smoke",
@@ -366,13 +367,15 @@ def test_fallback_layouts_match_the_reference(world, label):
 @pytest.mark.parametrize("case", ["scaffold under psum", "cross-attention split"])
 def test_unported_layouts_and_paths_raise(world, case):
     """What stays refused under "model" 2: Scaffold's rounds under psum (as
-    in the reference) and a cross-attention (k, v) split over the frames."""
+    in the reference).  A cross-attention (k, v) split over the frames,
+    refused until the sharded cross-attention learned it, now runs and
+    matches the reference's unsharded model."""
     ranks, _ = world
-    kind, msg = ranks[0]["refusals"][case]
     if case == "scaffold under psum":
+        kind, msg = ranks[0]["refusals"][case]
         assert kind == "ValueError" and "scaffold" in msg, (kind, msg)
     else:
-        assert kind == "NotImplementedError" and "item 13b(ii)" in msg, (kind, msg)
+        check_cross_split(ranks[0]["refusals"][case], 2, cross_split_reference())
 
 
 @pytest.mark.parametrize("case", ["train phase 2", "hybrid backward", "audio backward"])

@@ -51,6 +51,7 @@ from repro_torch.launch import dist_check, train  # noqa: E402
 from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.sharding.specs import map_with_path  # noqa: E402
+from torch_families import check_cross_split, cross_split_reference  # noqa: E402
 
 REL = 1e-5  # of a leaf's max|g|: summation order only (most leaves read ~1e-6)
 # leaves that need more, each with its limit and reason:
@@ -366,10 +367,11 @@ def test_train_run_phase2_matches_one_process_and_resumes_bitwise(worlds, mesh):
 
 def test_what_stays_refused_raises(worlds):
     """Scaffold's rounds under psum (its cvar scatter needs the whole
-    cohort, as in the reference) and a cross-attention (k, v) that the
-    rules would split over the frames."""
+    cohort, as in the reference) stay refused; a cross-attention (k, v)
+    that the rules split over the frames, refused until the sharded
+    cross-attention learned it, runs and matches the reference."""
     ranks, _, _ = worlds
     kind, msg = ranks[0]["refusals"]["scaffold under psum"]
     assert kind == "ValueError" and "scaffold" in msg
-    kind, msg = ranks[0]["refusals"]["cross-attention split"]
-    assert kind == "NotImplementedError" and "item 13b(ii)" in msg, (kind, msg)
+    check_cross_split(ranks[0]["refusals"]["cross-attention split"], 2,
+                      cross_split_reference())

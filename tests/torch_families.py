@@ -14,6 +14,11 @@ drawn with numpy from a seed.  Tolerances, relative to the largest reference val
   for the configs in ``ARGMAX_NEAR_TIES``, no argmax flipped where the
   reference's top-2 gap is at least twice the largest logit gap.
 """
+import os
+import pickle
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import build_model
 from repro_torch.models.convert import cache_from_jax, params_from_jax
+from repro_torch.sharding.specs import map_with_path
 from repro_torch.tree import tree_leaves
 
 REL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -257,3 +263,128 @@ def check_serve(arch, B, S, gen):
     assert res.tokens.shape == (B, gen)
     np.testing.assert_array_equal(res.tokens.numpy(), np.asarray(jnp.concatenate(want, 1)))
 
+
+
+def jax_params(tree) -> dict:
+    """A port parameter tree (non-hybrid) as the reference's: each layer
+    list stacked on a leading axis, jnp leaves."""
+    return {k: jax.tree.map(lambda *ts: jnp.asarray(np.stack([np32(t) for t in ts])), *v)
+            if k in ("layers", "enc_layers", "dec_layers")
+            else jax.tree.map(lambda t: jnp.asarray(np32(t)), v) for k, v in tree.items()}
+
+
+def cross_split_reference() -> dict:
+    """The reference's unsharded prefill and teacher-forced decode logits of
+    ``launch/dist_check.py``'s ``CROSS_SPLIT`` (Whisper's smoke, 3 kv heads)
+    on ``seeded_factory(0)`` weights and ``cross_split_batch()``."""
+    from repro_torch.launch import dist_check
+    from repro_torch.sharding.shard import full_params, seeded_factory
+
+    cs = dist_check.CROSS_SPLIT
+    cfg = get_config(cs["arch"]).replace(**cs["overrides"])
+    jcfg = jget_config(cs["arch"]).replace(**cs["overrides"])
+    jparams = jax_params(full_params(cfg, seeded_factory(0), "cpu"))
+    batch = dist_check.cross_split_batch()
+    S0, T = cs["S0"], cs["T"]
+    frames = jnp.asarray(batch["audio_frames"])
+    toks = jnp.asarray(batch["tokens"].astype(np.int32))
+    lg, cache = jax.jit(lambda p, t: jmodel.prefill(
+        jcfg, p, {"tokens": t, "audio_frames": frames}, S0 + T))(jparams, toks[:, :S0])
+    step = jax.jit(lambda p, c, t, pos: jmodel.decode_step(jcfg, p, c, t, pos))
+    dec = []
+    for t in range(T):
+        out, cache = step(jparams, cache, toks[:, S0 + t:S0 + t + 1], jnp.int32(S0 + t))
+        dec.append(np.asarray(out))
+    return {"prefill": np.asarray(lg), "decode": np.stack(dec), "frames": cfg.n_audio_frames}
+
+
+def check_cross_split(results, model, want, rel=1e-5) -> None:
+    """The ranks' runs of the cross-attention split over the frames
+    (``results``, each rank's ``tp_job`` result in rank order, over
+    ``model`` ranks a data group) against ``cross_split_reference()``:
+    prefill and decode logits within ``rel`` of max|x|, and every decoder
+    layer's cross (k, v) holding the rank's block of the frames."""
+    for key, axis in (("prefill", 0), ("decode", 1)):
+        got = np.concatenate([results[r][key] for r in range(0, len(results), model)], axis=axis)
+        close(got, want[key], rel)
+    for res in results:
+        crossed = {p: s for p, s in res["cache_shapes"].items() if "/cross/" in p}
+        assert crossed and all(s[1] == want["frames"] // model for s in crossed.values())
+
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+# lm_loss's gradient in float64, by the port in torch.float64 and by the
+# reference under jax_enable_x64, for each job: argv[1] the pickled {name:
+# (arch, replacements, reference params, batch)}, argv[2] where to write
+# {name: {"port": {path: grad}, "reference": {path: grad}}} over the port's
+# tree, argv[3] the packages' source.  Each package casts to fp32 at fixed
+# points (scores, norms, logits), so the name float32 of torch and of
+# jax.numpy is bound to float64 before either package is imported
+ORACLES = r'''
+import pickle, sys
+import numpy as np
+sys.path.insert(0, sys.argv[3])
+import torch
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+torch.float32 = torch.float64  # the packages' fp32 casts, in float64
+jnp.float32 = jnp.float64
+from repro.configs import get_config as jget_config
+from repro.models import model as jmodel
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_jax
+from repro_torch.sharding.specs import map_with_path
+
+
+def oracles(arch, over, params, batch):
+    jcfg = jget_config(arch).replace(**dict(over, dtype="float64"))
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+    jb = {k: jnp.asarray(v) if v.dtype.kind == "i" else jnp.asarray(v, jnp.float64)
+          for k, v in batch.items()}
+    jg = jax.grad(lambda p: jmodel.lm_loss(jcfg, p, jb))(jp)
+    # its compute dtype: torch.float32, float64 here
+    cfg = get_config(arch).replace(**dict(over, dtype="float32"))
+    tp = map_with_path(params_from_jax(cfg, params, device="cpu"),
+                       lambda _, t: t.to(torch.float64))
+    tb = {k: torch.as_tensor(v) if v.dtype.kind == "i" else torch.as_tensor(v, dtype=torch.float64)
+          for k, v in batch.items()}
+    tg = torch.func.grad(lambda p: build_model(cfg).loss(p, tb))(tp)
+    out = {"port": {}, "reference": {}}
+    map_with_path(tg, lambda path, t: out["port"].__setitem__("/".join(path), t.numpy()))
+    # the reference's tree in the port's layout, float64 kept (params_from_jax
+    # casts to fp32): its stacked layers unstacked
+    depth = {"layers": cfg.n_layers, "enc_layers": cfg.n_encoder_layers,
+             "dec_layers": cfg.n_layers}
+    ref = {k: [jax.tree.map(lambda a: np.asarray(a)[i], v) for i in range(depth[k])]
+           if k in depth else jax.tree.map(np.asarray, v) for k, v in jg.items()}
+    map_with_path(ref, lambda path, t: out["reference"].__setitem__("/".join(path), t))
+    return out
+
+
+jobs = pickle.load(open(sys.argv[1], "rb"))
+pickle.dump({name: oracles(*job) for name, job in jobs.items()}, open(sys.argv[2], "wb"))
+'''
+
+
+def start_float64_oracles(root, jobs) -> subprocess.Popen:
+    """The subprocess of ``ORACLES`` on ``jobs`` ({name: (arch, replacements,
+    the reference's params as numpy, batch)}), writing under the directory
+    ``root``."""
+    with open(os.path.join(root, "in.pkl"), "wb") as f:
+        pickle.dump(jobs, f)
+    return subprocess.Popen([sys.executable, "-c", ORACLES, os.path.join(root, "in.pkl"),
+                             os.path.join(root, "out.pkl"), SRC],
+                            env=dict(os.environ, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def float64_oracles(sub, root) -> dict:
+    """{name: {"port": {path: gradient}, "reference": {...}}} from the
+    subprocess ``sub`` that :func:`start_float64_oracles` started under
+    ``root``."""
+    _, err = sub.communicate(timeout=300)
+    assert sub.returncode == 0, err[-3000:]
+    with open(os.path.join(root, "out.pkl"), "rb") as f:
+        return pickle.load(f)
